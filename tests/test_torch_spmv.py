@@ -1,0 +1,215 @@
+"""The port's slice end to end against the JAX package: ``spmv_csr`` with the
+auto-selected configuration, error codes, unported routes, the selector, the
+stream-byte model, and the port's independence from JAX.
+
+The JAX dispatch builds its plans with the JAX planner, which needs the port's
+copy of ``_absorb_run_padding`` bound into its module for the test's
+duration.  The two dispatches pick different step widths (the JAX one resolves
+8 under interpret mode, the port 256), so their plans differ in padding and
+their outputs are compared under the row bound
+``|y_port - y_jax|_i <= 1e-5 * max((|A||x|)_i, 1)``.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import tpu_spmv  # noqa: E402
+import tpu_spmv.kernels.window_ell as jwe  # noqa: E402
+from tpu_spmv.csr import CSRMatrix as JaxCSRMatrix  # noqa: E402
+
+import tpu_spmv_torch  # noqa: E402
+from tpu_spmv_torch import KernelType, SpMVConfig, SpMVError  # noqa: E402
+from tpu_spmv_torch.kernels import plan as tplan  # noqa: E402
+from tpu_spmv_torch.kernels import window_ell as twe  # noqa: E402
+from tpu_spmv_torch.utils.testing import (RandomGenerator,  # noqa: E402
+                                          abs_row_scale, spmv_matches)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROW_TOL = 1e-5
+
+
+@pytest.fixture
+def absorb_helper(monkeypatch):
+    monkeypatch.setattr(jwe, "_absorb_run_padding",
+                        tplan._absorb_run_padding, raising=False)
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    A = RandomGenerator(42).power_law_csr(8192, 2048, 12.0, 1.6)
+    x = RandomGenerator(7).vector(A.num_cols)
+    return A, x
+
+
+def to_jax_csr(A):
+    return JaxCSRMatrix(A.num_rows, A.num_cols, A.values, A.col_indices,
+                        A.row_ptrs)
+
+
+@pytest.mark.parametrize("kernel_type", ["auto", "VECTOR_CSR"])
+def test_spmv_csr_matches_jax(smoke, absorb_helper, kernel_type):
+    A, x = smoke
+    cfg = tpu_spmv_torch.spmv_auto_config(A)
+    jcfg = tpu_spmv.spmv_auto_config(to_jax_csr(A))
+    if kernel_type != "auto":
+        cfg.kernel_type = KernelType[kernel_type]
+        jcfg.kernel_type = tpu_spmv.KernelType[kernel_type]
+    res = tpu_spmv_torch.spmv_csr(A, x, cfg)
+    jres = tpu_spmv.spmv_csr(to_jax_csr(A), x, jcfg)
+    assert res.error_code == 0 == jres.error_code
+    y, y_jax = res.y_host(), np.asarray(jres.y)
+    assert y.shape == y_jax.shape == (A.num_rows,)
+    bound = ROW_TOL * np.maximum(abs_row_scale(A, x), 1.0)
+    assert np.all(np.abs(y - y_jax) <= bound)
+    assert spmv_matches(y, A, x, rel_tol=ROW_TOL)
+    assert res.plan.sup == 1024 and res.plan.device.type == "cpu"
+
+
+def test_spmv_csr_accepts_tensors_and_caches_plans(smoke):
+    A, x = smoke
+    A = tpu_spmv_torch.CSRMatrix(A.num_rows, A.num_cols, A.values,
+                                 A.col_indices, A.row_ptrs)  # fresh cache
+    cfg = SpMVConfig(kernel_type=KernelType.MERGE_PATH)
+    first = tpu_spmv_torch.spmv_csr(A, torch.from_numpy(x), cfg)
+    second = tpu_spmv_torch.spmv_csr(A, x, cfg)
+    assert first.plan is second.plan
+    assert second.plan_seconds < first.plan_seconds
+    assert torch.equal(first.y, second.y)
+
+
+def test_error_codes_match_jax(smoke):
+    A, x = smoke
+    jA = to_jax_csr(A)
+    cases = [
+        (None, x, {}), (A, None, {}),
+        (A, x[:-1], {}), (A, np.zeros(A.num_cols + 3, np.float32), {}),
+        (A, x.reshape(-1, 2), {}), (A, x, {"vec_size": A.num_cols - 1}),
+    ]
+    for M, v, kw in cases:
+        port = tpu_spmv_torch.spmv_csr(M, v, **kw).error_code
+        ref = tpu_spmv.spmv_csr(jA if M is not None else None, v,
+                                **kw).error_code
+        assert port == ref != 0, (port, ref)
+    assert tpu_spmv_torch.spmv_csr(None, x).error_code \
+        == SpMVError.INVALID_ARGUMENT
+    assert tpu_spmv_torch.spmv_csr(A, x[:-1]).error_code \
+        == SpMVError.INVALID_DIMENSION
+
+
+def test_unported_routes_raise(smoke):
+    A, x = smoke
+    routes = [
+        (SpMVConfig(kernel_type=KernelType.SCALAR_CSR), "M7"),
+        (SpMVConfig(kernel_type=KernelType.ELL_KERNEL), "M10"),
+        (SpMVConfig(kernel_type=KernelType.MERGE_PATH, use_vmem_x=False),
+         "M10"),
+        (SpMVConfig(kernel_type=KernelType.MERGE_PATH, pattern=True), "M7"),
+        (SpMVConfig(kernel_type=KernelType.VECTOR_CSR, bf16_values=True),
+         "M7"),
+    ]
+    for cfg, item in routes:
+        with pytest.raises(NotImplementedError, match=item):
+            tpu_spmv_torch.spmv_csr(A, x, cfg)
+    for cols, item in ((1 << 20) + 1, "M7"), ((1 << 21) + 1, "M7"):
+        wide = tpu_spmv_torch.CSRMatrix(4, cols, np.ones(2, np.float32),
+                                        np.array([0, cols - 1], np.int32),
+                                        np.array([0, 1, 2, 2, 2], np.int32))
+        with pytest.raises(NotImplementedError, match=item):
+            tpu_spmv_torch.spmv_csr(
+                wide, np.ones(cols, np.float32),
+                SpMVConfig(kernel_type=KernelType.VECTOR_CSR))
+    square = RandomGenerator(1).power_law_csr(4096, 4096, 20.0, 1.6)
+    with pytest.raises(NotImplementedError, match="M8"):
+        tpu_spmv_torch.spmv_csr(
+            square, np.ones(4096, np.float32),
+            SpMVConfig(kernel_type=KernelType.MERGE_PATH, reorder=True))
+
+
+@pytest.mark.parametrize("shape", [(8192, 2048, 12.0, 1.6),
+                                   (500, 300, 0.02, 1.5),
+                                   (600, 600, 30.0, 8.0)])
+def test_selector_matches_jax(shape):
+    A = RandomGenerator(11).power_law_csr(*shape)
+    port, ref = tpu_spmv_torch.spmv_auto_config(A), \
+        tpu_spmv.spmv_auto_config(to_jax_csr(A))
+    assert (int(port.kernel_type), port.block_size, port.use_vmem_x) \
+        == (int(ref.kernel_type), ref.block_size, ref.use_vmem_x)
+
+
+def test_selector_picks_vector_on_uniform_rows():
+    dense = np.ones((64, 64), np.float32)
+    A = tpu_spmv_torch.CSRMatrix.from_dense(dense)
+    assert tpu_spmv_torch.spmv_auto_config(A).kernel_type \
+        == tpu_spmv.spmv_auto_config(to_jax_csr(A)).kernel_type \
+        == KernelType.VECTOR_CSR
+
+
+@pytest.mark.parametrize("leveled", [False, True])
+def test_stream_bytes_match_jax(smoke, absorb_helper, leveled):
+    A, _ = smoke
+    kw = dict(split_rows=128, step_groups=16, permute_rows=leveled)
+    jp = jwe.WindowEllPlan.build(A, **kw)
+    plan = twe.plan_from_host(tplan.build(A, **kw))
+    assert plan.stream_bytes == jp.stream_bytes
+
+
+def test_csr_byte_model_matches_jax():
+    from tpu_spmv.bandwidth import compute_bandwidth_csr as jax_bw
+
+    from tpu_spmv_torch.bandwidth import compute_bandwidth_csr
+
+    ref = jax_bw(262144, 4096, 10_300_000, 0.2)
+    got = compute_bandwidth_csr(262144, 4096, 10_300_000, 0.2, 819.0)
+    assert got.achieved_gb_s == ref.achieved_gb_s
+
+
+@pytest.mark.parametrize("error, expected", [
+    (lambda: torch.cuda.OutOfMemoryError("CUDA out of memory"),
+     tpu_spmv_torch.errors.DeviceAllocError),
+    (lambda: RuntimeError("CUDA error: an illegal memory access"),
+     tpu_spmv_torch.errors.DeviceTransferError),
+    (lambda: MemoryError("host"), tpu_spmv_torch.errors.OutOfMemoryError),
+])
+def test_guarded_upload_maps_copy_errors(monkeypatch, error, expected):
+    def failing_to(self, *args, **kwargs):
+        raise error()
+
+    monkeypatch.setattr(torch.Tensor, "to", failing_to)
+    with pytest.raises(expected):
+        tpu_spmv_torch.errors.guarded_upload(np.zeros(4, np.float32), "cpu")
+
+
+def test_guarded_upload_failure_becomes_error_code(smoke, monkeypatch):
+    A, x = smoke
+
+    def oom(self, *args, **kwargs):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+
+    monkeypatch.setattr(torch.Tensor, "to", oom)
+    res = tpu_spmv_torch.spmv_csr(A, x, SpMVConfig(
+        kernel_type=KernelType.MERGE_PATH))
+    assert res.error_code == SpMVError.DEVICE_ALLOC and res.y is None
+
+
+def test_import_does_not_load_jax():
+    code = ("import sys, tpu_spmv_torch, tpu_spmv_torch.kernels.window_ell; "
+            "assert 'jax' not in sys.modules, 'jax imported'")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_refuses_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py would run")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    lines = proc.stdout.strip().splitlines()
+    assert not lines or '"ok": true' not in lines[-1]

@@ -11,13 +11,32 @@ Phases (each raises on failure; nothing is caught and passed over):
    window-ELL fold (K1) over plans of the bench's smoke matrix at every
    superblock height and run length, natural and leveled; the unpermute
    (K2) on a random ``lam``.
-4. The main path at the headline size: merge-path ``spmv_csr`` on
+4. The chunk permute (K3) against its plain version, exactly: x not a
+   whole number of chunks nor of float4s, ``src`` with repeats and chunks
+   past the end of x, an output ending mid-chunk, a pointer that is not
+   16-byte aligned, and a round trip (order, then its inverse) that gives x
+   back bit for bit.
+5. The main path at the headline size: merge-path ``spmv_csr`` on
    ``power_law_csr(262144, 4096, avg 40, alpha 1.6)`` (about 10.3M nnz)
    with the auto-selected configuration, checked against the CPU oracle,
    timed with CUDA events, and held to the physics guard (streamed bytes /
    time must not exceed 1.02 × measured STREAM).  Each kernel is then
-   compared with, and timed beside, its plain version at the plan's shapes.
+   compared with, and timed beside, its plain version at the plan's shapes
+   (K1 under the row bound, K2 and K3 exactly).
    Vector CSR (no row split) runs once against the oracle too.
+6. The block-reordered path at full width: ``spmv_csr`` with the auto
+   configuration (``reorder=None``: the probe decides) on
+   ``scrambled_banded_csr(2^20, bandwidth 4096, avg 12)`` (about 13.5M nnz,
+   a 2^20-node mesh), which must be served by a ``ReorderedPlan``, checked
+   against the oracle, timed, held to the physics guard with both permutes'
+   bytes, and counted: two K3, one K1 per inner section and one K2 launch
+   per call.  Each kernel of the path (the x permute, K1 and K2 on the
+   inner plan, the row permute) is then compared with, and timed beside,
+   its plain version on the inputs the path gives it.
+7. Natural against reordered at 262,144 rows, on the planted banded and
+   clustered matrices: both plans timed (natural, reordered, reordered,
+   natural) and checked against the oracle, and each plan's kernels against
+   their plain versions.  A comparison, not a claim.
 
 Everything before the last line is diagnostics.  The line before the
 ``nvidia-smi`` line is one JSON object with a record per kernel; the last
@@ -36,6 +55,13 @@ import time
 # the main path's matrix (bench.py:74-75) and its oracle tolerance
 HEADLINE = (262144, 4096, 40.0, 1.6)
 SMOKE = (8192, 2048, 12.0, 1.6)
+# the reordered path's matrix: a scrambled 2^20-node mesh (the size of
+# DIMACS10 delaunay_n20), the widest square matrix the single-plan dispatch
+# takes (VMEM_X_MAX_COLS)
+MESH = (1 << 20, 4096, 12.0)
+# natural against reordered at 262,144 rows: (generator, args)
+AB = (("scrambled_banded_csr", (262144, 4096, 12.0)),
+      ("clustered_csr", (262144, 32, 14.0)))
 REL_TOL = 1e-5
 # timing protocol of the main-path run (spmv_csr measure=True)
 ITERS, SAMPLES = 100, 5
@@ -71,12 +97,93 @@ def max_row_excess(y, y_ref, A, x) -> float:
 
 
 def rows_of(out, plan):
-    """The original-order rows of a fold output (plain unpermute)."""
+    """The original-order rows of a fold output, through the plain
+    unpermute (and, for a reordered plan, the plain row permute)."""
+    from tpu_spmv_torch.kernels.reorder import (ReorderedPlan,
+                                                permute_chunks_plain)
     from tpu_spmv_torch.kernels.window_ell import unpermute_plain
 
-    if plan.lam is None:
-        return out[:plan.num_rows].cpu().numpy()
-    return unpermute_plain(out, plan.lam, plan.num_rows).cpu().numpy()
+    rp = plan if isinstance(plan, ReorderedPlan) else None
+    inner = rp.inner if rp else plan
+    y = out[:inner.num_rows] if inner.lam is None \
+        else unpermute_plain(out, inner.lam, inner.num_rows)
+    if rp:
+        y = permute_chunks_plain(y, rp.row_src, rp.num_rows)
+    return y.cpu().numpy()
+
+
+def hold_kernels(plan, xd, A, x, what: str, timed: bool) -> dict:
+    """Each kernel of ``plan`` against its plain version on the inputs the
+    path gives it: for a reordered plan the x permute (K3), then the inner
+    plan's fold (K1, under the row bound), unpermute (K2) and the row
+    permute (K3); K2 and K3 exactly.  With ``timed``, each is timed beside
+    its plain version.  Returns ``{wrapper name: [(max_abs_err, ms,
+    plain_ms), ...]}`` in path order; the times are ``None`` untimed."""
+    import torch
+
+    from tpu_spmv_torch.kernels import reorder as tr
+    from tpu_spmv_torch.kernels import window_ell as twe
+    from tpu_spmv_torch.timing import time_cuda
+
+    rp = plan if isinstance(plan, tr.ReorderedPlan) else None
+    inner = rp.inner if rp else plan
+    held, parts = {}, []
+
+    def hold(kernel, plain, *args, exact=True, plain_iters=ITERS):
+        got, ref = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        name = kernel.__name__
+        check(not exact or torch.equal(got, ref),
+              f"{name} differs from its plain version ({what})")
+        err = float((got - ref).abs().max()) if got.numel() else 0.0
+        ms = plain_ms = None
+        if timed:
+            ms = time_cuda(lambda: kernel(*args), iters=ITERS,
+                           samples=SAMPLES) * 1e3
+            plain_ms = time_cuda(lambda: plain(*args), iters=plain_iters,
+                                 samples=SAMPLES, warmup=2) * 1e3
+        held.setdefault(name, []).append((err, ms, plain_ms))
+        parts.append(f"{name} max|Δ| {err:.3g}" + (
+            f" {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us)"
+            if timed else ""))
+        return got, ref
+
+    xin = xd
+    if rp:
+        xin, _ = hold(tr.permute_chunks, tr.permute_chunks_plain, xd,
+                      rp.col_src, inner.num_cols)
+    table = twe.gather_table(inner, xin)
+    out, ref = hold(twe.window_ell_fold, twe.window_ell_fold_plain, inner,
+                    table, exact=False, plain_iters=PLAIN_ITERS)
+    exc = max_row_excess(rows_of(out, plan), rows_of(ref, plan), A, x)
+    check(exc <= 0, f"K1 vs its plain version, row bound ({what})")
+    y = out[:inner.num_rows]
+    if inner.lam is not None:
+        y, _ = hold(twe.unpermute, twe.unpermute_plain, out, inner.lam,
+                    inner.num_rows)
+    if rp:
+        hold(tr.permute_chunks, tr.permute_chunks_plain, y, rp.row_src,
+             rp.num_rows)
+    log(f"kernels vs plain, {what}: K1 row-bound excess {exc:.3g}; "
+        + "; ".join(parts))
+    return held
+
+
+def kernel_record(name: str, held: dict, launches: int) -> dict:
+    """The ``kernels`` JSON record of one wrapper: its first timed use in
+    ``held`` (from :func:`hold_kernels`), the largest error of all."""
+    source, replaces = {
+        "window_ell_fold": ("window_ell.cu",
+                            "tpu_spmv/kernels/window_ell.py:1313"),
+        "unpermute": ("unpermute.cu", "tpu_spmv/kernels/window_ell.py:1463"),
+        "permute_chunks": ("permute.cu", "tpu_spmv/kernels/reorder.py:225"),
+    }[name]
+    _, ms, plain_ms = held[name][0]
+    return {"name": name, "route": "cuda",
+            "source": "tpu_spmv_torch/csrc/" + source, "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(e for e, _, _ in held[name]),
+            "ms": ms, "plain_ms": plain_ms}
 
 
 def phase_build() -> None:
@@ -102,6 +209,7 @@ def phase_kernels(dev) -> None:
     import numpy as np
     import torch
 
+    from tpu_spmv_torch import kernels as tk
     from tpu_spmv_torch.kernels import plan as tplan
     from tpu_spmv_torch.kernels import window_ell as twe
     from tpu_spmv_torch.utils.testing import RandomGenerator
@@ -110,7 +218,7 @@ def phase_kernels(dev) -> None:
     A = rng.power_law_csr(*SMOKE)
     x = rng.vector(A.num_cols)
     xd = torch.from_numpy(x).to(dev)
-    twe.reset_launch_counts()
+    tk.reset_launch_counts()
     for sup in (1024, 4096, 16384):
         for tb in (2, 4, 8):
             for leveled in (False, True):
@@ -136,10 +244,45 @@ def phase_kernels(dev) -> None:
     ref = twe.unpermute_plain(yv.to(dev), lam, 32000)
     torch.cuda.synchronize()
     check(torch.equal(got, ref), "K2 differs from its plain version")
-    counts = twe.launch_counts()
+    counts = tk.launch_counts()
     log(f"  K2 random lam: exact; launches in this phase {counts}")
     check(counts["window_ell_fold"] > 0 and counts["unpermute"] > 0,
           "a kernel's launch count did not move")
+
+
+def phase_k3(dev) -> None:
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch import kernels as tk
+    from tpu_spmv_torch.kernels import reorder as tr
+
+    g = np.random.default_rng(11)
+    n = 128 * 37 + 45                     # neither chunks nor float4s
+    x = torch.from_numpy(g.standard_normal(n + 1).astype(np.float32))
+    src = torch.from_numpy(g.integers(-2, 37 + 6, 300).astype(np.int32))
+    order = torch.from_numpy(g.permutation(38).astype(np.int32))
+    pos = torch.empty_like(order)
+    pos[order.long()] = torch.arange(38, dtype=torch.int32)
+    xd, srcd = x.to(dev), src.to(dev)
+    tk.reset_launch_counts()
+    cases = [("src with repeats and past the end", xd[:n], srcd, 300 * 128),
+             ("output ending mid-chunk", xd[:n], srcd, 300 * 128 - 57),
+             ("x not 16-byte aligned", xd[1:], srcd, 299 * 128 + 3),
+             ("order", xd[:n], order.to(dev), 38 * 128)]
+    for what, xv, sv, out_len in cases:
+        got = tr.permute_chunks(xv, sv, out_len)
+        ref = tr.permute_chunks_plain(xv.cpu(), sv.cpu(), out_len)
+        torch.cuda.synchronize()
+        check(torch.equal(got.cpu(), ref), f"K3 vs plain: {what}")
+    back = tr.permute_chunks(got, pos.to(dev), n)
+    torch.cuda.synchronize()
+    check(torch.equal(back, xd[:n]), "K3 round trip order -> inverse")
+    counts = tk.launch_counts()
+    log(f"  K3: {len(cases)} cases exact against plain, round trip exact; "
+        f"launches in this phase {counts['permute_chunks']}")
+    check(counts["permute_chunks"] == len(cases) + 1,
+          "K3 launch count did not move once per call")
 
 
 def phase_main(dev) -> list:
@@ -148,6 +291,7 @@ def phase_main(dev) -> list:
 
     from tpu_spmv_torch import (KernelType, SpMVConfig, spmv_auto_config,
                                 spmv_csr)
+    from tpu_spmv_torch import kernels as tk
     from tpu_spmv_torch.bandwidth import (get_gpu_peak_bandwidth,
                                           measured_stream_bandwidth)
     from tpu_spmv_torch.kernels import window_ell as twe
@@ -170,11 +314,11 @@ def phase_main(dev) -> list:
     xd = torch.from_numpy(x).to(dev)
 
     # the main path: counts from 0, one measured spmv_csr call
-    twe.reset_launch_counts()
+    tk.reset_launch_counts()
     res = spmv_csr(A, xd, cfg, measure=True, measure_iters=ITERS,
                    measure_samples=SAMPLES)
     torch.cuda.synchronize()
-    counts = twe.launch_counts()
+    counts = tk.launch_counts()
     check(res.error_code == 0, f"spmv_csr error_code {res.error_code}")
     plan = res.plan
     calls = 1 + MEASURE_WARMUP + ITERS * SAMPLES
@@ -224,32 +368,7 @@ def phase_main(dev) -> list:
           f"physics guard: {actual:.1f} GB/s streamed > 1.02 x STREAM")
 
     # each kernel against its plain version at the main path's shapes
-    table = twe.gather_table(plan, xd)
-    out = twe.window_ell_fold(plan, table)
-    ref = twe.window_ell_fold_plain(plan, table)
-    torch.cuda.synchronize()
-    k1_err = float((out - ref).abs().max())
-    exc = max_row_excess(rows_of(out, plan), rows_of(ref, plan), A, x)
-    check(exc <= 0, "K1 vs plain at the headline plan (row bound)")
-    k1_ms = time_cuda(lambda: twe.window_ell_fold(plan, table),
-                      iters=ITERS, samples=SAMPLES) * 1e3
-    k1_plain_ms = time_cuda(lambda: twe.window_ell_fold_plain(plan, table),
-                            iters=PLAIN_ITERS, samples=SAMPLES,
-                            warmup=2) * 1e3
-    lam = plan.lam
-    k2 = twe.unpermute(out, lam, plan.num_rows)
-    k2_ref = twe.unpermute_plain(out, lam, plan.num_rows)
-    torch.cuda.synchronize()
-    check(torch.equal(k2, k2_ref), "K2 vs plain at the headline plan")
-    k2_err = float((k2 - k2_ref).abs().max())
-    k2_ms = time_cuda(lambda: twe.unpermute(out, lam, plan.num_rows),
-                      iters=ITERS, samples=SAMPLES) * 1e3
-    k2_plain_ms = time_cuda(
-        lambda: twe.unpermute_plain(out, lam, plan.num_rows),
-        iters=ITERS, samples=SAMPLES) * 1e3
-    log(f"K1 fold: {k1_ms * 1e3:.2f} us (plain {k1_plain_ms * 1e3:.2f} us), "
-        f"max|Δ| {k1_err:.3g}; K2 unpermute: {k2_ms * 1e3:.2f} us (plain "
-        f"{k2_plain_ms * 1e3:.2f} us), max|Δ| {k2_err}")
+    held = hold_kernels(plan, xd, A, x, "headline", timed=True)
 
     # vector CSR: the same kernels, no row split
     vres = spmv_csr(A, xd, SpMVConfig(kernel_type=KernelType.VECTOR_CSR))
@@ -259,18 +378,141 @@ def phase_main(dev) -> list:
     log(f"vector CSR (split_rows=None): OK vs oracle; plan groups "
         f"{vres.plan.n_groups}, extras {vres.plan.n_extra}, build "
         f"{vres.plan_seconds:.2f} s")
-    return [
-        {"name": "window_ell_fold", "route": "cuda",
-         "source": "tpu_spmv_torch/csrc/window_ell.cu",
-         "replaces": "tpu_spmv/kernels/window_ell.py:1313",
-         "launches": counts["window_ell_fold"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "unpermute", "route": "cuda",
-         "source": "tpu_spmv_torch/csrc/unpermute.cu",
-         "replaces": "tpu_spmv/kernels/window_ell.py:1463",
-         "launches": counts["unpermute"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-    ]
+    return [kernel_record(k, held, counts[k])
+            for k in ("window_ell_fold", "unpermute")]
+
+
+def phase_reorder(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch import KernelType
+    from tpu_spmv_torch import kernels as tk
+    from tpu_spmv_torch import spmv_auto_config, spmv_csr
+    from tpu_spmv_torch.bandwidth import measured_stream_bandwidth
+    from tpu_spmv_torch.kernels import reorder as tr
+    from tpu_spmv_torch.spmv import MEASURE_WARMUP, MERGE_SPLIT_ROWS
+    from tpu_spmv_torch.utils.testing import (RandomGenerator,
+                                              scrambled_banded_csr,
+                                              spmv_matches)
+
+    t0 = time.perf_counter()
+    rng = RandomGenerator(42)
+    A = scrambled_banded_csr(rng, *MESH)
+    x = rng.vector(A.num_cols)
+    log(f"mesh matrix: {A.num_rows}x{A.num_cols} nnz={A.nnz} (generated in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    cfg = spmv_auto_config(A)
+    check(cfg.reorder is None, "the auto configuration probes reordering")
+    split = MERGE_SPLIT_ROWS if cfg.kernel_type == KernelType.MERGE_PATH \
+        else None
+    t0 = time.perf_counter()
+    order = tr.maybe_reorder(A, split_rows=split)
+    probe_s = time.perf_counter() - t0
+    check(order is not None, "the reorder probe skipped the mesh")
+    xd = torch.from_numpy(x).to(dev)
+
+    # the reordered path: counts from 0, one measured spmv_csr call
+    tk.reset_launch_counts()
+    res = spmv_csr(A, xd, cfg, measure=True, measure_iters=ITERS,
+                   measure_samples=SAMPLES)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    check(res.error_code == 0, f"spmv_csr error_code {res.error_code}")
+    rp = res.plan
+    check(isinstance(rp, tr.ReorderedPlan), "no ReorderedPlan served it")
+    check(np.array_equal(rp.col_src.cpu().numpy(), order),
+          "the plan's block order is not the probe's")
+    inner = rp.inner
+    calls = 1 + MEASURE_WARMUP + ITERS * SAMPLES
+    log(f"reordered path ({KernelType(cfg.kernel_type).name}) launches: "
+        f"{counts} over {calls} calls, {len(inner.sections)} sections")
+    check(counts["permute_chunks"] == 2 * calls,
+          "K3 did not launch twice per call")
+    check(counts["window_ell_fold"] == calls * len(inner.sections),
+          "K1 did not launch once per inner section per call")
+    check(inner.lam is not None and counts["unpermute"] == calls,
+          "K2 did not launch once per call")
+    y = res.y.cpu().numpy()
+    check(y.shape == (A.num_rows,) and bool(np.all(np.isfinite(y))),
+          "output shape / finiteness")
+    check(spmv_matches(y, A, x, rel_tol=REL_TOL),
+          "reordered output vs the CPU oracle")
+    log("correctness vs CPU oracle (rel 1e-5): OK")
+    log("reordered plan: " + json.dumps({
+        "sup": inner.sup, "groups": inner.n_groups,
+        "occupancy": round(inner.occupancy, 4), "extras": inner.n_extra,
+        "leveled": inner.lam is not None, "step_groups": inner.step_groups,
+        "tb": inner.tb, "sbn": inner.sbn, "sections": len(inner.sections),
+        "ctas": [s.n_cta for s in inner.sections],
+        "blocks": len(rp.col_src)}))
+    log(f"host: probe {probe_s:.2f} s (run alone); plan resolution "
+        f"{res.plan_seconds:.2f} s (probe, permuted build, upload)")
+
+    secs = res.elapsed_ms / 1e3
+    stream = measured_stream_bandwidth(dev)
+    actual = rp.stream_bytes / secs / 1e9
+    log(f"reordered spmv: {res.elapsed_ms * 1e3:.2f} us/call (median of "
+        f"{SAMPLES} x {ITERS} calls), {res.gflops:.2f} GFLOP/s, byte model "
+        f"{res.bandwidth_gb_s:.1f} GB/s, streamed {actual:.1f} GB/s "
+        f"({rp.stream_bytes / 1e6:.2f} MB/call, of which permutes "
+        f"{(rp.stream_bytes - inner.stream_bytes) / 1e6:.2f} MB); STREAM "
+        f"{stream:.1f} GB/s")
+    check(actual <= 1.02 * stream,
+          f"physics guard: {actual:.1f} GB/s streamed > 1.02 x STREAM")
+
+    # each kernel against its plain version at the reordered path's shapes
+    held = hold_kernels(rp, xd, A, x, "mesh, reordered", timed=True)
+    log(f"K3 permutes: x {inner.num_cols} elements "
+        f"({tr.permute_bytes(inner.num_cols) / 1e6:.2f} MB), y {rp.num_rows} "
+        f"elements ({tr.permute_bytes(rp.num_rows) / 1e6:.2f} MB)")
+    return kernel_record("permute_chunks", held, counts["permute_chunks"])
+
+
+def phase_reorder_ab(dev) -> None:
+    import dataclasses
+
+    import torch
+
+    from tpu_spmv_torch import spmv_auto_config, spmv_csr
+    from tpu_spmv_torch.kernels import reorder as tr
+    from tpu_spmv_torch.utils import testing as tt
+
+    for name, args in AB:
+        t0 = time.perf_counter()
+        rng = tt.RandomGenerator(42)
+        A = getattr(tt, name)(rng, *args)
+        x = rng.vector(A.num_cols)
+        xd = torch.from_numpy(x).to(dev)
+        cfg = spmv_auto_config(A)
+        arms = {"natural": dataclasses.replace(cfg, reorder=False),
+                "reordered": cfg}
+        us = {k: [] for k in arms}
+        res = {}
+        for arm in ("natural", "reordered", "reordered", "natural"):
+            r = spmv_csr(A, xd, arms[arm], measure=True, measure_iters=ITERS,
+                         measure_samples=SAMPLES)
+            check(r.error_code == 0, f"{name} {arm}: error {r.error_code}")
+            if arm not in res:
+                check(tt.spmv_matches(r.y.cpu().numpy(), A, x,
+                                      rel_tol=REL_TOL),
+                      f"{name} {arm} vs the CPU oracle")
+                hold_kernels(r.plan, xd, A, x, f"{name} {arm}", timed=False)
+                res[arm] = r
+            us[arm].append(r.elapsed_ms * 1e3)
+        check(not isinstance(res["natural"].plan, tr.ReorderedPlan)
+              and isinstance(res["reordered"].plan, tr.ReorderedPlan),
+              f"{name}: the A/B arms took the wrong routes")
+        log(f"A/B {name}{args}: nnz={A.nnz}, both arms OK vs oracle; "
+            f"natural sup {res['natural'].plan.sup} "
+            f"{res['natural'].plan.n_groups} groups, "
+            f"{', '.join(f'{t:.2f}' for t in us['natural'])} us/call "
+            f"(build {res['natural'].plan_seconds:.2f} s); reordered sup "
+            f"{res['reordered'].plan.inner.sup} "
+            f"{res['reordered'].plan.n_groups} groups, "
+            f"{', '.join(f'{t:.2f}' for t in us['reordered'])} us/call "
+            f"(probe + build {res['reordered'].plan_seconds:.2f} s); "
+            f"{time.perf_counter() - t0:.1f} s in all")
 
 
 def main() -> int:
@@ -288,7 +530,10 @@ def main() -> int:
         f"CUDA {torch.version.cuda}; {torch.cuda.device_count()} device(s)")
     phase_build()
     phase_kernels(dev)
+    phase_k3(dev)
     kernels = phase_main(dev)
+    kernels.append(phase_reorder(dev))
+    phase_reorder_ab(dev)
     check("jax" not in sys.modules, "JAX was imported")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

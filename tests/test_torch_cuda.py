@@ -9,7 +9,8 @@ so it runs on a machine that has only the port installed:
 The fold's outputs are held to the backward-error row bound
 ``|y - y_plain|_i <= 1e-5 * max((|A||x|)_i, 1)``: the kernel and the plain
 version (``index_add_``) sum each row in different orders.  The unpermute
-moves values without arithmetic and must match exactly.
+and the chunk permute move values without arithmetic and must match
+exactly.
 """
 
 import numpy as np
@@ -19,10 +20,13 @@ torch = pytest.importorskip("torch")
 
 from tpu_spmv_torch import (KernelType, SpMVConfig, spmv_auto_config,  # noqa: E402
                             spmv_csr)
+from tpu_spmv_torch import kernels as tk  # noqa: E402
 from tpu_spmv_torch.kernels import plan as tplan  # noqa: E402
+from tpu_spmv_torch.kernels import reorder as tr  # noqa: E402
 from tpu_spmv_torch.kernels import window_ell as twe  # noqa: E402
 from tpu_spmv_torch.utils.testing import (RandomGenerator,  # noqa: E402
-                                          abs_row_scale, spmv_matches)
+                                          abs_row_scale, scrambled_banded_csr,
+                                          spmv_matches)
 
 ROW_TOL = 1e-5
 
@@ -89,12 +93,67 @@ def test_spmv_csr_on_card_matches_oracle(matrix, cuda_device, kernel_type):
     A, x = matrix
     cfg = spmv_auto_config(A)
     cfg.kernel_type = kernel_type
-    twe.reset_launch_counts()
+    tk.reset_launch_counts()
     res = spmv_csr(A, torch.from_numpy(x).to(cuda_device), cfg)
     assert res.error_code == 0 and res.y.device.type == "cuda"
-    counts = twe.launch_counts()
+    counts = tk.launch_counts()
     assert counts["window_ell_fold"] == len(res.plan.sections)
     assert counts["unpermute"] == 1
+    assert spmv_matches(res.y.cpu().numpy(), A, x, rel_tol=ROW_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, src, out_len", [
+    (1000, [7, 0, 3, 1, 2, 7, 6, 5, 4], 9 * 128),       # x ends mid-chunk
+    (1001, [0, 7, 7, 2, 40, -3, 1], 6 * 128 + 3),       # len % 4, past end
+    (4096, list(range(31, -1, -1)), 32 * 128),          # whole chunks
+    (130, [1, 1, 0, 5], 3 * 128 + 1),                   # tiny, repeats
+])
+def test_permute_kernel_matches_plain(cuda_device, n, src, out_len):
+    x = torch.from_numpy(RandomGenerator(5).vector(n))
+    s = torch.tensor(src, dtype=torch.int32)
+    before = tr.permute_chunks.launches
+    got = tr.permute_chunks(x.to(cuda_device), s.to(cuda_device), out_len)
+    torch.cuda.synchronize()
+    assert tr.permute_chunks.launches - before == 1
+    assert torch.equal(got.cpu(), tr.permute_chunks_plain(x, s, out_len))
+
+
+@pytest.mark.cuda
+def test_permute_kernel_unaligned_pointer_and_round_trip(cuda_device):
+    """A view starting one float in (not 16-byte aligned) takes the scalar
+    path; ``order`` then its inverse gives x back bit for bit."""
+    base = torch.from_numpy(RandomGenerator(6).vector(50 * 128 + 1))
+    x = base.to(cuda_device)[1:]
+    order = torch.from_numpy(np.random.default_rng(4).permutation(50)
+                             .astype(np.int32))
+    pos = torch.empty_like(order)
+    pos[order.long()] = torch.arange(50, dtype=torch.int32)
+    xp = tr.permute_chunks(x, order.to(cuda_device), 50 * 128)
+    torch.cuda.synchronize()
+    assert torch.equal(xp.cpu(), tr.permute_chunks_plain(base[1:], order,
+                                                         50 * 128))
+    back = tr.permute_chunks(xp, pos.to(cuda_device), x.numel())
+    assert torch.equal(back, x)
+    odd = tr.permute_chunks(xp[3:], pos.to(cuda_device), 1000)
+    assert torch.equal(odd.cpu(), tr.permute_chunks_plain(
+        xp[3:].cpu(), pos, 1000))
+
+
+@pytest.mark.cuda
+def test_reordered_spmv_csr_on_card_matches_oracle(cuda_device):
+    A = scrambled_banded_csr(RandomGenerator(42), 16384, 1024, 6.0)
+    x = RandomGenerator(7).vector(A.num_cols)
+    tk.reset_launch_counts()
+    res = spmv_csr(A, torch.from_numpy(x).to(cuda_device),
+                   spmv_auto_config(A))
+    assert res.error_code == 0 and res.y.device.type == "cuda"
+    assert isinstance(res.plan, tr.ReorderedPlan)
+    counts = tk.launch_counts()
+    assert counts == {
+        "window_ell_fold": len(res.plan.inner.sections),
+        "unpermute": int(res.plan.inner.lam is not None),
+        "permute_chunks": 2}
     assert spmv_matches(res.y.cpu().numpy(), A, x, rel_tol=ROW_TOL)
 
 

@@ -102,7 +102,7 @@ def test_error_codes_match_jax(smoke):
         == SpMVError.INVALID_DIMENSION
 
 
-def test_unported_routes_raise(smoke):
+def test_unported_routes_raise(smoke, absorb_helper):
     A, x = smoke
     routes = [
         (SpMVConfig(kernel_type=KernelType.SCALAR_CSR), "M7"),
@@ -124,11 +124,29 @@ def test_unported_routes_raise(smoke):
             tpu_spmv_torch.spmv_csr(
                 wide, np.ones(cols, np.float32),
                 SpMVConfig(kernel_type=KernelType.VECTOR_CSR))
+    # forced block reordering is served (ROADMAP M8 is ported), by the same
+    # route as the JAX dispatch
+    from tpu_spmv.kernels.reorder import ReorderedPlan as JaxReorderedPlan
+
+    from tpu_spmv_torch.kernels.reorder import ReorderedPlan
+
     square = RandomGenerator(1).power_law_csr(4096, 4096, 20.0, 1.6)
-    with pytest.raises(NotImplementedError, match="M8"):
-        tpu_spmv_torch.spmv_csr(
-            square, np.ones(4096, np.float32),
-            SpMVConfig(kernel_type=KernelType.MERGE_PATH, reorder=True))
+    xs = RandomGenerator(2).vector(4096)
+    res = tpu_spmv_torch.spmv_csr(
+        square, xs, SpMVConfig(kernel_type=KernelType.MERGE_PATH,
+                               reorder=True))
+    jsquare = to_jax_csr(square)
+    jres = tpu_spmv.spmv_csr(jsquare, xs, tpu_spmv.SpMVConfig(
+        kernel_type=tpu_spmv.KernelType.MERGE_PATH, reorder=True))
+    assert res.error_code == 0 == jres.error_code
+    _, jplan = jsquare._plan_cache[(int(KernelType.MERGE_PATH), None, False,
+                                    True)]
+    assert isinstance(res.plan, ReorderedPlan) \
+        == isinstance(jplan, JaxReorderedPlan)
+    y = res.y_host()
+    bound = ROW_TOL * np.maximum(abs_row_scale(square, xs), 1.0)
+    assert np.all(np.abs(y - np.asarray(jres.y)) <= bound)
+    assert spmv_matches(y, square, xs, rel_tol=ROW_TOL)
 
 
 @pytest.mark.parametrize("shape", [(8192, 2048, 12.0, 1.6),

@@ -4,8 +4,9 @@ Two libraries live in ``tpu_spmv_torch/_build/`` (listed in ``.gitignore``;
 nothing prebuilt is committed):
 
 * ``libtpu_spmv_kernels.so``: the CUDA kernels of ``tpu_spmv_torch/csrc/*.cu``,
-  compiled by ``nvcc`` for ``sm_90a`` with a plain C interface and loaded
-  with ctypes (no PyTorch headers, so a build takes seconds);
+  compiled by ``nvcc`` for ``sm_90a`` (one process per source, in parallel)
+  with a plain C interface and loaded with ctypes (no PyTorch headers, so a
+  build takes seconds);
 * ``libtpu_spmv_native.so``: the host planner library (see
   :mod:`tpu_spmv_torch.native.build`).
 
@@ -33,7 +34,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 KERNELS_LIB = "libtpu_spmv_kernels.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def _fresh(out: str, sources: Sequence[str]) -> bool:
@@ -41,13 +42,27 @@ def _fresh(out: str, sources: Sequence[str]) -> bool:
         os.path.getmtime(out) >= os.path.getmtime(s) for s in sources)
 
 
+def _run_all(cmds: list) -> list:
+    """Run the commands all at once; returns ``(cmd, exit code, output)``
+    for each, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs)]
+
+
 def build_library(name: str, sources: Sequence[str],
-                  command: Callable[[str], list]) -> str:
+                  command: Callable[[str], list],
+                  compiles: Callable[[str], list] | None = None) -> str:
     """Build ``_build/<name>`` from ``sources`` unless it is up to date.
 
-    ``command(out_path)`` returns the compiler command line writing to
-    ``out_path``.  The compiler's output is kept in ``_build/<name>.log``.
-    Raises ``RuntimeError`` with the compiler's message when it fails."""
+    ``command(out_path)`` returns the command line writing the library to
+    ``out_path``.  ``compiles(out_path)``, when given, returns command lines
+    that run all at once before it (one compile per source, whose objects
+    ``command`` links).  Every command's output is kept in
+    ``_build/<name>.log``.  Raises ``RuntimeError`` with the compiler's
+    message when one fails."""
     out = os.path.join(BUILD_DIR, name)
     if _fresh(out, sources):
         return out
@@ -57,16 +72,23 @@ def build_library(name: str, sources: Sequence[str],
         if _fresh(out, sources):    # another process built it meanwhile
             return out
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = command(tmp)
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        pre = compiles(tmp) if compiles else []
+        runs = _run_all(pre)
+        if all(rc == 0 for _, rc, _ in runs):
+            runs += _run_all([command(tmp)])
+        text = "".join(" ".join(c) + "\n" + o for c, _, o in runs)
         with open(out + ".log", "w") as log:
-            log.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
+            log.write(text)
+        for c in pre:                 # the objects, linked or not
+            obj = c[c.index("-o") + 1]
+            if os.path.exists(obj):
+                os.remove(obj)
+        failed = [rc for _, rc, _ in runs if rc != 0]
+        if failed:
             if os.path.exists(tmp):
                 os.remove(tmp)
             raise RuntimeError(
-                f"building {name} failed (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+                f"building {name} failed (exit {failed[0]}):\n{text}")
         os.replace(tmp, out)
     return out
 
@@ -89,11 +111,20 @@ def kernel_sources() -> list:
 
 
 def build_kernels() -> str:
-    """Compile ``csrc/*.cu`` into the kernels library; returns its path."""
+    """Compile ``csrc/*.cu`` into the kernels library, one ``nvcc`` per
+    source, all started together, then link; returns the library's path."""
     srcs = kernel_sources()
     nvcc = nvcc_path()
+
+    def obj(out: str, src: str) -> str:
+        return f"{out}.{os.path.basename(src)}.o"
+
     return build_library(
-        KERNELS_LIB, srcs, lambda out: [nvcc, *NVCC_FLAGS, "-o", out, *srcs])
+        KERNELS_LIB, srcs,
+        lambda out: [nvcc, *NVCC_FLAGS, "-shared", "-o", out,
+                     *(obj(out, s) for s in srcs)],
+        compiles=lambda out: [[nvcc, *NVCC_FLAGS, "-c", "-o", obj(out, s), s]
+                              for s in srcs])
 
 
 _P = ctypes.c_void_p
@@ -112,4 +143,6 @@ def kernels() -> ctypes.CDLL:
     lib.tsp_window_ell_fold.restype = _I
     lib.tsp_unpermute.argtypes = [_P, _I64, _P, _P, _I64, _P]
     lib.tsp_unpermute.restype = _I
+    lib.tsp_permute_chunks.argtypes = [_P, _I64, _P, _P, _I64, _P]
+    lib.tsp_permute_chunks.restype = _I
     return lib

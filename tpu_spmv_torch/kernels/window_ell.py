@@ -359,16 +359,6 @@ def unpermute(y: torch.Tensor, lam: torch.Tensor,
 unpermute.launches = 0
 
 
-def reset_launch_counts() -> None:
-    window_ell_fold.launches = 0
-    unpermute.launches = 0
-
-
-def launch_counts() -> dict:
-    return {"window_ell_fold": window_ell_fold.launches,
-            "unpermute": unpermute.launches}
-
-
 # ---- the SpMV ----
 
 def gather_table(plan: WindowEllPlan, x: torch.Tensor) -> torch.Tensor:

@@ -2,22 +2,22 @@
 ``tpu_spmv/spmv.py``).
 
 ``spmv_csr`` validates its arguments before any device work, resolves the
-packed window-ELL plan for VECTOR_CSR and MERGE_PATH, runs it, and reports
+packed window-ELL plan for VECTOR_CSR and MERGE_PATH (block-reordered where
+the reorder probe applies, ``SpMVConfig.reorder``), runs it, and reports
 errors through ``SpMVResult.error_code`` with the JAX package's codes (the
 reference's no-throw contract).
 
-Only the packed single-plan route is ported.  Every other route the JAX
-dispatch can take raises ``NotImplementedError`` naming its ROADMAP item,
-so no call is quietly served by another route than the JAX package's:
-SCALAR_CSR's naive plan, pattern and bf16 plans, banded, strip and composite
-plans (M7); block reordering (M8); the flat and ELL fallbacks (M10).
+Only the packed single-plan route and its reordered form are ported.  Every
+other route the JAX dispatch can take raises ``NotImplementedError`` naming
+its ROADMAP item, so no call is quietly served by another route than the JAX
+package's: SCALAR_CSR's naive plan, pattern and bf16 plans, banded, strip
+and composite plans (M7); the flat and ELL fallbacks (M10).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-import os
 import time
 
 import numpy as np
@@ -26,8 +26,10 @@ import torch
 from .bandwidth import BandwidthMetrics, compute_bandwidth_csr
 from .csr import CSRMatrix
 from .errors import SpMVError, SpMVException, guarded_upload
-from .kernels.plan import (SUP_LEVELS, WindowEllOverflow, _choose_sup,
-                           build_auto)
+from .kernels.plan import HostPlan, WindowEllOverflow, _choose_sup, build_auto
+from .kernels.reorder import (ReorderedPlan, build_reordered_host,
+                              maybe_reorder, reordered_from_host,
+                              spmv_reordered)
 from .kernels.window_ell import WindowEllPlan, plan_from_host, spmv_window_ell
 
 # the JAX package's column caps (TPU VMEM limits), kept so both packages
@@ -41,10 +43,6 @@ MERGE_SPLIT_ROWS = 128
 
 # measure=True: warm-up calls before the timed samples
 MEASURE_WARMUP = 10
-
-# the structural gates of the JAX reorder probe (kernels/reorder.py)
-_REORDER_MAX_COLS = 1 << 21
-_REORDER_MIN_NNZ = 1 << 16
 
 
 class KernelType(enum.IntEnum):
@@ -86,7 +84,8 @@ class SpMVResult:
     bandwidth_gb_s: float = 0.0
     error_code: int = 0
     bandwidth: BandwidthMetrics | None = None
-    plan: WindowEllPlan | None = None   # the plan that served the call
+    plan: WindowEllPlan | ReorderedPlan | None = None   # the plan that
+    #                                                     served the call
     plan_seconds: float = 0.0   # plan resolution in this call (build +
     #                             upload; a cache hit takes microseconds)
 
@@ -103,56 +102,74 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
-def _reorder_may_apply(A: CSRMatrix, choice: tuple, force: bool) -> bool:
-    """True where the JAX dispatch may serve ``A`` through a block-reordered
-    plan: its reorder probe's structural gates pass, and the forced flag is
-    set or the superblock choice is wide (the probe's gain test, which the
-    port does not run, decides the rest)."""
-    if os.environ.get("TPU_SPMV_REORDER", "1") in ("0", ""):
-        return False
-    if A.num_rows != A.num_cols or A.num_cols > _REORDER_MAX_COLS:
-        return False
-    if A.nnz < _REORDER_MIN_NNZ or A.num_rows < 4 * SUP_LEVELS[0]:
-        return False
-    return force or choice[0] > SUP_LEVELS[0]
+def _host_plan(A: CSRMatrix, split: int | None,
+               config: SpMVConfig) -> tuple[HostPlan, np.ndarray | None]:
+    """The host plan for ``A`` in the order of ``tpu_spmv/spmv.py:159-198``:
+    the reorder probe (once per ``split``), the reordered build where the
+    probe applies and the permuted matrix packs, else the natural plan.
+    Returns ``(plan, block order)``: the order is ``None`` for a natural
+    plan, and the plan then is ``A``'s own."""
+    skey = ("_sup", split)
+    if skey not in A._plan_cache:   # O(nnz) sampled model — cache
+        A._plan_cache[skey] = _choose_sup(A, with_groups=True,
+                                          split_rows=split)
+    if config.reorder is not False:
+        # the verdict depends on the split-dependent superblock choice
+        rkey = ("_reorder", bool(config.reorder), split)
+        if rkey not in A._plan_cache:   # O(nnz) probe — cache
+            A._plan_cache[rkey] = maybe_reorder(
+                A, choice=A._plan_cache[skey],
+                force=config.reorder is True, split_rows=split)
+        order = A._plan_cache[rkey]
+        if order is not None:
+            try:
+                return build_reordered_host(A, order, split,
+                                            config.step_groups)
+            except WindowEllOverflow:
+                pass   # the permuted matrix packs in no layout: natural plan
+    try:
+        return build_auto(A, step_groups=config.step_groups,
+                          split_rows=split, choice=A._plan_cache[skey]), None
+    except WindowEllOverflow as e:
+        raise _not_ported("composite plans (single plan overflows)",
+                          "M7") from e
 
 
 def _plan_for(A: CSRMatrix, kernel_type: KernelType, config: SpMVConfig,
-              device: torch.device) -> WindowEllPlan:
+              device: torch.device) -> WindowEllPlan | ReorderedPlan:
     """The packed single plan for ``A`` on ``device`` (the single-plan part
-    of ``tpu_spmv/spmv.py:_plan_for``), cached on the matrix."""
+    of ``tpu_spmv/spmv.py:_plan_for``), cached on the matrix under the JAX
+    package's key (kernel type, step width, reorder flag)."""
     if config.bf16_values:
         raise _not_ported("bf16 value streams", "M7")
     if A.num_cols > VMEM_X_MAX_COLS:
         raise _not_ported("composite plans (x wider than one block)", "M7")
     split = MERGE_SPLIT_ROWS if kernel_type == KernelType.MERGE_PATH \
         else None
-    hkey = ("host", int(kernel_type), config.step_groups)
+    hkey = ("host", int(kernel_type), config.step_groups, config.reorder)
     dkey = (hkey, str(device))
     if dkey in A._plan_cache:
         return A._plan_cache[dkey]
     if hkey not in A._plan_cache:
-        skey = ("_sup", split)
-        if skey not in A._plan_cache:   # O(nnz) sampled model — cache
-            A._plan_cache[skey] = _choose_sup(A, with_groups=True,
-                                              split_rows=split)
-        if config.reorder is not False and _reorder_may_apply(
-                A, A._plan_cache[skey], config.reorder is True):
-            raise _not_ported("block reordering", "M8")
-        try:
-            A._plan_cache[hkey] = build_auto(
-                A, step_groups=config.step_groups, split_rows=split,
-                choice=A._plan_cache[skey])
-        except WindowEllOverflow as e:
-            raise _not_ported("composite plans (single plan overflows)",
-                              "M7") from e
-    A._plan_cache[dkey] = plan_from_host(A._plan_cache[hkey], device)
-    return A._plan_cache[dkey]
+        A._plan_cache[hkey] = _host_plan(A, split, config)
+    host, order = A._plan_cache[hkey]
+    plan = plan_from_host(host, device) if order is None \
+        else reordered_from_host(host, order, A.num_rows, A.num_cols, device)
+    A._plan_cache[dkey] = plan
+    return plan
+
+
+def _run(plan: WindowEllPlan | ReorderedPlan,
+         x: torch.Tensor) -> torch.Tensor:
+    """``y = A @ x`` through the resolved plan."""
+    if isinstance(plan, ReorderedPlan):
+        return spmv_reordered(plan, x)
+    return spmv_window_ell(plan, x)
 
 
 def _resolve_csr_kernel(A: CSRMatrix, kernel_type: KernelType,
                         config: SpMVConfig,
-                        device: torch.device) -> WindowEllPlan:
+                        device: torch.device) -> WindowEllPlan | ReorderedPlan:
     """The plan that serves ``A`` (``tpu_spmv/spmv.py:353-396``)."""
     if kernel_type in (KernelType.VECTOR_CSR, KernelType.MERGE_PATH) \
             and config.use_vmem_x:
@@ -177,9 +194,10 @@ def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
     ``x``'s device, the CPU for arrays) is where the plan lives and the
     kernels run; on the CPU the kernels' plain versions serve.  Errors come
     back in ``error_code``.  ``measure=True`` times the whole call on the
-    card (:func:`~tpu_spmv_torch.timing.time_cuda`: ``MEASURE_WARMUP`` warm-up
-    calls, then the median of ``measure_samples`` runs of ``measure_iters``
-    calls) and fills the time, GFLOP/s and byte-model GB/s."""
+    card (:func:`~tpu_spmv_torch.timing.time_cuda`, which raises for any
+    other device: ``MEASURE_WARMUP`` warm-up calls, then the median of
+    ``measure_samples`` runs of ``measure_iters`` calls of the plan that
+    served the call) and fills the time, GFLOP/s and byte-model GB/s."""
     result = SpMVResult()
     if A is None or x is None:
         result.error_code = int(SpMVError.INVALID_ARGUMENT)
@@ -208,7 +226,7 @@ def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
         t0 = time.perf_counter()
         plan = _resolve_csr_kernel(A, kernel_type, config, device)
         result.plan_seconds = time.perf_counter() - t0
-        result.y = spmv_window_ell(plan, x)
+        result.y = _run(plan, x)
     except SpMVException as e:
         result.error_code = int(e.code)
         return result
@@ -218,10 +236,7 @@ def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
         from .bandwidth import get_gpu_peak_bandwidth
         from .timing import time_cuda
 
-        if device.type != "cuda":
-            raise RuntimeError(f"measure=True times the card; x is on "
-                               f"{device}")
-        secs = time_cuda(lambda: spmv_window_ell(plan, x),
+        secs = time_cuda(lambda: _run(plan, x),
                          iters=measure_iters, samples=measure_samples,
                          warmup=MEASURE_WARMUP, device=device)
         result.elapsed_ms = secs * 1e3

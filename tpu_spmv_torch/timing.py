@@ -18,10 +18,12 @@ def time_cuda(fn: Callable[[], object], iters: int = 100, samples: int = 5,
               warmup: int = 10, device=None) -> float:
     """Median over ``samples`` of the mean seconds per ``fn()`` call, each
     sample timing ``iters`` back-to-back calls between two CUDA events on
-    the current stream.  Raises when no CUDA device is present: a device
-    time is never taken on the CPU."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("time_cuda needs a CUDA device")
+    the current stream.  Raises when no CUDA device is present, or when
+    ``device`` is not a CUDA device: a device time is never taken on the
+    CPU."""
+    if not torch.cuda.is_available() or (
+            device is not None and torch.device(device).type != "cuda"):
+        raise RuntimeError(f"time_cuda needs a CUDA device, not {device}")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize(device)

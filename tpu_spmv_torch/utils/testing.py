@@ -2,6 +2,9 @@
 
 The generators make the same NumPy draws in the same order as the JAX
 package's, so one seed gives the identical matrix in both packages.
+:func:`clustered_csr` and :func:`scrambled_banded_csr` plant the block-coarse
+locality that block reordering (:mod:`tpu_spmv_torch.kernels.reorder`)
+recovers.
 """
 
 from __future__ import annotations
@@ -64,6 +67,71 @@ class RandomGenerator:
         vals = self.rng.uniform(-10, 10, nnz).astype(np.float32)
         vals[vals == 0.0] = 1.0
         return CSRMatrix(rows, cols, vals, cols_arr, row_ptrs)
+
+
+def clustered_csr(rng: RandomGenerator, n: int, n_clusters: int = 32,
+                  avg_nnz: float = 14.0, p_out: float = 0.05,
+                  alpha_row: float = 1.6, block_shuffle: bool = True):
+    """Square CSR with planted block-coarse locality: rows fall into
+    contiguous latent clusters, each row keeps ``1 - p_out`` of its
+    (power-law-length) edges inside its cluster, and the labels are then
+    scrambled by a random symmetric permutation of 128-blocks (the community
+    graph class that block reordering recovers).  ``block_shuffle=False``
+    returns the latent order."""
+    from ..csr import CSRMatrix
+
+    gen = rng.rng
+    raw = gen.pareto(alpha_row, n) + 1.0
+    lens = np.minimum((raw * avg_nnz / raw.mean()).astype(np.int64), n)
+    total = int(lens.sum())
+    rr = np.repeat(np.arange(n, dtype=np.int64), lens)
+    c_of = rr * n_clusters // n
+    c_lo = c_of * n // n_clusters
+    c_hi = (c_of + 1) * n // n_clusters
+    cc = c_lo + (gen.random(total) * (c_hi - c_lo)).astype(np.int64)
+    out = gen.random(total) < p_out                  # global (noise) edges
+    cc[out] = (gen.random(int(out.sum())) * n).astype(np.int64)
+    if block_shuffle:
+        nb = -(-n // 128)
+        bperm = gen.permutation(nb)                  # latent blk -> new blk
+        rr = bperm[rr // 128] * 128 + rr % 128
+        cc = bperm[cc // 128] * 128 + cc % 128
+        n = nb * 128
+    key = np.unique(rr * n + cc)
+    rr2, cc2 = key // n, (key % n).astype(np.int32)
+    row_ptrs = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(rr2, minlength=n), out=row_ptrs[1:])
+    vals = gen.uniform(0.1, 1.0, len(key)).astype(np.float32)
+    return CSRMatrix(int(n), int(n), vals, cc2, row_ptrs)
+
+
+def scrambled_banded_csr(rng: RandomGenerator, n: int, bandwidth: int = 4096,
+                         avg_nnz: float = 12.0, alpha_row: float = 1.8,
+                         scramble: bool = True):
+    """Square CSR with latent banded structure (the mesh and road-network
+    class: every edge within ``bandwidth`` of the diagonal), scrambled by a
+    random symmetric 128-block permutation unless ``scramble=False``."""
+    from ..csr import CSRMatrix
+
+    gen = rng.rng
+    lens = np.maximum(np.minimum(
+        ((gen.pareto(alpha_row, n) + 1.0) * avg_nnz / 2).astype(np.int64),
+        bandwidth), 1)
+    rr = np.repeat(np.arange(n, dtype=np.int64), lens)
+    off = (gen.random(len(rr)) * 2 * bandwidth - bandwidth).astype(np.int64)
+    cc = np.clip(rr + off, 0, n - 1)
+    if scramble:
+        nb = -(-n // 128)
+        bperm = gen.permutation(nb)
+        rr = bperm[rr // 128] * 128 + rr % 128
+        cc = bperm[cc // 128] * 128 + cc % 128
+        n = nb * 128
+    key = np.unique(rr * n + cc)
+    rr2, cc2 = key // n, (key % n).astype(np.int32)
+    row_ptrs = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(rr2, minlength=n), out=row_ptrs[1:])
+    vals = gen.uniform(0.1, 1.0, len(key)).astype(np.float32)
+    return CSRMatrix(int(n), int(n), vals, cc2, row_ptrs)
 
 
 def abs_row_scale(csr, x) -> np.ndarray:

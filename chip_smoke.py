@@ -16,7 +16,17 @@ Phases (each raises on failure; nothing is caught and passed over):
    past the end of x, an output ending mid-chunk, a pointer that is not
    16-byte aligned, and a round trip (order, then its inverse) that gives x
    back bit for bit.
-5. The main path at the headline size: merge-path ``spmv_csr`` on
+5. The benchmark probes' ports (``tpu_spmv_torch/probes``: P4 the stage
+   split of K1, P2 and P3 the scatter candidates, P5 the block re-read):
+   every mode of each probe's kernel against its plain version at a reduced
+   size (fp32 sums in another order, and in P2 and P3 atomic adds in no
+   fixed order: ``|Δ| <= 1e-5 * (|ref| + max|ref|)``), S = 24 refused by P2
+   and P3 (``ValueError``); then the probes' entry point, each probe's
+   ``time_modes`` at its JAX main's default size (P4 at S = 128 only),
+   printing the JAX scripts' lines under the physics guard, with the launch
+   counts from 0; then each mode against its plain version at that size,
+   timed beside it.
+6. The main path at the headline size: merge-path ``spmv_csr`` on
    ``power_law_csr(262144, 4096, avg 40, alpha 1.6)`` (about 10.3M nnz)
    with the auto-selected configuration, checked against the CPU oracle,
    timed with CUDA events, and held to the physics guard (streamed bytes /
@@ -24,7 +34,7 @@ Phases (each raises on failure; nothing is caught and passed over):
    compared with, and timed beside, its plain version at the plan's shapes
    (K1 under the row bound, K2 and K3 exactly).
    Vector CSR (no row split) runs once against the oracle too.
-6. The block-reordered path at full width: ``spmv_csr`` with the auto
+7. The block-reordered path at full width: ``spmv_csr`` with the auto
    configuration (``reorder=None``: the probe decides) on
    ``scrambled_banded_csr(2^20, bandwidth 4096, avg 12)`` (about 13.5M nnz,
    a 2^20-node mesh), which must be served by a ``ReorderedPlan``, checked
@@ -33,15 +43,16 @@ Phases (each raises on failure; nothing is caught and passed over):
    per call.  Each kernel of the path (the x permute, K1 and K2 on the
    inner plan, the row permute) is then compared with, and timed beside,
    its plain version on the inputs the path gives it.
-7. Natural against reordered at 262,144 rows, on the planted banded and
+8. Natural against reordered at 262,144 rows, on the planted banded and
    clustered matrices: both plans timed (natural, reordered, reordered,
    natural) and checked against the oracle, and each plan's kernels against
    their plain versions.  A comparison, not a claim.
 
 Everything before the last line is diagnostics.  The line before the
-``nvidia-smi`` line is one JSON object with a record per kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Exits non-zero, and prints no
-result, where no CUDA device is available.  Imports nothing of JAX.
+``nvidia-smi`` line is one JSON object with a record per kernel (K1, K2,
+K3, then the four probes); the last line is ``{"ok": true, "device":
+{...}}``.  Exits non-zero, and prints no result, where no CUDA device is
+available.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -66,6 +77,22 @@ REL_TOL = 1e-5
 # timing protocol of the main-path run (spmv_csr measure=True)
 ITERS, SAMPLES = 100, 5
 PLAIN_ITERS = 10
+# the probes: make_inputs keywords of the reduced size every mode is held
+# at, the tolerance, and the timed run at the default sizes
+PROBE_SMALL = {"profile_kernel": dict(n_steps=8, S=32, n_sup=4),
+               "proto_v3": dict(n_steps=4, S=32, out8=512),
+               "proto_v4": dict(n_steps=4, S=32, out8=1024),
+               "profile_dma_share": dict(n_blocks=16, S=32, n_out=4)}
+PROBE_RTOL = 1e-5
+PROBE_ITERS, PROBE_SAMPLES = 20, 2
+# each probe's kernel source and the Pallas probe it replaces
+PROBE_SOURCES = {
+    "profile_kernel": ("probe_profile_kernel.cu",
+                       "benchmarks/profile_kernel.py:32"),
+    "proto_v3": ("probe_proto_v3.cu", "benchmarks/proto_v3.py:51"),
+    "proto_v4": ("probe_proto_v4.cu", "benchmarks/proto_v4.py:42"),
+    "profile_dma_share": ("probe_dma_share.cu",
+                          "benchmarks/profile_dma_share.py:25")}
 
 
 def log(*args) -> None:
@@ -283,6 +310,94 @@ def phase_k3(dev) -> None:
         f"launches in this phase {counts['permute_chunks']}")
     check(counts["permute_chunks"] == len(cases) + 1,
           "K3 launch count did not move once per call")
+
+
+def hold_probe(name: str, mod, inp, what: str) -> float:
+    """One probe mode's kernel against its plain version; returns
+    max|Δ|."""
+    import torch
+
+    got, ref = mod.probe(inp), mod.probe_plain(inp)
+    torch.cuda.synchronize()
+    diff = (got - ref).abs()
+    tol = PROBE_RTOL * (ref.abs() + float(ref.abs().max()))
+    check(bool(torch.isfinite(got).all()) and bool((diff <= tol).all()),
+          f"probe {name} {inp.mode} vs its plain version ({what})")
+    return float(diff.max())
+
+
+def phase_probes(dev) -> list:
+    """Phase 5.  Returns a ``kernels`` record per probe: the largest error
+    of every check, and as ``ms`` and ``plain_ms`` the sums over the JAX
+    main's modes (each once) of the kernel's and the plain version's time
+    per call at the default size."""
+    import torch
+
+    from tpu_spmv_torch import probes
+    from tpu_spmv_torch.bandwidth import measured_stream_bandwidth
+    from tpu_spmv_torch.timing import time_cuda
+
+    t0 = time.perf_counter()
+    mods = probes.modules()
+    errs = {name: 0.0 for name in mods}
+    for name, kw in PROBE_SMALL.items():
+        mod = mods[name]
+        small = mod.make_inputs(**kw, device=dev, modes=mod.MODES)
+        for inp in small.values():
+            err = hold_probe(name, mod, inp, "reduced")
+            errs[name] = max(errs[name], err)
+    for name in ("proto_v3", "proto_v4"):
+        try:
+            mods[name].make_inputs(2, 24, device=dev)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, f"probe {name}: S=24 was not refused")
+    log(f"  probes vs plain, every mode at reduced sizes: max|Δ| "
+        + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+        + "; S=24 refused by proto_v3 and proto_v4")
+
+    # the probes' entry point at the JAX mains' sizes: counts from 0
+    inputs = {name: mod.make_inputs(device=dev, modes=mod.MAIN_MODES)
+              for name, mod in mods.items()}
+    stream = measured_stream_bandwidth(dev)
+    log(f"probes at the JAX mains' default sizes, {PROBE_SAMPLES} x "
+        f"{PROBE_ITERS} calls per mode; STREAM {stream:.1f} GB/s; "
+        f"nvidia-smi: {nvidia_smi()}")
+    probes.reset_launch_counts()
+    timed = {name: mod.time_modes(inputs[name], stream, iters=PROBE_ITERS,
+                                  samples=PROBE_SAMPLES)
+             for name, mod in mods.items()}
+    torch.cuda.synchronize()
+    counts = probes.launch_counts()
+    log(f"probe launches: {counts}")
+    check(all(counts[n] > 0 for n in mods), "a probe kernel was not launched")
+
+    # each mode against its plain version at that size, timed beside it
+    records = []
+    for name, mod in mods.items():
+        ms = plain_ms = 0.0
+        # a mode the main lists twice (P4's +scatter8) keeps its first time
+        kernel_ms = {r["mode"]: r["ms"] for r in reversed(timed[name])}
+        for mode in dict.fromkeys(mod.MAIN_MODES):
+            inp = inputs[name][mode]
+            err = hold_probe(name, mod, inp, "default size")
+            errs[name] = max(errs[name], err)
+            p_ms = time_cuda(lambda: mod.probe_plain(inp), iters=2, samples=1,
+                             warmup=1) * 1e3
+            log(f"  {name} {mode}: kernel {kernel_ms[mode]:.3f} ms, plain "
+                f"{p_ms:.3f} ms, max|Δ| {err:.3g}")
+            ms += kernel_ms[mode]
+            plain_ms += p_ms
+        source, replaces = PROBE_SOURCES[name]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "tpu_spmv_torch/csrc/" + source, "replaces": replaces,
+            "launches": counts[name], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms})
+    del inputs
+    log(f"probes phase {time.perf_counter() - t0:.1f} s")
+    return records
 
 
 def phase_main(dev) -> list:
@@ -531,8 +646,10 @@ def main() -> int:
     phase_build()
     phase_kernels(dev)
     phase_k3(dev)
+    probe_records = phase_probes(dev)
     kernels = phase_main(dev)
     kernels.append(phase_reorder(dev))
+    kernels += probe_records
     phase_reorder_ab(dev)
     check("jax" not in sys.modules, "JAX was imported")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -10,7 +10,9 @@ The fold's outputs are held to the backward-error row bound
 ``|y - y_plain|_i <= 1e-5 * max((|A||x|)_i, 1)``: the kernel and the plain
 version (``index_add_``) sum each row in different orders.  The unpermute
 and the chunk permute move values without arithmetic and must match
-exactly.
+exactly.  The benchmark probes' kernels are held to ``rtol=1e-5`` with
+``atol = 1e-5 * max|ref|``: fp32 sums in another order, and in P2 and P3
+atomic adds in no fixed order.
 """
 
 import numpy as np
@@ -21,6 +23,10 @@ torch = pytest.importorskip("torch")
 from tpu_spmv_torch import (KernelType, SpMVConfig, spmv_auto_config,  # noqa: E402
                             spmv_csr)
 from tpu_spmv_torch import kernels as tk  # noqa: E402
+from tpu_spmv_torch.probes import profile_dma_share as p5  # noqa: E402
+from tpu_spmv_torch.probes import profile_kernel as p4  # noqa: E402
+from tpu_spmv_torch.probes import proto_v3 as p2  # noqa: E402
+from tpu_spmv_torch.probes import proto_v4 as p3  # noqa: E402
 from tpu_spmv_torch.kernels import plan as tplan  # noqa: E402
 from tpu_spmv_torch.kernels import reorder as tr  # noqa: E402
 from tpu_spmv_torch.kernels import window_ell as twe  # noqa: E402
@@ -166,3 +172,42 @@ def test_measure_fills_device_metrics(matrix, cuda_device):
     assert res.error_code == 0
     assert res.elapsed_ms > 0 and res.gflops > 0
     assert res.bandwidth.theoretical_gb_s > 0
+
+
+# each probe at a reduced size: (module, make_inputs keywords), every mode
+PROBES = ((p4, dict(n_steps=8, S=32, n_sup=4)),
+          (p2, dict(n_steps=4, S=32, out8=512)),
+          (p3, dict(n_steps=4, S=32, out8=1024)),
+          (p5, dict(n_blocks=16, S=32, n_out=4)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod, kw, mode", [
+    pytest.param(mod, kw, mode, id=f"{mod.__name__.rsplit('.', 1)[1]}-{mode}")
+    for mod, kw in PROBES for mode in mod.MODES])
+def test_probe_kernel_matches_plain(cuda_device, mod, kw, mode):
+    inp = mod.make_inputs(**kw, modes=(mode,), device=cuda_device)[mode]
+    before = mod.probe.launches
+    got = mod.probe(inp)
+    torch.cuda.synchronize()
+    assert mod.probe.launches - before == 1
+    ref = mod.probe_plain(inp)
+    torch.testing.assert_close(got, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod", [p2, p3], ids=["proto_v3", "proto_v4"])
+def test_probe_s_not_a_multiple_of_t_raises(cuda_device, mod):
+    """The Pallas loop over S // 16 sub-tiles would drop groups."""
+    with pytest.raises(ValueError, match="multiple of T"):
+        mod.make_inputs(2, 24, out8=1024, device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_dma_share_unaligned_values_raise(cuda_device):
+    inp = p5.make_inputs(4, 16, n_out=2, modes=("reuse1",),
+                         device=cuda_device)["reuse1"]
+    buf = torch.zeros(inp.vals.numel() + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        p5.Inputs(**{**vars(inp), "vals": buf[1:].view(inp.vals.shape)})

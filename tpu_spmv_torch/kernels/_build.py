@@ -112,15 +112,18 @@ def kernel_sources() -> list:
 
 def build_kernels() -> str:
     """Compile ``csrc/*.cu`` into the kernels library, one ``nvcc`` per
-    source, all started together, then link; returns the library's path."""
+    source, all started together, then link; returns the library's path.
+    The headers ``csrc/*.cuh`` are compiled into the sources that include
+    them; a change to one rebuilds the library."""
     srcs = kernel_sources()
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
     nvcc = nvcc_path()
 
     def obj(out: str, src: str) -> str:
         return f"{out}.{os.path.basename(src)}.o"
 
     return build_library(
-        KERNELS_LIB, srcs,
+        KERNELS_LIB, srcs + headers,
         lambda out: [nvcc, *NVCC_FLAGS, "-shared", "-o", out,
                      *(obj(out, s) for s in srcs)],
         compiles=lambda out: [[nvcc, *NVCC_FLAGS, "-c", "-o", obj(out, s), s]
@@ -145,4 +148,16 @@ def kernels() -> ctypes.CDLL:
     lib.tsp_unpermute.restype = _I
     lib.tsp_permute_chunks.argtypes = [_P, _I64, _P, _P, _I64, _P]
     lib.tsp_permute_chunks.restype = _I
+    # the benchmark probes (tpu_spmv_torch/probes)
+    lib.tsp_probe_profile_kernel.argtypes = [
+        _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
+    lib.tsp_probe_proto_v3.argtypes = [
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
+    lib.tsp_probe_proto_v4.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
+    lib.tsp_probe_dma_share.argtypes = [
+        _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
+    for fn in (lib.tsp_probe_profile_kernel, lib.tsp_probe_proto_v3,
+               lib.tsp_probe_proto_v4, lib.tsp_probe_dma_share):
+        fn.restype = _I
     return lib

@@ -1,12 +1,16 @@
 """Where one SpMV's device time goes, kernel by kernel, on one NVIDIA GPU.
 
-    python3 chip_profile.py [--calls 20] [--cells headline,mesh,ab]
+    python3 chip_profile.py [--calls 20]
+                            [--cells headline,mesh,ab,levers,pagerank]
 
 For ``chip_smoke.py``'s matrices (``headline``: the merge-path power-law
 matrix; ``mesh``: the scrambled 2^20 mesh, served reordered; ``ab``: the
 planted banded and clustered matrices at 262,144 rows, natural and
-reordered), each plan is resolved through ``spmv_csr`` (auto configuration)
-and warmed up, then ``--calls`` calls are traced with ``torch.profiler``.
+reordered; ``levers``: the headline with a bf16 value stream and, column-
+scaled, on the pattern path; ``pagerank``: one PageRank SpMV of the
+262,144-node web graph, on its pattern plan), each plan is resolved through
+``spmv_csr`` (auto configuration, with the cell's changes) and warmed up,
+then ``--calls`` calls are traced with ``torch.profiler``.
 Per plan it prints:
 
 * the fold schedule: for each section (in launch order) its CTAs, its runs,
@@ -42,7 +46,7 @@ def schedule(plan) -> list:
     return out
 
 
-def profile(label: str, A, x, reorder, calls: int, dev) -> None:
+def profile(label: str, A, x, changes: dict, calls: int, dev) -> None:
     import dataclasses
 
     import torch
@@ -53,13 +57,15 @@ def profile(label: str, A, x, reorder, calls: int, dev) -> None:
 
     from tpu_spmv_torch import spmv_auto_config, spmv_csr
     from tpu_spmv_torch.kernels.reorder import ReorderedPlan
+    from tpu_spmv_torch.spmv import PatternPlan
 
-    cfg = dataclasses.replace(spmv_auto_config(A), reorder=reorder)
+    cfg = dataclasses.replace(spmv_auto_config(A), **changes)
     xd = torch.from_numpy(x).to(dev)
     res = spmv_csr(A, xd, cfg)
     cs.check(res.error_code == 0, f"{label}: error {res.error_code}")
     plan = res.plan
-    inner = plan.inner if isinstance(plan, ReorderedPlan) else plan
+    inner = plan.inner if isinstance(plan, ReorderedPlan) \
+        else plan.plan if isinstance(plan, PatternPlan) else plan
     # one call per profiler step: two untraced (wait, warm-up), then
     # ``calls`` traced, then one more so the traced cycle closes (a trace
     # stopped right after its last call can miss that call's kernels)
@@ -83,9 +89,10 @@ def profile(label: str, A, x, reorder, calls: int, dev) -> None:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     total = sum(t for t, _ in by_name.values()) / calls
-    cs.log(f"== {label}: {type(plan).__name__}, sup {inner.sup}, "
-           f"{inner.n_groups} groups, tb {inner.tb}, S {inner.step_groups}; "
-           f"device {total:.2f} us/call over {calls} calls")
+    cs.log(f"== {label}: {type(plan).__name__}, {inner.values} values, sup "
+           f"{inner.sup}, {inner.n_groups} groups, tb {inner.tb}, S "
+           f"{inner.step_groups}; device {total:.2f} us/call over {calls} "
+           f"calls")
     for k, (ctas, runs, most, mean) in enumerate(schedule(inner)):
         cs.log(f"  section {k}: {ctas} CTAs, {runs} runs, max {most} / "
                f"mean {mean:.1f} runs per CTA")
@@ -107,10 +114,12 @@ def profile(label: str, A, x, reorder, calls: int, dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--calls", type=int, default=20)
-    ap.add_argument("--cells", default="headline,mesh,ab")
+    ap.add_argument("--cells", default="headline,mesh,ab,levers,pagerank")
     args = ap.parse_args()
+    import numpy as np
     import torch
 
+    from tpu_spmv_torch import CSRMatrix, KernelType
     from tpu_spmv_torch.utils import testing as tt
 
     if not torch.cuda.is_available():
@@ -120,20 +129,39 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     cells = args.cells.split(",")
     runs = []
-    if "headline" in cells:
-        runs.append(("power_law_csr", cs.HEADLINE, (None,)))
+    if "headline" in cells or "levers" in cells:
+        arms = [{"reorder": None}] if "headline" in cells else []
+        if "levers" in cells:
+            arms += [{"bf16_values": True}, {"pattern": True}]
+        runs.append(("power_law_csr", cs.HEADLINE, arms))
     if "mesh" in cells:
-        runs.append(("scrambled_banded_csr", cs.MESH, (None,)))
+        runs.append(("scrambled_banded_csr", cs.MESH, [{"reorder": None}]))
     if "ab" in cells:
-        runs += [(name, a, (False, None)) for name, a in cs.AB]
+        runs += [(name, a, [{"reorder": False}, {"reorder": None}])
+                 for name, a in cs.AB]
+    if "pagerank" in cells:
+        # PageRank's SpMV: the pattern path at its VECTOR_CSR kernel type
+        runs.append(("web_graph_csr", cs.PAGERANK, [
+            {"pattern": True, "kernel_type": KernelType.VECTOR_CSR}]))
     for name, a, arms in runs:
         rng = tt.RandomGenerator(42)
-        A = rng.power_law_csr(*a) if name == "power_law_csr" \
-            else getattr(tt, name)(rng, *a)
+        if name == "power_law_csr":
+            A = rng.power_law_csr(*a)
+        elif name == "web_graph_csr":
+            A = tt.transition_matrix(tt.web_graph_csr(rng, a[0], a[0],
+                                                      avg_nnz=a[1]))
+        else:
+            A = getattr(tt, name)(rng, *a)
         x = rng.vector(A.num_cols)
-        for reorder in arms:
-            profile(f"{name}{a} reorder={reorder}", A, x, reorder,
-                    args.calls, dev)
+        for changes in arms:
+            M = A
+            if changes.get("pattern") and name == "power_law_csr":
+                # a column-scaled matrix of the headline's structure
+                s = tt.RandomGenerator(7).rng.uniform(0.5, 2.0, A.num_cols) \
+                    .astype(np.float32)
+                M = CSRMatrix(A.num_rows, A.num_cols, s[A.col_indices],
+                              A.col_indices, A.row_ptrs)
+            profile(f"{name}{a} {changes}", M, x, changes, args.calls, dev)
     return 0
 
 

@@ -11,8 +11,9 @@ The fold's outputs are held to the backward-error row bound
 version (``index_add_``) sum each row in different orders.  The unpermute
 and the chunk permute move values without arithmetic and must match
 exactly.  The benchmark probes' kernels are held to ``rtol=1e-5`` with
-``atol = 1e-5 * max|ref|``: fp32 sums in another order, and in P2 and P3
-atomic adds in no fixed order.
+``atol = 1e-5 * max|ref|``: fp32 sums in another order, and in P1, P2 and
+P3 atomic adds in no fixed order.  PageRank on the card is held to a float64
+power iteration at ``rtol=1e-4, atol=1e-7``.
 """
 
 import numpy as np
@@ -20,19 +21,23 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tpu_spmv_torch import (KernelType, SpMVConfig, spmv_auto_config,  # noqa: E402
-                            spmv_csr)
+from tpu_spmv_torch import (  # noqa: E402
+    KernelType, PageRankConfig, SpMVConfig, pagerank, spmv_auto_config,
+    spmv_csr)
 from tpu_spmv_torch import kernels as tk  # noqa: E402
 from tpu_spmv_torch.probes import profile_dma_share as p5  # noqa: E402
 from tpu_spmv_torch.probes import profile_kernel as p4  # noqa: E402
+from tpu_spmv_torch.probes import proto_v2 as p1  # noqa: E402
 from tpu_spmv_torch.probes import proto_v3 as p2  # noqa: E402
 from tpu_spmv_torch.probes import proto_v4 as p3  # noqa: E402
 from tpu_spmv_torch.kernels import plan as tplan  # noqa: E402
 from tpu_spmv_torch.kernels import reorder as tr  # noqa: E402
 from tpu_spmv_torch.kernels import window_ell as twe  # noqa: E402
+from tpu_spmv_torch.spmv import PatternPlan  # noqa: E402
 from tpu_spmv_torch.utils.testing import (RandomGenerator,  # noqa: E402
                                           abs_row_scale, scrambled_banded_csr,
-                                          spmv_matches)
+                                          spmv_matches, transition_matrix,
+                                          web_graph_csr)
 
 ROW_TOL = 1e-5
 
@@ -68,15 +73,55 @@ def test_fold_kernel_matches_plain(matrix, cuda_device, sup, tb, leveled):
                     step_groups=16, sup=sup, t_base=tb,
                     permute_rows=leveled), cuda_device)
     table = twe.gather_table(plan, torch.from_numpy(x).to(cuda_device))
-    before = twe.window_ell_fold.launches
+    before = twe.window_ell_fold.launches["float32"]
     out = twe.window_ell_fold(plan, table)
     torch.cuda.synchronize()
-    assert twe.window_ell_fold.launches - before == len(plan.sections)
+    assert twe.window_ell_fold.launches["float32"] - before \
+        == len(plan.sections)
     y = rows_of(out, plan)
     y_ref = rows_of(twe.window_ell_fold_plain(plan, table), plan)
     bound = ROW_TOL * np.maximum(abs_row_scale(A, x), 1.0)
     assert np.all(np.abs(y - y_ref) <= bound)
     assert spmv_matches(y, A, x, rel_tol=ROW_TOL)
+
+
+def ones_of(A):
+    return type(A)(A.num_rows, A.num_cols, np.ones(A.nnz, np.float32),
+                   A.col_indices, A.row_ptrs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["bfloat16", "pattern"])
+@pytest.mark.parametrize("leveled", [False, True])
+@pytest.mark.parametrize("tb", [2, 4, 8])
+@pytest.mark.parametrize("sup", [1024, 4096, 16384])
+def test_fold_variant_matches_plain(matrix, cuda_device, sup, tb, leveled,
+                                    values):
+    """K1's bf16 and pattern variants at every superblock height (sup 1024:
+    nibble-packed sb, a pattern plan's sentinel nibble 15; 4096 and 16384:
+    the int8 stream, sentinel -1), run length and leveling, merge-path with
+    extras sections, against the plain version under the row bound; the
+    pattern plan against the oracle of the 0/1 matrix."""
+    A, x = matrix
+    hp = tplan.build(A, split_rows=128, step_groups=16, sup=sup, t_base=tb,
+                     permute_rows=leveled, pattern=values == "pattern",
+                     values_dtype="bfloat16" if values == "bfloat16"
+                     else "float32")
+    plan = twe.plan_from_host(hp, cuda_device)
+    assert plan.values == values and plan.sbn == (sup == 1024)
+    table = twe.gather_table(plan, torch.from_numpy(x).to(cuda_device))
+    tk.reset_launch_counts()
+    out = twe.window_ell_fold(plan, table)
+    torch.cuda.synchronize()
+    name = tk.FOLD_VARIANTS[values]
+    assert tk.launch_counts()[name] == len(plan.sections) > 1
+    y = rows_of(out, plan)
+    y_ref = rows_of(twe.window_ell_fold_plain(plan, table), plan)
+    M = ones_of(A) if values == "pattern" else A
+    bound = ROW_TOL * np.maximum(abs_row_scale(M, x), 1.0)
+    assert np.all(np.abs(y - y_ref) <= bound)
+    assert spmv_matches(y, M, x, rel_tol=8e-3 if values == "bfloat16"
+                        else ROW_TOL)
 
 
 @pytest.mark.cuda
@@ -158,6 +203,7 @@ def test_reordered_spmv_csr_on_card_matches_oracle(cuda_device):
     counts = tk.launch_counts()
     assert counts == {
         "window_ell_fold": len(res.plan.inner.sections),
+        "window_ell_fold_bf16": 0, "window_ell_fold_pattern": 0,
         "unpermute": int(res.plan.inner.lam is not None),
         "permute_chunks": 2}
     assert spmv_matches(res.y.cpu().numpy(), A, x, rel_tol=ROW_TOL)
@@ -174,8 +220,44 @@ def test_measure_fills_device_metrics(matrix, cuda_device):
     assert res.bandwidth.theoretical_gb_s > 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel_type", [KernelType.VECTOR_CSR,
+                                         KernelType.MERGE_PATH])
+def test_pagerank_on_card_matches_float64(cuda_device, kernel_type):
+    """PageRank on a small web graph's transition matrix runs on a pattern
+    plan on the card (K1's pattern variant and K2 each iteration) and
+    matches a float64 power iteration with the same update."""
+    A = transition_matrix(web_graph_csr(RandomGenerator(42), 8192, 8192,
+                                        avg_nnz=15))
+    cfg = PageRankConfig(max_iterations=30, tolerance=0.0,
+                         kernel_type=kernel_type)
+    tk.reset_launch_counts()
+    res = pagerank(A, cfg)
+    torch.cuda.synchronize()
+    assert res.error_code == 0 and res.ranks.device.type == "cuda"
+    assert isinstance(res.plan, PatternPlan) and res.iterations == 30
+    plan = res.plan.plan
+    counts = tk.launch_counts()
+    assert counts["window_ell_fold_pattern"] == 30 * len(plan.sections)
+    assert counts["window_ell_fold"] == counts["window_ell_fold_bf16"] == 0
+    assert counts["unpermute"] == (30 if plan.lam is not None else 0)
+    n = A.num_rows
+    rows = np.repeat(np.arange(n), np.diff(A.row_ptrs))
+    dang = np.bincount(A.col_indices, minlength=n) == 0
+    r = np.full(n, 1.0 / n)
+    for _ in range(30):
+        Ar = np.bincount(rows, A.values.astype(np.float64)
+                         * r[A.col_indices], minlength=n)
+        r = 0.85 * Ar + 0.85 * r[dang].sum() / n + 0.15 / n
+    r /= r.sum()
+    ranks = res.ranks_host()
+    np.testing.assert_allclose(ranks, r, rtol=1e-4, atol=1e-7)
+    assert abs(float(ranks.sum()) - 1.0) < 1e-4
+
+
 # each probe at a reduced size: (module, make_inputs keywords), every mode
-PROBES = ((p4, dict(n_steps=8, S=32, n_sup=4)),
+PROBES = ((p1, dict(n_steps=4, S=32, out8=256)),
+          (p4, dict(n_steps=8, S=32, n_sup=4)),
           (p2, dict(n_steps=4, S=32, out8=512)),
           (p3, dict(n_steps=4, S=32, out8=1024)),
           (p5, dict(n_blocks=16, S=32, n_out=4)))
@@ -197,11 +279,29 @@ def test_probe_kernel_matches_plain(cuda_device, mod, kw, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mod", [p2, p3], ids=["proto_v3", "proto_v4"])
+@pytest.mark.parametrize("mod", [p1, p2, p3],
+                         ids=["proto_v2", "proto_v3", "proto_v4"])
 def test_probe_s_not_a_multiple_of_t_raises(cuda_device, mod):
-    """The Pallas loop over S // 16 sub-tiles would drop groups."""
+    """The Pallas loop over S // T sub-tiles would drop groups."""
     with pytest.raises(ValueError, match="multiple of T"):
         mod.make_inputs(2, 24, out8=1024, device=cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["gather", "v2s8", "v2s16", "v2b8",
+                                  "v2g16"])
+def test_proto_v2_table_in_output_matches_v3_twin(cuda_device, mode):
+    """P1's v2 forms gather from the output's head rows, seeded with x2d:
+    outside them they compute what their v3 twins compute."""
+    inputs = p1.make_inputs(4, 32, out8=256, modes=(mode, p1.twin(mode)),
+                            device=cuda_device)
+    got = p1.probe(inputs[mode])
+    twin = p1.probe(inputs[p1.twin(mode)])
+    torch.cuda.synchronize()
+    assert torch.equal(got[:p1.COLS8], inputs[mode].x2d)
+    assert not twin[:p1.COLS8].any()
+    torch.testing.assert_close(got[p1.COLS8:], twin[p1.COLS8:], rtol=1e-5,
+                               atol=1e-5 * float(twin.abs().max()))
 
 
 @pytest.mark.cuda

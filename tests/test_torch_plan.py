@@ -128,5 +128,9 @@ def test_banded_routes_are_not_ported():
     with pytest.raises(NotImplementedError, match="M7"):
         tplan.build_auto(A, split_rows=128, step_groups=8,
                          choice=(1024, tplan.MAX_GROUPS + 1))
-    with pytest.raises(NotImplementedError, match="M7"):
+    # bf16 value streams are ported: a value stream of any other type is
+    # refused, not built
+    assert tplan.build(A, split_rows=128, step_groups=8,
+                       values_dtype="bfloat16").values_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
         tplan.build(A, split_rows=128, values_dtype=np.float16)

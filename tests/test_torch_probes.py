@@ -17,6 +17,12 @@ port defines every superblock to start from zero.  The P4 tests compare
 block 0 with JAX, assert that JAX's later blocks are NaN, and hold the
 port's later blocks to a float64 NumPy loop.
 
+P1's v2 modes, gather and v1x16 gather from the output's own first rows,
+which the Pallas kernel zeroes and never writes, so its output is all zeros
+(fault F5).  The port seeds those rows with x2d; the P1 tests assert JAX's
+zeros and hold the port to a float64 loop and to the mode's v3 twin outside
+the head rows.  The v3 modes are held to JAX directly.
+
 A test per probe stubs the JAX script's ``build`` and ``time_jitted``, runs
 its ``main()`` at the default sizes, and holds the arrays it would have timed
 bit for bit equal to the port's ``make_inputs``.
@@ -40,6 +46,7 @@ from jax.experimental import pallas as pl  # noqa: E402
 from tpu_spmv_torch import probes  # noqa: E402
 from tpu_spmv_torch.probes import profile_dma_share as p5  # noqa: E402
 from tpu_spmv_torch.probes import profile_kernel as p4  # noqa: E402
+from tpu_spmv_torch.probes import proto_v2 as p1  # noqa: E402
 from tpu_spmv_torch.probes import proto_v3 as p2  # noqa: E402
 from tpu_spmv_torch.probes import proto_v4 as p3  # noqa: E402
 
@@ -135,6 +142,108 @@ def test_profile_kernel_matches_jax(interpret, mode):
     assert_close(got[:8], ref[:8])
     assert np.isnan(ref[8:]).all()
     assert_close(got, p4_loop(inp))
+
+
+# ---- P1: proto_v2 ----
+
+P1_ARGS = ("wg", "base", "x2d", "vals", "lo", "sb")
+P1_SMALL = dict(n_steps=4, S=32, out8=256)
+
+
+def p1_loop(inp) -> np.ndarray:
+    """P1 as a float64 loop over groups, the table x2d (in the v2 forms the
+    seeded head rows, which keep x2d)."""
+    wg, base, x2d, vals, lo, sb = arrays(inp, P1_ARGS)
+    cols8, mode, U = inp.cols8, p1.base_mode(inp.mode), inp.unit
+    out = np.zeros((cols8 + inp.out8, 128))
+    if not inp.split:
+        out[:cols8] = x2d
+    acc = np.zeros((16, 128))
+    for g in range(inp.n_groups):
+        table = x2d[8 * wg[g]:8 * wg[g] + 8].astype(np.float64)
+        p = vals[8 * g:8 * g + 8].astype(np.float64) * np.take_along_axis(
+            table, lo[8 * g:8 * g + 8].astype(np.int64), axis=1)
+        s = sb[8 * g:8 * g + 8]
+        if mode == "gather":
+            acc[:8] += p
+            acc[8:] += p
+            continue
+        for k in range(16 if mode == "v1x16" else 8):
+            acc[k] += np.where(s == k, p, 0.0).sum(0)
+        if U and (g + 1) % U == 0:
+            out[base[g + 1 - U] * 8:base[g + 1 - U] * 8 + 8] += acc[:8]
+            acc[:] = 0.0
+    if not U:
+        out[cols8:cols8 + 16] += acc
+    return out
+
+
+@pytest.mark.parametrize("mode", [m for m in p1.MODES if m.startswith("v3")])
+def test_proto_v2_v3_modes_match_jax(interpret, mode):
+    inp = p1.make_inputs(**P1_SMALL, modes=(mode,))[mode]
+    jk = interpret("proto_v2")
+    ref = np.asarray(jk.build(inp.n_steps, inp.S, inp.out8, p1.COLS8, mode)(
+        *arrays(inp, P1_ARGS)))
+    got = p1.probe(inp).numpy()
+    assert got.shape == ref.shape == (p1.COLS8 + inp.out8, 128)
+    assert np.any(ref != 0) and not np.any(ref[:p1.COLS8])
+    assert_close(got, ref)
+    assert_close(got, p1_loop(inp))
+
+
+@pytest.mark.parametrize("mode", [m for m in p1.MODES
+                                  if not m.startswith("v3")])
+def test_proto_v2_table_in_output_modes(interpret, mode):
+    """F5: JAX gathers from zeroed rows and returns zeros; the port gathers
+    from rows seeded with x2d, as its v3 twin gathers from the copy."""
+    inp = p1.make_inputs(**P1_SMALL, modes=(mode,))[mode]
+    jk = interpret("proto_v2")
+    ref = np.asarray(jk.build(inp.n_steps, inp.S, inp.out8, p1.COLS8, mode)(
+        *arrays(inp, P1_ARGS)))
+    assert not np.any(ref)
+    got = p1.probe(inp).numpy()
+    assert np.array_equal(got[:p1.COLS8], inp.x2d.numpy())
+    assert_close(got, p1_loop(inp))
+    twin = p1.twin(mode)
+    if twin is not None:
+        v3 = p1.probe(p1.Inputs(**{**vars(inp), "mode": twin})).numpy()
+        assert_close(got[p1.COLS8:], v3[p1.COLS8:])
+    else:
+        assert mode == "v1x16"
+
+
+def test_proto_v2_main_inputs(monkeypatch, capsys):
+    mod = script("proto_v2")
+    port = p1.make_inputs(modes=("v3s16",))["v3s16"]
+    seen = []
+
+    def check(args):
+        for name, a in zip(P1_ARGS, args):
+            assert_bit_equal(a, getattr(port, name))
+        seen.append(len(seen))
+
+    stub_mains(monkeypatch, mod, check)
+    monkeypatch.setattr(sys, "argv", ["proto_v2.py"])
+    mod.main()
+    assert len(seen) == len(p1.MAIN_MODES)
+    out = capsys.readouterr().out
+    assert f"groups={port.n_groups} stream={port.nbytes / 1e6:.0f}MB" in out
+    assert out.count("ps/slot") == len(p1.MAIN_MODES)
+
+
+@pytest.mark.parametrize("mode, S", [("v2s8", 12), ("v3s16", 24),
+                                     ("gather", 8), ("v2b8", 40)])
+def test_proto_v2_s_not_a_multiple_of_t_raises(mode, S):
+    with pytest.raises(ValueError, match="multiple of T"):
+        p1.make_inputs(2, S, out8=256, modes=(mode,))
+
+
+def test_proto_v2_refuses_a_base_in_the_head_rows():
+    inp = p1.make_inputs(**P1_SMALL, modes=("v2s8",))["v2s8"]
+    base = inp.base.clone()
+    base[5] = p1.COLS8 // 8 - 1
+    with pytest.raises(ValueError, match="base"):
+        p1.Inputs(**{**vars(inp), "base": base})
 
 
 # ---- P2: proto_v3 ----

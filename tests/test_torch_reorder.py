@@ -232,7 +232,8 @@ def assert_reordered_equal(jrp, rp):
                                               (BANDED_16K, 128)])
 def test_build_reordered_equals_jax_plan(absorb_helper, case, split_rows):
     A = port_matrix(case)
-    rp = tr.build_reordered(A, split_rows=split_rows, step_groups=8)
+    rp = tr.build_reordered(A, split_rows=split_rows, step_groups=8,
+                            device="cpu")
     _, jrp = jr.build_reordered(to_jax(A), split_rows=split_rows,
                                 step_groups=8)
     assert isinstance(rp, tr.ReorderedPlan) and rp.inner.sup == 4096
@@ -247,8 +248,8 @@ def test_reordered_from_arrays_gives_port_output(absorb_helper):
     aux = {k: getattr(jrp.inner, k) for k in tplan.AUX}
     from_jax = tr.reordered_from_arrays(
         leaves, aux, np.asarray(jrp.col_src), np.asarray(jrp.row_src),
-        jrp.num_rows, jrp.num_cols, occupancy=jrp.occupancy)
-    from_port = tr.build_reordered(A, step_groups=8)
+        jrp.num_rows, jrp.num_cols, device="cpu", occupancy=jrp.occupancy)
+    from_port = tr.build_reordered(A, step_groups=8, device="cpu")
     x = torch.from_numpy(tt.RandomGenerator(7).vector(A.num_cols))
     assert torch.equal(tr.spmv_reordered(from_jax, x),
                        tr.spmv_reordered(from_port, x))
@@ -270,7 +271,7 @@ def test_spmv_reordered_matches_jax_and_oracle(absorb_helper, which):
          "clustered": lambda: port_matrix(CLUSTERED_16K),
          "unaligned": unaligned_matrix}[which]()
     x = tt.RandomGenerator(7).vector(A.num_cols)
-    rp = tr.build_reordered(A)
+    rp = tr.build_reordered(A, device="cpu")
     fn, jrp = jr.build_reordered(to_jax(A))
     y = tr.spmv_reordered(rp, torch.from_numpy(x)).numpy()
     y_jax = np.asarray(fn(jrp, jnp.asarray(x)))
@@ -285,12 +286,12 @@ def test_permuted_banded_build_raises_m7(monkeypatch):
     A = port_matrix(BANDED_16K)
     monkeypatch.setattr(tplan, "MAX_GROUPS", 64)
     with pytest.raises(NotImplementedError, match="M7"):
-        tr.build_reordered(A)
+        tr.build_reordered(A, device="cpu")
 
 
 def test_reordered_stream_bytes_add_both_permutes():
     A = unaligned_matrix()
-    rp = tr.build_reordered(A)
+    rp = tr.build_reordered(A, device="cpu")
     assert rp.inner.num_cols == 63 * 128
     assert rp.stream_bytes == rp.inner.stream_bytes \
         + 63 * 128 * 8 + 63 * 4 + 8000 * 8 + 63 * 4
@@ -309,7 +310,7 @@ def test_spmv_csr_route_and_output_match_jax(absorb_helper, which, reorder):
     cfg = tpu_spmv_torch.spmv_auto_config(A)
     jcfg = tpu_spmv.spmv_auto_config(jA)
     cfg.reorder = jcfg.reorder = reorder
-    res = tpu_spmv_torch.spmv_csr(A, x, cfg)
+    res = tpu_spmv_torch.spmv_csr(A, x, cfg, device="cpu")
     jres = tpu_spmv.spmv_csr(jA, x, jcfg)
     assert res.error_code == 0 == jres.error_code
     _, jplan = jA._plan_cache[(int(jcfg.kernel_type), jcfg.step_groups,
@@ -331,10 +332,11 @@ def test_dispatch_plan_is_build_reordered():
     A = port_matrix(BANDED_16K)
     x = tt.RandomGenerator(7).vector(A.num_cols)
     res = tpu_spmv_torch.spmv_csr(A, x, SpMVConfig(
-        kernel_type=KernelType.MERGE_PATH, reorder=True))
+        kernel_type=KernelType.MERGE_PATH, reorder=True), device="cpu")
     order = tr.maybe_reorder(A, force=True)
     assert_reordered_equal(
-        tr.build_reordered(A, order, split_rows=MERGE_SPLIT_ROWS), res.plan)
+        tr.build_reordered(A, order, split_rows=MERGE_SPLIT_ROWS,
+                           device="cpu"), res.plan)
 
 
 def test_plan_cache_keys_on_reorder():
@@ -344,10 +346,10 @@ def test_plan_cache_keys_on_reorder():
     x = tt.RandomGenerator(7).vector(A.num_cols)
     cfg = SpMVConfig(kernel_type=KernelType.VECTOR_CSR)
     off = tpu_spmv_torch.spmv_csr(A, x, SpMVConfig(
-        kernel_type=KernelType.VECTOR_CSR, reorder=False))
+        kernel_type=KernelType.VECTOR_CSR, reorder=False), device="cpu")
     on = tpu_spmv_torch.spmv_csr(A, x, SpMVConfig(
-        kernel_type=KernelType.VECTOR_CSR, reorder=True))
-    auto = tpu_spmv_torch.spmv_csr(A, x, cfg)
+        kernel_type=KernelType.VECTOR_CSR, reorder=True), device="cpu")
+    auto = tpu_spmv_torch.spmv_csr(A, x, cfg, device="cpu")
     assert not isinstance(off.plan, tr.ReorderedPlan)
     assert isinstance(on.plan, tr.ReorderedPlan)
     assert isinstance(auto.plan, tr.ReorderedPlan) and auto.plan is not on.plan
@@ -374,7 +376,8 @@ def test_measure_times_the_plan_that_served(monkeypatch):
     A = port_matrix(BANDED_16K)
     x = tt.RandomGenerator(7).vector(A.num_cols)
     res = tpu_spmv_torch.spmv_csr(A, x, SpMVConfig(
-        kernel_type=KernelType.VECTOR_CSR, reorder=True), measure=True)
+        kernel_type=KernelType.VECTOR_CSR, reorder=True), measure=True,
+        device="cpu")
     assert isinstance(res.plan, tr.ReorderedPlan)
     assert len(timed) == 1 and torch.equal(timed[0], res.y)
     assert res.elapsed_ms == 1.0 and res.bandwidth_gb_s > 0
@@ -385,12 +388,13 @@ def test_measure_refuses_the_cpu():
     x = tt.RandomGenerator(7).vector(A.num_cols)
     with pytest.raises(RuntimeError, match="CUDA"):
         tpu_spmv_torch.spmv_csr(A, x, SpMVConfig(
-            kernel_type=KernelType.VECTOR_CSR, reorder=False), measure=True)
+            kernel_type=KernelType.VECTOR_CSR, reorder=False), measure=True,
+            device="cpu")
 
 
 def test_permute_launch_count_does_not_move_on_cpu():
     A = port_matrix(BANDED_16K)
-    rp = tr.build_reordered(A)
+    rp = tr.build_reordered(A, device="cpu")
     tk.reset_launch_counts()
     tr.spmv_reordered(rp, torch.from_numpy(
         tt.RandomGenerator(7).vector(A.num_cols)))

@@ -60,7 +60,7 @@ def test_spmv_csr_matches_jax(smoke, absorb_helper, kernel_type):
     if kernel_type != "auto":
         cfg.kernel_type = KernelType[kernel_type]
         jcfg.kernel_type = tpu_spmv.KernelType[kernel_type]
-    res = tpu_spmv_torch.spmv_csr(A, x, cfg)
+    res = tpu_spmv_torch.spmv_csr(A, x, cfg, device="cpu")
     jres = tpu_spmv.spmv_csr(to_jax_csr(A), x, jcfg)
     assert res.error_code == 0 == jres.error_code
     y, y_jax = res.y_host(), np.asarray(jres.y)
@@ -76,8 +76,9 @@ def test_spmv_csr_accepts_tensors_and_caches_plans(smoke):
     A = tpu_spmv_torch.CSRMatrix(A.num_rows, A.num_cols, A.values,
                                  A.col_indices, A.row_ptrs)  # fresh cache
     cfg = SpMVConfig(kernel_type=KernelType.MERGE_PATH)
-    first = tpu_spmv_torch.spmv_csr(A, torch.from_numpy(x), cfg)
-    second = tpu_spmv_torch.spmv_csr(A, x, cfg)
+    first = tpu_spmv_torch.spmv_csr(A, torch.from_numpy(x), cfg,
+                                    device="cpu")
+    second = tpu_spmv_torch.spmv_csr(A, x, cfg, device="cpu")
     assert first.plan is second.plan
     assert second.plan_seconds < first.plan_seconds
     assert torch.equal(first.y, second.y)
@@ -109,13 +110,10 @@ def test_unported_routes_raise(smoke, absorb_helper):
         (SpMVConfig(kernel_type=KernelType.ELL_KERNEL), "M10"),
         (SpMVConfig(kernel_type=KernelType.MERGE_PATH, use_vmem_x=False),
          "M10"),
-        (SpMVConfig(kernel_type=KernelType.MERGE_PATH, pattern=True), "M7"),
-        (SpMVConfig(kernel_type=KernelType.VECTOR_CSR, bf16_values=True),
-         "M7"),
     ]
     for cfg, item in routes:
         with pytest.raises(NotImplementedError, match=item):
-            tpu_spmv_torch.spmv_csr(A, x, cfg)
+            tpu_spmv_torch.spmv_csr(A, x, cfg, device="cpu")
     for cols, item in ((1 << 20) + 1, "M7"), ((1 << 21) + 1, "M7"):
         wide = tpu_spmv_torch.CSRMatrix(4, cols, np.ones(2, np.float32),
                                         np.array([0, cols - 1], np.int32),
@@ -123,7 +121,25 @@ def test_unported_routes_raise(smoke, absorb_helper):
         with pytest.raises(NotImplementedError, match=item):
             tpu_spmv_torch.spmv_csr(
                 wide, np.ones(cols, np.float32),
-                SpMVConfig(kernel_type=KernelType.VECTOR_CSR))
+                SpMVConfig(kernel_type=KernelType.VECTOR_CSR), device="cpu")
+    # the pattern fast path and bf16 value streams are served (ROADMAP M7's
+    # pattern and bf16 parts are ported): a column-scaled matrix on a pattern
+    # plan, the smoke matrix on a bf16 plan, each held against the oracle
+    from tpu_spmv_torch.spmv import PatternPlan
+
+    svals = RandomGenerator(3).rng.uniform(0.5, 2.0, A.num_cols) \
+        .astype(np.float32)
+    scaled = tpu_spmv_torch.CSRMatrix(A.num_rows, A.num_cols,
+                                      svals[A.col_indices], A.col_indices,
+                                      A.row_ptrs)
+    pat = tpu_spmv_torch.spmv_csr(scaled, x, SpMVConfig(
+        kernel_type=KernelType.MERGE_PATH, pattern=True), device="cpu")
+    assert pat.error_code == 0 and isinstance(pat.plan, PatternPlan)
+    assert spmv_matches(pat.y_host(), scaled, x, rel_tol=ROW_TOL)
+    bf16 = tpu_spmv_torch.spmv_csr(A, x, SpMVConfig(
+        kernel_type=KernelType.VECTOR_CSR, bf16_values=True), device="cpu")
+    assert bf16.error_code == 0 and bf16.plan.values == "bfloat16"
+    assert spmv_matches(bf16.y_host(), A, x, rel_tol=8e-3)
     # forced block reordering is served (ROADMAP M8 is ported), by the same
     # route as the JAX dispatch
     from tpu_spmv.kernels.reorder import ReorderedPlan as JaxReorderedPlan
@@ -134,7 +150,7 @@ def test_unported_routes_raise(smoke, absorb_helper):
     xs = RandomGenerator(2).vector(4096)
     res = tpu_spmv_torch.spmv_csr(
         square, xs, SpMVConfig(kernel_type=KernelType.MERGE_PATH,
-                               reorder=True))
+                               reorder=True), device="cpu")
     jsquare = to_jax_csr(square)
     jres = tpu_spmv.spmv_csr(jsquare, xs, tpu_spmv.SpMVConfig(
         kernel_type=tpu_spmv.KernelType.MERGE_PATH, reorder=True))
@@ -173,7 +189,7 @@ def test_stream_bytes_match_jax(smoke, absorb_helper, leveled):
     A, _ = smoke
     kw = dict(split_rows=128, step_groups=16, permute_rows=leveled)
     jp = jwe.WindowEllPlan.build(A, **kw)
-    plan = twe.plan_from_host(tplan.build(A, **kw))
+    plan = twe.plan_from_host(tplan.build(A, **kw), "cpu")
     assert plan.stream_bytes == jp.stream_bytes
 
 
@@ -211,16 +227,65 @@ def test_guarded_upload_failure_becomes_error_code(smoke, monkeypatch):
 
     monkeypatch.setattr(torch.Tensor, "to", oom)
     res = tpu_spmv_torch.spmv_csr(A, x, SpMVConfig(
-        kernel_type=KernelType.MERGE_PATH))
+        kernel_type=KernelType.MERGE_PATH), device="cpu")
     assert res.error_code == SpMVError.DEVICE_ALLOC and res.y is None
 
 
+@pytest.mark.parametrize("x_kind", ["array", "cpu tensor"])
+def test_entry_points_default_to_the_card(smoke, monkeypatch, x_kind):
+    """With no device named, ``spmv_csr`` and ``pagerank`` run on the card,
+    whatever x is: where there is none they return ``DEVICE_ALLOC`` and
+    never run on the CPU.  The plan builders default to the card too."""
+    import inspect
+
+    from tpu_spmv_torch.kernels import reorder as tr
+
+    A, x = smoke
+    A = tpu_spmv_torch.CSRMatrix(A.num_rows, A.num_cols, A.values,
+                                 A.col_indices, A.row_ptrs)  # fresh cache
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    xv = x if x_kind == "array" else torch.from_numpy(x)
+    cfg = SpMVConfig(kernel_type=KernelType.MERGE_PATH)
+    res = tpu_spmv_torch.spmv_csr(A, xv, cfg)
+    assert res.error_code == SpMVError.DEVICE_ALLOC and res.y is None
+    assert not A._plan_cache            # nothing was planned or uploaded
+    square = RandomGenerator(4).power_law_csr(300, 300, 6.0, 1.5)
+    pr = tpu_spmv_torch.pagerank(square)
+    assert pr.error_code == SpMVError.DEVICE_ALLOC and pr.ranks is None
+    assert tpu_spmv_torch.spmv_csr(A, xv, cfg, device="cpu").error_code \
+        == 0 == tpu_spmv_torch.pagerank(square, device="cpu").error_code
+    for fn in (twe.plan_from_arrays, twe.plan_from_host,
+               tr.reordered_from_arrays, tr.reordered_from_host,
+               tr.build_reordered):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
 def test_import_does_not_load_jax():
-    code = ("import sys, tpu_spmv_torch, tpu_spmv_torch.kernels.window_ell; "
-            "assert 'jax' not in sys.modules, 'jax imported'")
+    code = ("import sys, tpu_spmv_torch, tpu_spmv_torch.kernels.window_ell, "
+            "tpu_spmv_torch.pagerank, tpu_spmv_torch.probes.proto_v2; "
+            "bad = [m for m in sys.modules if m in ('jax', 'tpu_spmv') or "
+            "m.startswith(('jax.', 'tpu_spmv.'))]; "
+            "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_no_port_source_names_jax():
+    """No module of the port, nor ``chip_smoke.py``, imports JAX or the JAX
+    package, not even inside a function."""
+    import glob
+    import re
+
+    files = [f for f in glob.glob(os.path.join(ROOT, "tpu_spmv_torch", "**",
+                                               "*.py"), recursive=True)
+             if os.sep + "_build" + os.sep not in f] \
+        + [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "chip_profile.py")]
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|tpu_spmv)(\.|\s|$)",
+                         re.M)
+    bad = [f for f in files if pattern.search(open(f).read())]
+    assert len(files) > 20 and not bad, bad
 
 
 def test_chip_smoke_refuses_without_gpu():

@@ -67,7 +67,7 @@ def test_plain_path_matches_jax_kernel(matrix, sup, tb, leveled):
     assert (hp.lam is not None) == leveled
     y_jax = np.asarray(jwe.spmv_window_ell(jax_plan_from_host(hp),
                                            jnp.asarray(x)))
-    plan = twe.plan_from_host(hp)
+    plan = twe.plan_from_host(hp, "cpu")
     y = twe.spmv_window_ell(plan, torch.from_numpy(x)).numpy()
     assert y.shape == (A.num_rows,)
     assert_row_bound(y, y_jax, A, x)
@@ -80,7 +80,7 @@ def test_sections_partition_the_plan(matrix):
     A, _ = matrix
     hp = tplan.build(A, split_rows=128, step_groups=16, sup=1024,
                      permute_rows=True)
-    plan = twe.plan_from_host(hp)
+    plan = twe.plan_from_host(hp, "cpu")
     assert len(plan.sections) == 1 + int(hp.fin_step.sum())
     runs = torch.cat([s.run_order for s in plan.sections]).numpy()
     n_runs = int((hp.blk_step >= 0).sum()) * hp.step_groups // hp.tb
@@ -113,8 +113,8 @@ def test_plan_from_jax_plan_gives_same_output(matrix, absorb_helper):
     leaves = {k: None if getattr(jp, k) is None
               else np.asarray(getattr(jp, k)) for k in tplan.LEAVES}
     aux = {k: getattr(jp, k) for k in tplan.AUX}
-    from_jax = twe.plan_from_arrays(leaves, aux)
-    from_port = twe.plan_from_host(tplan.build(A, **kw))
+    from_jax = twe.plan_from_arrays(leaves, aux, "cpu")
+    from_port = twe.plan_from_host(tplan.build(A, **kw), "cpu")
     xt = torch.from_numpy(x)
     assert torch.equal(twe.spmv_window_ell(from_jax, xt),
                        twe.spmv_window_ell(from_port, xt))
@@ -122,17 +122,30 @@ def test_plan_from_jax_plan_gives_same_output(matrix, absorb_helper):
 
 
 def test_fold_refuses_bf16_and_pattern_plans(matrix):
+    """bf16 and pattern plans now have routes: the fold serves both, held
+    against the oracle (bf16 at the value-rounding bound 8e-3, the pattern
+    plan against the 0/1 matrix at 1e-5), and refuses only a plan whose
+    value stream it has no variant for."""
     A, x = matrix
-    plan = twe.plan_from_host(tplan.build(A, split_rows=128, step_groups=8))
-    table = twe.gather_table(plan, torch.from_numpy(x))
+    xt = torch.from_numpy(x)
+    plan = twe.plan_from_host(tplan.build(A, split_rows=128, step_groups=8),
+                              "cpu")
     bf16 = dataclasses.replace(plan, vals=plan.vals.to(torch.bfloat16))
-    with pytest.raises(NotImplementedError, match="M7"):
-        twe.window_ell_fold(bf16, table)
+    assert bf16.values == "bfloat16"
+    assert spmv_matches(twe.spmv_window_ell(bf16, xt).numpy(), A, x,
+                        rel_tol=8e-3)
     pattern = twe.plan_from_host(tplan.build(A, split_rows=128,
-                                             step_groups=8, pattern=True))
-    assert pattern.vals is None
-    with pytest.raises(NotImplementedError, match="M7"):
-        twe.spmv_window_ell(pattern, torch.from_numpy(x))
+                                             step_groups=8, pattern=True),
+                                 "cpu")
+    assert pattern.vals is None and pattern.values == "pattern"
+    ones = type(A)(A.num_rows, A.num_cols, np.ones(A.nnz, np.float32),
+                   A.col_indices, A.row_ptrs)
+    assert spmv_matches(twe.spmv_window_ell(pattern, xt).numpy(), ones, x,
+                        rel_tol=ROW_TOL)
+    table = twe.gather_table(plan, xt)
+    f16 = dataclasses.replace(plan, vals=plan.vals.half())
+    with pytest.raises(ValueError, match="float32 and bfloat16"):
+        twe.window_ell_fold(f16, table)
 
 
 def test_plan_from_arrays_rejects_out_of_range_indices(matrix):
@@ -141,18 +154,22 @@ def test_plan_from_arrays_rejects_out_of_range_indices(matrix):
     bad_lam = hp.lam.copy()
     bad_lam[0, 0] = 128
     with pytest.raises(tplan.InvalidFormatError):
-        twe.plan_from_arrays({**hp.leaves(), "lam": bad_lam}, hp.aux())
+        twe.plan_from_arrays({**hp.leaves(), "lam": bad_lam}, hp.aux(),
+                             "cpu")
     bad_wg = hp.wg.copy()
     bad_wg[0] = 1 << 20
     with pytest.raises(tplan.InvalidFormatError):
-        twe.plan_from_arrays({**hp.leaves(), "wg": bad_wg}, hp.aux())
+        twe.plan_from_arrays({**hp.leaves(), "wg": bad_wg}, hp.aux(),
+                             "cpu")
 
 
 def test_launch_counts_do_not_move_on_cpu(matrix):
     A, x = matrix
     plan = twe.plan_from_host(tplan.build(A, split_rows=128, step_groups=8,
-                                          permute_rows=True))
+                                          permute_rows=True), "cpu")
     tk.reset_launch_counts()
     twe.spmv_window_ell(plan, torch.from_numpy(x))
-    assert tk.launch_counts() == {"window_ell_fold": 0, "unpermute": 0,
-                                   "permute_chunks": 0}
+    assert tk.launch_counts() == {
+        "window_ell_fold": 0, "window_ell_fold_bf16": 0,
+        "window_ell_fold_pattern": 0, "unpermute": 0, "permute_chunks": 0}
+    assert sum(twe.window_ell_fold.launches.values()) == 0

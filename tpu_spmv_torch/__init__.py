@@ -1,10 +1,12 @@
 """tpu_spmv_torch — the PyTorch/CUDA port of ``tpu_spmv``.
 
-The port's first slice: merge-path (and vector) CSR SpMV through the packed
-window-ELL plan, planned on the host in NumPy and run by two hand-written
-CUDA kernels for ``sm_90a`` (the fold and the row unpermute).  It imports
-torch and NumPy, never JAX.  Importing it builds nothing: the planner
-library and the CUDA kernels are compiled on first use.
+Merge-path (and vector) CSR SpMV through the packed window-ELL plan, with
+block reordering, bf16 value streams and the pattern fast path, and
+PageRank on top: planned on the host in NumPy and run by hand-written CUDA
+kernels for ``sm_90a`` (the fold, the row unpermute and the chunk permute),
+on the card unless the caller names another device.  It imports torch and
+NumPy, never JAX.  Importing it builds nothing: the planner library and the
+CUDA kernels are compiled on first use.
 """
 
 from .errors import (
@@ -27,6 +29,15 @@ from .spmv import (
 )
 from .selector import spmv_auto_config
 from .bandwidth import BandwidthMetrics, compute_bandwidth_csr
+from .pagerank import (
+    PageRankConfig,
+    PageRankResult,
+    TopKNode,
+    pagerank,
+    pagerank_load_state,
+    pagerank_save_state,
+    pagerank_top_k,
+)
 
 __all__ = [
     "SpMVError", "SpMVException", "DeviceException",
@@ -36,4 +47,6 @@ __all__ = [
     "KernelType", "SpMVConfig", "SpMVResult",
     "spmv_csr", "spmv_validate_dimensions", "spmv_auto_config",
     "BandwidthMetrics", "compute_bandwidth_csr",
+    "PageRankConfig", "PageRankResult", "TopKNode", "pagerank",
+    "pagerank_top_k", "pagerank_save_state", "pagerank_load_state",
 ]

@@ -14,6 +14,20 @@
 // high nibble of packed row t*8+s (`& 15` on both; the int8 load
 // sign-extends, so the high nibble is (v >> 4) & 15).
 //
+// The value stream comes in three forms, a template parameter V of both
+// fold kernels (the Pallas kernel's `pat` and `astype(f32)` branches,
+// window_ell.py:1321-1330, :1362-1367, :1389):
+//   float          as above;
+//   __nv_bfloat16  converted with __bfloat162float at load, so products and
+//                  sums stay f32 as in the Pallas kernel; 128 threads read
+//                  256 contiguous bytes per sublane;
+//   Pattern        no vals pointer (null): prod is the gathered table value
+//                  (every stored nonzero is 1.0).  Pad slots, whose lo and
+//                  wg are 0 and so gather a real x entry, carry a sentinel
+//                  sub-block instead of a zero value: -1 on the int8 stream,
+//                  nibble 15 on the packed one.  Neither is a sub-block of
+//                  the superblock, and the kernels drop such slots.
+//
 // Ordering.  The Pallas grid runs in order on one core and folds runs of
 // one output superblock across steps.  Here the wrapper launches once per
 // plan section (level-1 extras, level-2 extras, rows: the sections between
@@ -31,7 +45,8 @@
 // left out of the schedule by the wrapper (kernels/window_ell.py).
 //
 // Bound.  The slot streams dominate the bytes: 5.5 B/slot with sbn (f32
-// value + int8 lo + half an int8 sb), 6 B/slot without (stream_bytes in
+// value + int8 lo + half an int8 sb), 6 B/slot without, 2 B less with bf16
+// values, 4 B less on a pattern plan (stream_bytes in
 // tpu_spmv_torch/kernels/window_ell.py).  The gathered table is at most a
 // few MB and stays in L2.  Loads are coalesced: the 128 threads of a CTA
 // read 512 contiguous bytes of vals and 128 of lo per sublane.
@@ -43,15 +58,34 @@
 // launch per section with the publish copy between; and the unpermute (K2)
 // as a separate pass instead of this kernel's epilogue.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int kLane = 128;
 constexpr int kChunks = 8;
 constexpr int kWindow = kChunks * kLane;
+
+// The value type of a pattern plan, which streams no values.
+struct Pattern {};
+
+// One slot's product: its value (f32, or bf16 converted to f32) times the
+// gathered table entry; the entry alone on a pattern plan.
+template <typename V>
+__device__ __forceinline__ float slot_product(const V* __restrict__ vals,
+                                              int64_t i, float gathered) {
+  if constexpr (std::is_same_v<V, Pattern>) {
+    return gathered;
+  } else if constexpr (std::is_same_v<V, __nv_bfloat16>) {
+    return __bfloat162float(vals[i]) * gathered;
+  } else {
+    return vals[i] * gathered;
+  }
+}
 
 template <bool SBN>
 __device__ __forceinline__ int slot_sub_block(const int8_t* __restrict__ sb,
@@ -69,12 +103,14 @@ __device__ __forceinline__ int slot_sub_block(const int8_t* __restrict__ sb,
 // superblock, and the slices' totals are added in slice order through
 // shared memory at the end, so the sum order is fixed.  The run length TB
 // is a template parameter so that a run's loads unroll and issue together.
+// A pattern plan's sentinel (-1, or nibble 15) matches no rung of the
+// ladder, so its pad slots add nothing here without a test of their own.
 constexpr int kSlices = 4;
 
-template <int NTB, bool SBN, int TB>
+template <int NTB, bool SBN, int TB, typename V>
 __global__ void __launch_bounds__(kLane * kSlices)
 fold_registers(const float* __restrict__ table,
-               const float* __restrict__ vals,
+               const V* __restrict__ vals,
                const int8_t* __restrict__ lo,
                const int8_t* __restrict__ sb,
                const int32_t* __restrict__ wg,
@@ -102,7 +138,7 @@ fold_registers(const float* __restrict__ table,
 #pragma unroll
       for (int s = 0; s < kChunks; ++s) {
         const int64_t i = (g * kChunks + s) * kLane + l;
-        const float p = vals[i] * win[s * kLane + lo[i]];
+        const float p = slot_product(vals, i, win[s * kLane + lo[i]]);
         const int target = slot_sub_block<SBN>(sb, g, s, l);
 #pragma unroll
         for (int t = 0; t < NTB; ++t) run[t] += (target == t) ? p : 0.f;
@@ -128,11 +164,12 @@ fold_registers(const float* __restrict__ table,
 
 // n_tb = 32 or 128: the run sum lives in this thread's column of shared
 // memory (NTB*128 floats per CTA: 16 or 64 KB), the total in the output,
-// which the wrapper zeroes and this CTA alone writes.
-template <int NTB, bool SBN>
+// which the wrapper zeroes and this CTA alone writes.  A pattern plan's pad
+// slot (sub-block -1) is skipped: it would index below the shared array.
+template <int NTB, bool SBN, typename V>
 __global__ void __launch_bounds__(kLane)
 fold_shared(const float* __restrict__ table,
-            const float* __restrict__ vals,
+            const V* __restrict__ vals,
             const int8_t* __restrict__ lo,
             const int8_t* __restrict__ sb,
             const int32_t* __restrict__ wg,
@@ -155,53 +192,66 @@ fold_shared(const float* __restrict__ table,
 #pragma unroll
       for (int s = 0; s < kChunks; ++s) {
         const int64_t i = (g * kChunks + s) * kLane + l;
-        const float p = vals[i] * win[s * kLane + lo[i]];
-        run_sum[slot_sub_block<SBN>(sb, g, s, l) * kLane + l] += p;
+        const float p = slot_product(vals, i, win[s * kLane + lo[i]]);
+        const int target = slot_sub_block<SBN>(sb, g, s, l);
+        if (!std::is_same_v<V, Pattern> || target >= 0) {
+          run_sum[target * kLane + l] += p;
+        }
       }
     }
     for (int t = 0; t < NTB; ++t) o[t * kLane] += run_sum[t * kLane + l];
   }
 }
 
-template <int NTB, bool SBN>
-cudaError_t launch_shared(dim3 grid, cudaStream_t stream,
-                          const float* table, const float* vals,
-                          const int8_t* lo, const int8_t* sb,
-                          const int32_t* wg, const int32_t* base,
-                          const int32_t* run_order, const int32_t* cta_ptr,
-                          int tb, float* out) {
+// The arguments every launch takes, the value stream typed by the caller.
+struct FoldArgs {
+  const float* table;
+  const void* vals;
+  const int8_t* lo;
+  const int8_t* sb;
+  const int32_t* wg;
+  const int32_t* base;
+  const int32_t* run_order;
+  const int32_t* cta_ptr;
+  int tb;
+  float* out;
+};
+
+template <int NTB, bool SBN, typename V>
+cudaError_t launch_shared(dim3 grid, cudaStream_t stream, const FoldArgs& a) {
   const int smem = NTB * kLane * int(sizeof(float));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fold_shared<NTB, SBN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fold_shared<NTB, SBN, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return err;
   }
-  fold_shared<NTB, SBN><<<grid, kLane, smem, stream>>>(
-      table, vals, lo, sb, wg, base, run_order, cta_ptr, tb, out);
+  fold_shared<NTB, SBN, V><<<grid, kLane, smem, stream>>>(
+      a.table, static_cast<const V*>(a.vals), a.lo, a.sb, a.wg, a.base,
+      a.run_order, a.cta_ptr, a.tb, a.out);
   return cudaSuccess;
 }
 
-template <bool SBN>
-cudaError_t launch_registers(dim3 grid, cudaStream_t stream, int tb,
-                             const float* table, const float* vals,
-                             const int8_t* lo, const int8_t* sb,
-                             const int32_t* wg, const int32_t* base,
-                             const int32_t* run_order,
-                             const int32_t* cta_ptr, float* out) {
+template <bool SBN, typename V>
+cudaError_t launch_registers(dim3 grid, cudaStream_t stream,
+                             const FoldArgs& a) {
   const dim3 block(kLane * kSlices);
-  switch (tb) {
+  const V* v = static_cast<const V*>(a.vals);
+  switch (a.tb) {
     case 2:
-      fold_registers<8, SBN, 2><<<grid, block, 0, stream>>>(
-          table, vals, lo, sb, wg, base, run_order, cta_ptr, out);
+      fold_registers<8, SBN, 2, V><<<grid, block, 0, stream>>>(
+          a.table, v, a.lo, a.sb, a.wg, a.base, a.run_order, a.cta_ptr,
+          a.out);
       break;
     case 4:
-      fold_registers<8, SBN, 4><<<grid, block, 0, stream>>>(
-          table, vals, lo, sb, wg, base, run_order, cta_ptr, out);
+      fold_registers<8, SBN, 4, V><<<grid, block, 0, stream>>>(
+          a.table, v, a.lo, a.sb, a.wg, a.base, a.run_order, a.cta_ptr,
+          a.out);
       break;
     case 8:
-      fold_registers<8, SBN, 8><<<grid, block, 0, stream>>>(
-          table, vals, lo, sb, wg, base, run_order, cta_ptr, out);
+      fold_registers<8, SBN, 8, V><<<grid, block, 0, stream>>>(
+          a.table, v, a.lo, a.sb, a.wg, a.base, a.run_order, a.cta_ptr,
+          a.out);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -209,45 +259,60 @@ cudaError_t launch_registers(dim3 grid, cudaStream_t stream, int tb,
   return cudaSuccess;
 }
 
+// The kernel for one superblock height and sb packing, typed by V.
+template <typename V>
+cudaError_t launch_fold(dim3 grid, cudaStream_t stream, int n_tb, bool sbn,
+                        const FoldArgs& a) {
+  if (n_tb == 8 && sbn) return launch_registers<true, V>(grid, stream, a);
+  if (n_tb == 8) return launch_registers<false, V>(grid, stream, a);
+  if (n_tb == 32 && !sbn) return launch_shared<32, false, V>(grid, stream, a);
+  if (n_tb == 128 && !sbn) {
+    return launch_shared<128, false, V>(grid, stream, a);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // One launch over one plan section: n_cta output superblocks, each owning
-// the runs run_order[cta_ptr[c] : cta_ptr[c+1]].  Returns the CUDA error of
-// the launch (0 = launched).  Launches on `stream`; does not synchronize.
+// the runs run_order[cta_ptr[c] : cta_ptr[c+1]].  `values` names the value
+// stream: 0 f32, 1 bf16, 2 none (a pattern plan; `vals` is null).  Returns
+// the CUDA error of the launch (0 = launched).  Launches on `stream`; does
+// not synchronize.
 extern "C" int tsp_window_ell_fold(const void* table, const void* vals,
                                    const void* lo, const void* sb,
                                    const void* wg, const void* base,
                                    const void* run_order,
                                    const void* cta_ptr, int n_cta, int tb,
-                                   int n_tb, int sbn, void* out,
+                                   int n_tb, int sbn, int values, void* out,
                                    void* stream) {
   if (n_cta <= 0) return 0;
+  if ((values == 2) != (vals == nullptr)) return int(cudaErrorInvalidValue);
   const dim3 grid(n_cta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* t = static_cast<const float*>(table);
-  const auto* v = static_cast<const float*>(vals);
-  const auto* lo8 = static_cast<const int8_t*>(lo);
-  const auto* sb8 = static_cast<const int8_t*>(sb);
-  const auto* wg32 = static_cast<const int32_t*>(wg);
-  const auto* base32 = static_cast<const int32_t*>(base);
-  const auto* ro = static_cast<const int32_t*>(run_order);
-  const auto* cp = static_cast<const int32_t*>(cta_ptr);
-  auto* o = static_cast<float*>(out);
-  cudaError_t err = cudaSuccess;
-  if (n_tb == 8 && sbn) {
-    err = launch_registers<true>(grid, st, tb, t, v, lo8, sb8, wg32, base32,
-                                 ro, cp, o);
-  } else if (n_tb == 8) {
-    err = launch_registers<false>(grid, st, tb, t, v, lo8, sb8, wg32, base32,
-                                  ro, cp, o);
-  } else if (n_tb == 32 && !sbn) {
-    err = launch_shared<32, false>(grid, st, t, v, lo8, sb8, wg32, base32,
-                                   ro, cp, tb, o);
-  } else if (n_tb == 128 && !sbn) {
-    err = launch_shared<128, false>(grid, st, t, v, lo8, sb8, wg32, base32,
-                                    ro, cp, tb, o);
-  } else {
-    return int(cudaErrorInvalidValue);
+  const FoldArgs a{static_cast<const float*>(table),
+                   vals,
+                   static_cast<const int8_t*>(lo),
+                   static_cast<const int8_t*>(sb),
+                   static_cast<const int32_t*>(wg),
+                   static_cast<const int32_t*>(base),
+                   static_cast<const int32_t*>(run_order),
+                   static_cast<const int32_t*>(cta_ptr),
+                   tb,
+                   static_cast<float*>(out)};
+  cudaError_t err;
+  switch (values) {
+    case 0:
+      err = launch_fold<float>(grid, st, n_tb, sbn != 0, a);
+      break;
+    case 1:
+      err = launch_fold<__nv_bfloat16>(grid, st, n_tb, sbn != 0, a);
+      break;
+    case 2:
+      err = launch_fold<Pattern>(grid, st, n_tb, sbn != 0, a);
+      break;
+    default:
+      return int(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());

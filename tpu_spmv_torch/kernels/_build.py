@@ -142,13 +142,15 @@ def kernels() -> ctypes.CDLL:
     # every pointer and the stream as c_void_p: a bare Python int would be
     # passed as a 32-bit int and cut the address
     lib.tsp_window_ell_fold.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
     lib.tsp_window_ell_fold.restype = _I
     lib.tsp_unpermute.argtypes = [_P, _I64, _P, _P, _I64, _P]
     lib.tsp_unpermute.restype = _I
     lib.tsp_permute_chunks.argtypes = [_P, _I64, _P, _P, _I64, _P]
     lib.tsp_permute_chunks.restype = _I
     # the benchmark probes (tpu_spmv_torch/probes)
+    lib.tsp_probe_proto_v2.argtypes = [
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
     lib.tsp_probe_profile_kernel.argtypes = [
         _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
     lib.tsp_probe_proto_v3.argtypes = [
@@ -157,7 +159,8 @@ def kernels() -> ctypes.CDLL:
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
     lib.tsp_probe_dma_share.argtypes = [
         _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
-    for fn in (lib.tsp_probe_profile_kernel, lib.tsp_probe_proto_v3,
+    for fn in (lib.tsp_probe_proto_v2, lib.tsp_probe_profile_kernel,
+               lib.tsp_probe_proto_v3,
                lib.tsp_probe_proto_v4, lib.tsp_probe_dma_share):
         fn.restype = _I
     return lib

@@ -17,8 +17,12 @@ Differences from the JAX planner:
 * :func:`_absorb_run_padding` is defined here.  The JAX module calls it but
   no longer defines it; its body is the excess-descending run-padding
   absorption that module had inline before.
-* bf16 value streams and the banded, strip and composite plans are not
-  ported yet and raise ``NotImplementedError`` (ROADMAP M7).
+* A bf16 value stream (``values_dtype="bfloat16"``) is kept as f32 values
+  plus ``HostPlan.values_dtype``: NumPy has no bfloat16, so the cast to
+  bfloat16 (round to nearest even, as JAX's ``astype``) happens when the
+  plan is uploaded (:func:`~.window_ell.plan_from_arrays`).
+* The banded, strip and composite plans are not ported yet and raise
+  ``NotImplementedError`` (ROADMAP M7).
 
 The layout constants are still the TPU v5e ones (``LANE``, ``CHUNKS``,
 ``WINDOW``, ``SUP_LEVELS``, ``T_SUB``, ``T_BASE``, ``VMEM_BUDGET``,
@@ -252,7 +256,8 @@ def _build(csr: CSRMatrix, split_rows, step_groups, cap_slack,
            cap_margin, spill_rounds, max_inflation, sup, spill_beta,
            permute_rows: bool = False,
            pattern: bool = False,
-           t_base: int | None = None) -> HostPlan:
+           t_base: int | None = None,
+           values_dtype: str = "float32") -> HostPlan:
     sup_rows = sup           # scalar superblock height; ``sup`` below
     del sup                  # is reused for per-nnz superblock ids
     tb = _t_base(t_base)
@@ -792,6 +797,10 @@ def _build(csr: CSRMatrix, split_rows, step_groups, cap_slack,
         pat=pattern,
         tb=tb,
         lam=lam_arr,
+        # the bf16 cast comes last, after the pad-sentinel logic above has
+        # seen exact zeros (window_ell.py:1042-1048); pattern plans have no
+        # value stream to cast
+        values_dtype="float32" if pattern else values_dtype,
     )
 
 # measure-and-pick: when a superblock candidate's analytic cost lands
@@ -1066,6 +1075,9 @@ class HostPlan:
     pat: bool = False
     tb: int = T_BASE
     lam: np.ndarray | None = None  # i32 (n_tiles_pad, 128) leveled lanes
+    # the value stream's type on the device: "float32", or "bfloat16" (the
+    # f32 ``vals`` above are cast when the plan is uploaded)
+    values_dtype: str = "float32"
 
     @property
     def n_groups(self) -> int:
@@ -1103,10 +1115,19 @@ def _absorb_run_padding(cap: np.ndarray, excess: np.ndarray,
     return cap2
 
 
-def _float32_only(values_dtype) -> None:
-    if np.dtype(values_dtype) != np.float32:
-        raise NotImplementedError(
-            "bf16 value streams are not ported yet (ROADMAP M7)")
+def values_dtype_name(values_dtype) -> str:
+    """``"float32"`` or ``"bfloat16"`` for a value-stream type given as a
+    NumPy dtype, a name, a torch dtype or JAX's ``jnp.bfloat16``; raises
+    ``ValueError`` for any other type."""
+    try:
+        name = np.dtype(values_dtype).name
+    except TypeError:
+        name = getattr(values_dtype, "__name__", str(values_dtype))
+    name = name.removeprefix("torch.")
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"values_dtype {values_dtype!r}: the value stream "
+                         f"is float32 or bfloat16")
+    return name
 
 
 def build(csr: CSRMatrix, split_rows: int | None = None,
@@ -1125,15 +1146,17 @@ def build(csr: CSRMatrix, split_rows: int | None = None,
     (:func:`_choose_sup`) and escalates to wider superblocks when the
     chosen one trips a guard; raises :class:`WindowEllOverflow` when no
     layout fits.  ``spill_beta=None`` / ``cap_slack=None`` resolve to the
-    per-height defaults (:func:`_auto_caps`)."""
-    _float32_only(values_dtype)
+    per-height defaults (:func:`_auto_caps`).  ``values_dtype`` is float32
+    or bfloat16 (:func:`values_dtype_name`); ``pattern=True`` builds a plan
+    with no value stream, every stored nonzero acting as 1.0."""
+    vdt = values_dtype_name(values_dtype)
     if sup is not None:
         slack = cap_slack if cap_slack is not None \
             else _auto_caps(sup)[1]
         return _build(
             csr, split_rows, step_groups, slack, cap_margin,
             spill_rounds, max_inflation, sup, spill_beta,
-            permute_rows, pattern, t_base)
+            permute_rows, pattern, t_base, vdt)
     start = _choose_sup(csr, split_rows=split_rows)
     err = None
     for s in SUP_LEVELS[SUP_LEVELS.index(start):]:
@@ -1147,7 +1170,7 @@ def build(csr: CSRMatrix, split_rows: int | None = None,
             return _build(
                 csr, split_rows, step_groups, slack, cap_margin,
                 spill_rounds, max_inflation, s, spill_beta,
-                permute_rows, pattern, t_base)
+                permute_rows, pattern, t_base, vdt)
         except WindowEllOverflow as e:
             err = e
     raise err
@@ -1177,7 +1200,8 @@ def build_auto(csr: CSRMatrix, split_rows: int | None = None,
                step_groups: int | None = None,
                choice: tuple | None = None,
                permute_rows: bool | None = None,
-               pattern: bool = False) -> HostPlan:
+               pattern: bool = False,
+               values_dtype=np.float32) -> HostPlan:
     """The single-plan part of the JAX ``build_auto``
     (``window_ell.py:1928-2004``): the plan at the cost-model superblock,
     escalating to wider superblocks on overflow.  Where the JAX package
@@ -1200,7 +1224,8 @@ def build_auto(csr: CSRMatrix, split_rows: int | None = None,
             return build(
                 csr, split_rows=split, step_groups=step_groups,
                 cap_slack=slack, sup=s, spill_beta=beta,
-                permute_rows=permute_rows, pattern=pattern)
+                permute_rows=permute_rows, pattern=pattern,
+                values_dtype=values_dtype)
         except WindowEllOverflow as e:
             err = e
             nb = _bands_from_overflow(e)

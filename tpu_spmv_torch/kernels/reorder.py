@@ -339,56 +339,65 @@ def _check_maps(col_src: np.ndarray, row_src: np.ndarray, num_rows: int,
 
 def reordered_from_arrays(inner_leaves: dict, inner_aux: dict,
                           col_src: np.ndarray, row_src: np.ndarray,
-                          num_rows: int, num_cols: int, device="cpu",
-                          occupancy: float = 0.0) -> ReorderedPlan:
+                          num_rows: int, num_cols: int, device="cuda",
+                          occupancy: float = 0.0,
+                          values_dtype: str = "float32") -> ReorderedPlan:
     """Make a device plan from NumPy arrays: the inner plan's leaves and
     static fields (as :func:`~.window_ell.plan_from_arrays` takes them, from
     a JAX ``ReorderedPlan``'s inner plan or a port ``HostPlan``), the two
     gather maps and the original dims.  Checks that the maps are a block
-    permutation and its inverse, sized to the inner plan."""
+    permutation and its inverse, sized to the inner plan.  ``device`` is
+    the card unless the caller names another; ``values_dtype`` as
+    :func:`~.window_ell.plan_from_arrays` takes it."""
     col_src = np.ascontiguousarray(col_src, np.int32)
     row_src = np.ascontiguousarray(row_src, np.int32)
     _check_maps(col_src, row_src, num_rows, num_cols,
                 inner_aux["num_rows"], inner_aux["num_cols"])
-    inner = plan_from_arrays(inner_leaves, inner_aux, device, occupancy)
+    inner = plan_from_arrays(inner_leaves, inner_aux, device, occupancy,
+                             values_dtype)
     return ReorderedPlan(inner, guarded_upload(col_src, device),
                          guarded_upload(row_src, device), num_rows, num_cols)
 
 
 def reordered_from_host(inner: HostPlan, order: np.ndarray, num_rows: int,
-                        num_cols: int, device="cpu") -> ReorderedPlan:
+                        num_cols: int, device="cuda") -> ReorderedPlan:
     """The device plan of a port-built inner plan and its block order."""
     return reordered_from_arrays(inner.leaves(), inner.aux(), order,
                                  _inverse(order), num_rows, num_cols, device,
-                                 inner.occupancy)
+                                 inner.occupancy, inner.values_dtype)
 
 
 def build_reordered_host(csr: CSRMatrix, order: np.ndarray | None = None,
                          split_rows: int | None = None,
                          step_groups: int | None = None,
-                         permute_rows: bool | None = None
+                         permute_rows: bool | None = None,
+                         values_dtype=np.float32
                          ) -> tuple[HostPlan, np.ndarray]:
     """The host half of :func:`build_reordered`: ``(inner plan, order)``,
     the inner plan :func:`~.plan.build_auto` of the matrix permuted by
-    ``order`` (default: the RCM block order).  Raises
+    ``order`` (default: the RCM block order), with a ``values_dtype``
+    (float32 or bfloat16) value stream.  Raises
     :class:`~.plan.WindowEllOverflow` where every packed layout rejects it,
     and ``NotImplementedError`` (ROADMAP M7) where the JAX planner would
     build a row-banded plan."""
     if order is None:
         order = block_order(csr)
     inner = build_auto(permute_csr(csr, order), split_rows=split_rows,
-                       step_groups=step_groups, permute_rows=permute_rows)
+                       step_groups=step_groups, permute_rows=permute_rows,
+                       values_dtype=values_dtype)
     return inner, order
 
 
 def build_reordered(csr: CSRMatrix, order: np.ndarray | None = None,
                     split_rows: int | None = None,
-                    step_groups: int | None = None, device="cpu",
-                    permute_rows: bool | None = None) -> ReorderedPlan:
-    """A :class:`ReorderedPlan` on ``device`` under ``order``, as the JAX
-    ``build_reordered`` builds it (``tpu_spmv/kernels/reorder.py:331-357``):
-    :func:`build_reordered_host`, then the upload."""
+                    step_groups: int | None = None, device="cuda",
+                    permute_rows: bool | None = None,
+                    values_dtype=np.float32) -> ReorderedPlan:
+    """A :class:`ReorderedPlan` on ``device`` (the card unless the caller
+    names another) under ``order``, as the JAX ``build_reordered`` builds it
+    (``tpu_spmv/kernels/reorder.py:331-357``): :func:`build_reordered_host`,
+    then the upload."""
     inner, order = build_reordered_host(csr, order, split_rows, step_groups,
-                                        permute_rows)
+                                        permute_rows, values_dtype)
     return reordered_from_host(inner, order, csr.num_rows, csr.num_cols,
                                device)

@@ -6,15 +6,22 @@ Port of the device half of ``tpu_spmv/kernels/window_ell.py``:
   the port-only fold schedule (:class:`FoldSection`, derived on the host when
   the plan is made; not a plan-format field);
 * :func:`plan_from_arrays` makes one from NumPy leaves, either those of a
-  JAX ``WindowEllPlan`` (``np.asarray`` of each leaf) or those of a port
+  JAX ``WindowEllPlan`` (``np.asarray`` of each leaf, a bf16 value stream
+  included) or those of a port
   :class:`~tpu_spmv_torch.kernels.plan.HostPlan`;
 * :func:`window_ell_fold` (K1, ``csrc/window_ell.cu``) and :func:`unpermute`
   (K2, ``csrc/unpermute.cu``) are the kernel wrappers.  Beside each is its
   plain PyTorch version.  A wrapper takes the plain version only for a
   tensor on the CPU; for a CUDA tensor it launches its kernel or raises.
-  Each wrapper counts its launches in an integer attribute, ``launches``;
+  Each wrapper counts its launches in an attribute, ``launches``: an
+  integer, and for K1 a dict per value stream (f32, bf16, or none for a
+  pattern plan), keyed as :data:`FOLD_VARIANTS`;
 * :func:`spmv_window_ell` runs a plan: pad x and append the extras region,
-  fold, unpermute through ``lam``, trim to ``num_rows``.
+  fold, unpermute through ``lam``, trim to ``num_rows``;
+  :func:`spmv_pattern` runs a pattern plan of a column-scaled matrix.
+
+Pattern plans stream no values: every stored nonzero is 1.0, and pad slots
+carry a sentinel sub-block that no output row matches (:func:`sentinel`).
 """
 
 from __future__ import annotations
@@ -30,6 +37,12 @@ from .plan import AUX, CHUNKS, LANE, LEAVES, WINDOW, HostPlan
 
 _TB_LEGAL = (2, 4, 8)
 _NTB_LEGAL = (8, 32, 128)
+# K1's value-stream codes (tsp_window_ell_fold's `values` argument)
+_VALUE_CODES = {"float32": 0, "bfloat16": 1, "pattern": 2}
+# K1's variants: the kernel name of each value stream's launches
+FOLD_VARIANTS = {"float32": "window_ell_fold",
+                 "bfloat16": "window_ell_fold_bf16",
+                 "pattern": "window_ell_fold_pattern"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +62,7 @@ class WindowEllPlan:
     """A window-ELL plan as tensors on one device (the fields of the JAX
     ``WindowEllPlan``, ``tpu_spmv/kernels/window_ell.py:311-352``)."""
 
-    vals: torch.Tensor | None  # f32 (G*8, 128); None for pattern plans
+    vals: torch.Tensor | None  # f32 or bf16 (G*8, 128); None for pattern
     lo: torch.Tensor           # i8  (G*8, 128)
     sb: torch.Tensor           # i8  (G*8, 128), or (G*4, 128) when sbn
     wg: torch.Tensor           # i32 (G,)
@@ -83,6 +96,13 @@ class WindowEllPlan:
         return int(self.wg.shape[0])
 
     @property
+    def values(self) -> str:
+        """The value stream: ``"float32"``, ``"bfloat16"`` or, for a
+        pattern plan, ``"pattern"``."""
+        return "pattern" if self.pat \
+            else str(self.vals.dtype).removeprefix("torch.")
+
+    @property
     def stream_bytes(self) -> float:
         """Bytes one SpMV streams from device memory (packed slot arrays,
         gather and output tables, and the unpermute pass): the physics-guard
@@ -107,19 +127,36 @@ def _unpack_sb(sb: np.ndarray | torch.Tensor, sbn: bool):
     return cat([lo_nib, hi_nib], 1).reshape(-1, CHUNKS, LANE)
 
 
-def _fold_sections(aux: dict, vals: np.ndarray | None, base: np.ndarray,
+def sentinel(sbn: bool) -> int:
+    """The sub-block of a pattern plan's pad slots: nibble 15 on a
+    nibble-packed stream, -1 on the int8 one (``window_ell.py:1026-1031``).
+    No output row matches it."""
+    return 15 if sbn else -1
+
+
+def _live_runs(aux: dict, vals: torch.Tensor | None,
+               sb: np.ndarray) -> np.ndarray:
+    """Per run (``tb`` groups), whether it holds a slot that adds
+    anything: a nonzero value, or on a pattern plan a sub-block other than
+    the sentinel."""
+    if aux["pat"]:
+        live = _unpack_sb(sb, aux["sbn"]) != sentinel(aux["sbn"])
+    else:
+        live = (vals != 0).numpy()
+    return np.any(live.reshape(-1, aux["tb"] * CHUNKS * LANE), axis=1)
+
+
+def _fold_sections(aux: dict, live: np.ndarray, base: np.ndarray,
                    blk_step: np.ndarray, fin_step: np.ndarray) -> list:
     """Split the plan's steps into sections at the ``fin_step`` marks and
     group each section's runs by output superblock (stable, so a
-    superblock's runs keep plan order).  Runs whose values are all zero
-    (the padding that rounds sections up to whole blocks, all of it on one
-    superblock per section) are left out: they add nothing for finite x.
-    Returns ``[(run_order, cta_ptr)]`` as int32 arrays, skipping empty
-    sections."""
+    superblock's runs keep plan order).  Runs that ``live`` marks dead
+    (:func:`_live_runs`: the padding that rounds sections up to whole
+    blocks, all of it on one superblock per section) are left out: they add
+    nothing for finite x.  Returns ``[(run_order, cta_ptr)]`` as int32
+    arrays, skipping empty sections."""
     S, tb = aux["step_groups"], aux["tb"]
     runs_per_block = S // tb
-    live = None if vals is None \
-        else np.any(vals.reshape(-1, tb * CHUNKS * LANE) != 0, axis=1)
     cuts = [0] + [i for i in np.flatnonzero(fin_step == 1) if i > 0] \
         + [len(blk_step)]
     out = []
@@ -131,8 +168,7 @@ def _fold_sections(aux: dict, vals: np.ndarray | None, base: np.ndarray,
             continue
         runs = (blocks[:, None] * runs_per_block
                 + np.arange(runs_per_block)).reshape(-1)
-        if live is not None:
-            runs = runs[live[runs]]
+        runs = runs[live[runs]]
         if not len(runs):
             continue
         rb = base[runs]
@@ -161,6 +197,9 @@ def _validate(leaves: dict, aux: dict) -> None:
             or leaves["sb"].shape != (G * CHUNKS // (2 if aux["sbn"]
                                                      else 1), LANE):
         raise InvalidFormatError("window-ELL plan: inconsistent shapes")
+    if aux["pat"] != (leaves["vals"] is None):
+        raise InvalidFormatError("window-ELL plan: a pattern plan has no "
+                                 "value stream, any other plan has one")
     if leaves["vals"] is not None \
             and leaves["vals"].shape != (G * CHUNKS, LANE):
         raise InvalidFormatError("window-ELL plan: inconsistent vals shape")
@@ -171,9 +210,13 @@ def _validate(leaves: dict, aux: dict) -> None:
               or int(base.max()) + n_tb > aux["out8"]
               or np.any(base % n_tb)):
         raise InvalidFormatError("window-ELL plan: index out of range")
-    if G and not aux["pat"]:
+    if G:
+        # pattern plans' pad slots carry the sentinel, which K1 skips
         sbu = _unpack_sb(leaves["sb"], aux["sbn"])
-        if sbu.min() < 0 or sbu.max() >= n_tb:
+        ok = (sbu >= 0) & (sbu < n_tb)
+        if aux["pat"]:
+            ok |= sbu == sentinel(aux["sbn"])
+        if not ok.all():
             raise InvalidFormatError("window-ELL plan: sub-block range")
     lam = leaves["lam"]
     if lam is not None and (lam.ndim != 2 or lam.shape[1] != LANE
@@ -181,20 +224,44 @@ def _validate(leaves: dict, aux: dict) -> None:
         raise InvalidFormatError("window-ELL plan: lam out of range")
 
 
-def plan_from_arrays(leaves: dict, aux: dict, device="cpu",
-                     occupancy: float = 0.0) -> WindowEllPlan:
+def _values_tensor(vals: np.ndarray | None,
+                   values_dtype: str) -> torch.Tensor | None:
+    """The value stream as a CPU tensor of its device type.  A JAX plan's
+    bf16 leaf (an ``ml_dtypes`` array, which this package does not import)
+    is taken bit for bit through an int16 view; f32 values are cast to
+    bfloat16 when ``values_dtype`` says so (round to nearest even, as JAX's
+    ``astype``)."""
+    if vals is None:
+        return None
+    if str(vals.dtype) == "bfloat16":
+        return torch.from_numpy(vals.view(np.int16).copy()).view(
+            torch.bfloat16)
+    if vals.dtype != np.float32:
+        raise InvalidFormatError(f"window-ELL plan: {vals.dtype} values")
+    t = torch.from_numpy(vals if vals.flags.writeable else vals.copy())
+    return t.to(torch.bfloat16) if values_dtype == "bfloat16" else t
+
+
+def plan_from_arrays(leaves: dict, aux: dict, device="cuda",
+                     occupancy: float = 0.0,
+                     values_dtype: str = "float32") -> WindowEllPlan:
     """Make a device plan from NumPy leaves and static fields.
 
     ``leaves`` maps the names in :data:`~.plan.LEAVES` to NumPy arrays
     (``vals`` and ``lam`` may be ``None``), ``aux`` the names in
     :data:`~.plan.AUX` to values: the JAX ``WindowEllPlan``'s own fields, or
-    a ``HostPlan``'s.  Checks bounds, derives the fold schedule on the host,
-    and uploads every array to ``device`` (:func:`guarded_upload`)."""
+    a ``HostPlan``'s.  ``values_dtype`` (``"float32"`` or ``"bfloat16"``)
+    is the device type of f32 ``vals``; a bf16 leaf stays bf16.  Checks
+    bounds, derives the fold schedule on the host, and uploads every array
+    to ``device`` (:func:`guarded_upload`), the card unless the caller names
+    another."""
     leaves = {k: None if leaves[k] is None else np.ascontiguousarray(leaves[k])
               for k in LEAVES}
     aux = {k: aux[k] for k in AUX}
     _validate(leaves, aux)
-    sections = _fold_sections(aux, leaves["vals"],
+    leaves["vals"] = _values_tensor(leaves["vals"], values_dtype)
+    sections = _fold_sections(aux, _live_runs(aux, leaves["vals"],
+                                              leaves["sb"]),
                               leaves["base"].astype(np.int64),
                               leaves["blk_step"], leaves["fin_step"])
     put = lambda a: None if a is None else guarded_upload(a, device)  # noqa: E731
@@ -205,22 +272,22 @@ def plan_from_arrays(leaves: dict, aux: dict, device="cpu",
         occupancy=float(occupancy))
 
 
-def plan_from_host(hp: HostPlan, device="cpu") -> WindowEllPlan:
-    """The device plan of a port-built :class:`HostPlan`."""
-    return plan_from_arrays(hp.leaves(), hp.aux(), device, hp.occupancy)
+def plan_from_host(hp: HostPlan, device="cuda") -> WindowEllPlan:
+    """The device plan of a port-built :class:`HostPlan` (on the card unless
+    the caller names another device)."""
+    return plan_from_arrays(hp.leaves(), hp.aux(), device, hp.occupancy,
+                            hp.values_dtype)
 
 
 # ---- K1: the window-ELL fold ----
 
 def _check_fold(plan: WindowEllPlan, table: torch.Tensor) -> None:
-    if plan.pat or plan.vals is None:
-        raise NotImplementedError(
-            "pattern plans (no value stream) are not ported yet "
-            "(ROADMAP M7)")
-    if plan.vals.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{plan.vals.dtype} value streams are not ported yet "
-            "(ROADMAP M7)")
+    if plan.pat != (plan.vals is None):
+        raise ValueError("a pattern plan has no value stream, any other "
+                         "plan has one")
+    if plan.values not in _VALUE_CODES:
+        raise ValueError(f"{plan.vals.dtype} value stream: K1 takes float32 "
+                         "and bfloat16")
     n_table = plan.cols_pad + plan.e8 * LANE
     if table.dtype != torch.float32 or table.shape != (n_table,):
         raise ValueError(f"table must be float32 of shape ({n_table},); "
@@ -233,14 +300,17 @@ def window_ell_fold_plain(plan: WindowEllPlan,
                           table: torch.Tensor) -> torch.Tensor:
     """K1's plain version: per section a vectorized gather-multiply and an
     ``index_add_`` into the output, with the extras totals published into
-    the table's tail before each later section.  ``table`` (x zero-padded to
-    ``cols_pad``, then ``e8*128`` slots) is not modified.  Returns the flat
-    ``(out8*128,)`` output."""
+    the table's tail before each later section.  bf16 values are converted
+    to f32 before the multiply.  On a pattern plan the product is the
+    gathered value, and the pad slots (sentinel sub-block) are dropped
+    before the ``index_add_``: their rows would fall in a neighbouring
+    superblock.  ``table`` (x zero-padded to ``cols_pad``, then ``e8*128``
+    slots) is not modified.  Returns the flat ``(out8*128,)`` output."""
     _check_fold(plan, table)
     dev = table.device
     table = table.clone()
     out = torch.zeros(plan.out8 * LANE, dtype=torch.float32, device=dev)
-    vals = plan.vals.reshape(-1, CHUNKS, LANE)
+    vals = None if plan.pat else plan.vals.float().reshape(-1, CHUNKS, LANE)
     lo = plan.lo.reshape(-1, CHUNKS, LANE)
     sbu = _unpack_sb(plan.sb, plan.sbn)
     sub = torch.arange(CHUNKS, device=dev).view(1, CHUNKS, 1) * LANE
@@ -252,18 +322,24 @@ def window_ell_fold_plain(plan: WindowEllPlan,
         g = (runs[:, None] * plan.tb
              + torch.arange(plan.tb, device=dev)).reshape(-1)
         idx = plan.wg[g].long().view(-1, 1, 1) * WINDOW + sub + lo[g].long()
-        prod = vals[g] * table[idx]
         row_base = plan.base[runs].long().repeat_interleave(plan.tb)
-        rows = (row_base.view(-1, 1, 1) + sbu[g].long()) * LANE + lane
-        out.index_add_(0, rows.reshape(-1), prod.reshape(-1))
+        sbg = sbu[g].long()
+        rows = (row_base.view(-1, 1, 1) + sbg) * LANE + lane
+        if plan.pat:
+            keep = sbg != sentinel(plan.sbn)
+            out.index_add_(0, rows[keep], table[idx][keep])
+        else:
+            out.index_add_(0, rows.reshape(-1),
+                           (vals[g] * table[idx]).reshape(-1))
     return out
 
 
 def window_ell_fold(plan: WindowEllPlan, table: torch.Tensor) -> torch.Tensor:
     """K1: the packed fold over every plan section, with the publish copy
     between sections.  Launches ``csrc/window_ell.cu`` once per section on
-    the current stream for a CUDA ``table``; takes the plain version for a
-    CPU one.  ``table`` is not modified.  Returns ``(out8*128,)`` f32."""
+    the current stream for a CUDA ``table``, in the variant of the plan's
+    value stream (f32, bf16 or none); takes the plain version for a CPU
+    one.  ``table`` is not modified.  Returns ``(out8*128,)`` f32."""
     if table.device.type == "cpu":
         return window_ell_fold_plain(plan, table)
     _check_fold(plan, table)
@@ -284,23 +360,24 @@ def window_ell_fold(plan: WindowEllPlan, table: torch.Tensor) -> torch.Tensor:
     stream = ctypes.c_void_p(torch.cuda.current_stream(table.device)
                              .cuda_stream)
     arrays = [plan.vals, plan.lo, plan.sb, plan.wg, plan.base]
-    if not all(a.is_contiguous() for a in arrays):
+    if not all(a is None or a.is_contiguous() for a in arrays):
         raise ValueError("window-ELL plan arrays must be contiguous")
-    ptrs = [a.data_ptr() for a in arrays]
+    ptrs = [None if a is None else a.data_ptr() for a in arrays]
+    values = plan.values
     for k, sec in enumerate(plan.sections):
         if k:
             table[plan.cols_pad:] = out[plan.extras_base:]
         err = lib.tsp_window_ell_fold(
             table.data_ptr(), *ptrs, sec.run_order.data_ptr(),
             sec.cta_ptr.data_ptr(), sec.n_cta, plan.tb, n_tb,
-            int(plan.sbn), out.data_ptr(), stream)
+            int(plan.sbn), _VALUE_CODES[values], out.data_ptr(), stream)
         if err:
             raise DeviceException(f"window-ELL fold launch: cudaError {err}")
-        window_ell_fold.launches += 1
+        window_ell_fold.launches[values] += 1
     return out
 
 
-window_ell_fold.launches = 0
+window_ell_fold.launches = dict.fromkeys(FOLD_VARIANTS, 0)
 
 
 # ---- K2: the row unpermute ----
@@ -378,3 +455,14 @@ def spmv_window_ell(plan: WindowEllPlan, x: torch.Tensor) -> torch.Tensor:
     if plan.lam is not None:
         return unpermute(out, plan.lam, plan.num_rows)
     return out[:plan.num_rows]
+
+
+def spmv_pattern(plan: WindowEllPlan, scale: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """``y = (B·diag(scale)) @ x`` over a pattern plan of the 0/1 structure
+    B (``window_ell.py:1534-1540``): the column scale folds into x with one
+    plain multiply, and K1 streams no values.  The per-slot products are
+    the valued plan's."""
+    if not plan.pat:
+        raise ValueError("spmv_pattern takes a pattern plan")
+    return spmv_window_ell(plan, scale * x)

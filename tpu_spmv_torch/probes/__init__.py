@@ -6,7 +6,8 @@ tpu_spmv_torch.probes.<name>``.
 * :mod:`.profile_kernel` (P4): K1's cost split by stage;
 * :mod:`.proto_v3` (P2): the round-3 scatter candidates;
 * :mod:`.proto_v4` (P3): the permutation scatter;
-* :mod:`.profile_dma_share` (P5): re-reading a streamed block.
+* :mod:`.profile_dma_share` (P5): re-reading a streamed block;
+* :mod:`.proto_v2` (P1): the round-2 inner-loop candidates.
 
 Each module makes the JAX main's inputs from the same seed
 (``make_inputs``), runs its kernel (``probe``; the plain version,
@@ -17,11 +18,12 @@ to 0.  The modules are imported when these are called, not here, so that
 ``python3 -m`` runs a module that the package has not imported yet.
 """
 
-NAMES = ("profile_kernel", "proto_v3", "proto_v4", "profile_dma_share")
+NAMES = ("profile_kernel", "proto_v3", "proto_v4", "profile_dma_share",
+         "proto_v2")
 
 
 def modules() -> dict:
-    """``{name: module}`` of the four probes."""
+    """``{name: module}`` of the five probes."""
     import importlib
 
     return {n: importlib.import_module(f"{__name__}.{n}") for n in NAMES}

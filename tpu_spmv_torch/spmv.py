@@ -3,21 +3,25 @@
 
 ``spmv_csr`` validates its arguments before any device work, resolves the
 packed window-ELL plan for VECTOR_CSR and MERGE_PATH (block-reordered where
-the reorder probe applies, ``SpMVConfig.reorder``), runs it, and reports
-errors through ``SpMVResult.error_code`` with the JAX package's codes (the
-reference's no-throw contract).
+the reorder probe applies, ``SpMVConfig.reorder``; a pattern plan of the
+0/1 structure where ``SpMVConfig.pattern`` is set and the values are
+column-scaled; a bf16 value stream where ``SpMVConfig.bf16_values`` is
+set), runs it on the card unless the caller names another device, and
+reports errors through ``SpMVResult.error_code`` with the JAX package's
+codes (the reference's no-throw contract).
 
-Only the packed single-plan route and its reordered form are ported.  Every
-other route the JAX dispatch can take raises ``NotImplementedError`` naming
-its ROADMAP item, so no call is quietly served by another route than the JAX
-package's: SCALAR_CSR's naive plan, pattern and bf16 plans, banded, strip
-and composite plans (M7); the flat and ELL fallbacks (M10).
+Only the packed single-plan route, its reordered form and its pattern and
+bf16 forms are ported.  Every other route the JAX dispatch can take raises
+``NotImplementedError`` naming its ROADMAP item, so no call is quietly
+served by another route than the JAX package's: SCALAR_CSR's naive plan,
+banded, strip and composite plans (M7); the flat and ELL fallbacks (M10).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 import time
 
 import numpy as np
@@ -30,7 +34,8 @@ from .kernels.plan import HostPlan, WindowEllOverflow, _choose_sup, build_auto
 from .kernels.reorder import (ReorderedPlan, build_reordered_host,
                               maybe_reorder, reordered_from_host,
                               spmv_reordered)
-from .kernels.window_ell import WindowEllPlan, plan_from_host, spmv_window_ell
+from .kernels.window_ell import (WindowEllPlan, plan_from_host, spmv_pattern,
+                                 spmv_window_ell)
 
 # the JAX package's column caps (TPU VMEM limits), kept so both packages
 # route the same matrices the same way; ROADMAP M13 revisits them
@@ -74,6 +79,22 @@ class SpMVConfig:
         return max(8, self.block_size // 2)
 
 
+@dataclasses.dataclass(frozen=True)
+class PatternPlan:
+    """The pattern fast path's plan: a pattern plan of the 0/1 structure B
+    of ``A = B·diag(scale)`` and the column scale, both on one device (the
+    JAX dispatch's ``(spmv_pattern, (plan, scale))``)."""
+
+    plan: WindowEllPlan
+    scale: torch.Tensor       # f32 (num_cols,)
+
+    @property
+    def stream_bytes(self) -> float:
+        """The pattern plan's bytes, as the JAX bench counts them (the
+        scale multiply, 12 B per column, left out)."""
+        return self.plan.stream_bytes
+
+
 @dataclasses.dataclass
 class SpMVResult:
     """Reference ``SpMVResult`` (``spmv.h:27-36``)."""
@@ -84,8 +105,8 @@ class SpMVResult:
     bandwidth_gb_s: float = 0.0
     error_code: int = 0
     bandwidth: BandwidthMetrics | None = None
-    plan: WindowEllPlan | ReorderedPlan | None = None   # the plan that
-    #                                                     served the call
+    plan: WindowEllPlan | ReorderedPlan | PatternPlan | None = None  # the
+    #                                                   plan that served it
     plan_seconds: float = 0.0   # plan resolution in this call (build +
     #                             upload; a cache hit takes microseconds)
 
@@ -113,6 +134,7 @@ def _host_plan(A: CSRMatrix, split: int | None,
     if skey not in A._plan_cache:   # O(nnz) sampled model — cache
         A._plan_cache[skey] = _choose_sup(A, with_groups=True,
                                           split_rows=split)
+    vdt = "bfloat16" if config.bf16_values else "float32"
     if config.reorder is not False:
         # the verdict depends on the split-dependent superblock choice
         rkey = ("_reorder", bool(config.reorder), split)
@@ -124,12 +146,14 @@ def _host_plan(A: CSRMatrix, split: int | None,
         if order is not None:
             try:
                 return build_reordered_host(A, order, split,
-                                            config.step_groups)
+                                            config.step_groups,
+                                            values_dtype=vdt)
             except WindowEllOverflow:
                 pass   # the permuted matrix packs in no layout: natural plan
     try:
         return build_auto(A, step_groups=config.step_groups,
-                          split_rows=split, choice=A._plan_cache[skey]), None
+                          split_rows=split, choice=A._plan_cache[skey],
+                          values_dtype=vdt), None
     except WindowEllOverflow as e:
         raise _not_ported("composite plans (single plan overflows)",
                           "M7") from e
@@ -138,15 +162,15 @@ def _host_plan(A: CSRMatrix, split: int | None,
 def _plan_for(A: CSRMatrix, kernel_type: KernelType, config: SpMVConfig,
               device: torch.device) -> WindowEllPlan | ReorderedPlan:
     """The packed single plan for ``A`` on ``device`` (the single-plan part
-    of ``tpu_spmv/spmv.py:_plan_for``), cached on the matrix under the JAX
-    package's key (kernel type, step width, reorder flag)."""
-    if config.bf16_values:
-        raise _not_ported("bf16 value streams", "M7")
+    of ``tpu_spmv/spmv.py:_plan_for``), with an f32 or bf16 value stream,
+    cached on the matrix under the JAX package's key (kernel type, step
+    width, bf16 flag, reorder flag)."""
     if A.num_cols > VMEM_X_MAX_COLS:
         raise _not_ported("composite plans (x wider than one block)", "M7")
     split = MERGE_SPLIT_ROWS if kernel_type == KernelType.MERGE_PATH \
         else None
-    hkey = ("host", int(kernel_type), config.step_groups, config.reorder)
+    hkey = ("host", int(kernel_type), config.step_groups,
+            bool(config.bf16_values), config.reorder)
     dkey = (hkey, str(device))
     if dkey in A._plan_cache:
         return A._plan_cache[dkey]
@@ -159,24 +183,67 @@ def _plan_for(A: CSRMatrix, kernel_type: KernelType, config: SpMVConfig,
     return plan
 
 
-def _run(plan: WindowEllPlan | ReorderedPlan,
+def _resolve_pattern(A: CSRMatrix, kernel_type: KernelType,
+                     config: SpMVConfig,
+                     device: torch.device) -> PatternPlan | None:
+    """The pattern fast path (``tpu_spmv/spmv.py:423-455``): a pattern plan
+    of the 0/1 structure plus the factored-out column scale.  Returns
+    ``None`` (the f32 packed path serves) when the values are not
+    column-scaled, the pattern plan overflows, or ``TPU_SPMV_NO_PATTERN`` is
+    set.  The scale is cached under ``"_cscale"``, the host plan (or
+    ``None`` for a rejection) under ``("pat", kernel type, step width)``,
+    the device plan under that key and the device."""
+    from .pagerank import column_scale_factor
+
+    if os.environ.get("TPU_SPMV_NO_PATTERN"):
+        return None
+    if "_cscale" not in A._plan_cache:
+        A._plan_cache["_cscale"] = column_scale_factor(A)
+    scale = A._plan_cache["_cscale"]
+    if scale is None or A.num_cols > VMEM_X_MAX_COLS:
+        return None
+    key = ("pat", int(kernel_type), config.step_groups)
+    if key not in A._plan_cache:
+        split = MERGE_SPLIT_ROWS if kernel_type == KernelType.MERGE_PATH \
+            else None
+        try:
+            A._plan_cache[key] = build_auto(
+                A, step_groups=config.step_groups, split_rows=split,
+                pattern=True)
+        except WindowEllOverflow:
+            A._plan_cache[key] = None   # remember the rejection
+    if A._plan_cache[key] is None:
+        return None
+    dkey = (key, str(device))
+    if dkey not in A._plan_cache:
+        A._plan_cache[dkey] = PatternPlan(
+            plan_from_host(A._plan_cache[key], device),
+            guarded_upload(scale, device))
+    return A._plan_cache[dkey]
+
+
+def _run(plan: WindowEllPlan | ReorderedPlan | PatternPlan,
          x: torch.Tensor) -> torch.Tensor:
     """``y = A @ x`` through the resolved plan."""
     if isinstance(plan, ReorderedPlan):
         return spmv_reordered(plan, x)
+    if isinstance(plan, PatternPlan):
+        return spmv_pattern(plan.plan, plan.scale, x)
     return spmv_window_ell(plan, x)
 
 
 def _resolve_csr_kernel(A: CSRMatrix, kernel_type: KernelType,
-                        config: SpMVConfig,
-                        device: torch.device) -> WindowEllPlan | ReorderedPlan:
+                        config: SpMVConfig, device: torch.device
+                        ) -> WindowEllPlan | ReorderedPlan | PatternPlan:
     """The plan that serves ``A`` (``tpu_spmv/spmv.py:353-396``)."""
     if kernel_type in (KernelType.VECTOR_CSR, KernelType.MERGE_PATH) \
             and config.use_vmem_x:
         if A.num_cols > PACKED_MAX_COLS:
             raise _not_ported("column-strip plans", "M7")
         if config.pattern:
-            raise _not_ported("the pattern fast path", "M7")
+            resolved = _resolve_pattern(A, kernel_type, config, device)
+            if resolved is not None:
+                return resolved
         return _plan_for(A, kernel_type, config, device)
     if kernel_type == KernelType.SCALAR_CSR and config.use_vmem_x \
             and A.num_cols <= VMEM_X_MAX_COLS:
@@ -190,11 +257,15 @@ def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
              device=None) -> SpMVResult:
     """``y = A @ x`` (reference ``spmv_csr``, ``spmv_kernels.cu:215-326``).
 
-    ``x`` is a tensor or array of ``num_cols`` values.  ``device`` (default:
-    ``x``'s device, the CPU for arrays) is where the plan lives and the
-    kernels run; on the CPU the kernels' plain versions serve.  Errors come
-    back in ``error_code``.  ``measure=True`` times the whole call on the
-    card (:func:`~tpu_spmv_torch.timing.time_cuda`, which raises for any
+    ``x`` is a tensor or array of ``num_cols`` values.  ``device`` is where
+    the plan lives and the kernels run: the card (``"cuda"``) unless the
+    caller names another, whatever device ``x`` is on.  With no CUDA device
+    and none named, the call returns ``DEVICE_ALLOC`` (the code the
+    reference's first device allocation gives without a card); it never
+    runs on the CPU unasked.  On a named CPU device the kernels' plain
+    versions serve.  Errors come back in ``error_code``.  ``measure=True``
+    times the whole call on the card
+    (:func:`~tpu_spmv_torch.timing.time_cuda`, which raises for any
     other device: ``MEASURE_WARMUP`` warm-up calls, then the median of
     ``measure_samples`` runs of ``measure_iters`` calls of the plan that
     served the call) and fills the time, GFLOP/s and byte-model GB/s."""
@@ -202,9 +273,7 @@ def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
     if A is None or x is None:
         result.error_code = int(SpMVError.INVALID_ARGUMENT)
         return result
-    if device is None:
-        device = x.device if isinstance(x, torch.Tensor) else "cpu"
-    device = torch.device(device)
+    device = torch.device("cuda" if device is None else device)
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
     n = int(x.shape[0]) if x.ndim == 1 else -1
@@ -217,6 +286,9 @@ def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
     if config is None:
         config = SpMVConfig()
     kernel_type = KernelType(config.kernel_type)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        result.error_code = int(SpMVError.DEVICE_ALLOC)
+        return result
     if A.num_rows == 0:
         result.y = torch.zeros(0, dtype=torch.float32, device=device)
         return result

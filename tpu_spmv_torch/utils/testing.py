@@ -4,7 +4,8 @@ The generators make the same NumPy draws in the same order as the JAX
 package's, so one seed gives the identical matrix in both packages.
 :func:`clustered_csr` and :func:`scrambled_banded_csr` plant the block-coarse
 locality that block reordering (:mod:`tpu_spmv_torch.kernels.reorder`)
-recovers.
+recovers; :func:`web_graph_csr` and :func:`transition_matrix` make the
+JAX bench's PageRank matrix.
 """
 
 from __future__ import annotations
@@ -67,6 +68,42 @@ class RandomGenerator:
         vals = self.rng.uniform(-10, 10, nnz).astype(np.float32)
         vals[vals == 0.0] = 1.0
         return CSRMatrix(rows, cols, vals, cols_arr, row_ptrs)
+
+
+def web_graph_csr(rng: RandomGenerator, rows: int, cols: int,
+                  avg_nnz: float = 16.0, alpha_row: float = 1.6,
+                  col_beta: float = 2.5):
+    """Web-graph-like CSR: power-law row lengths and power-law column
+    popularity (hub columns), ``tpu_spmv/utils/testing.py:76-102``."""
+    from ..csr import CSRMatrix
+
+    raw = rng.rng.pareto(alpha_row, rows) + 1.0
+    lens = np.minimum((raw * avg_nnz / raw.mean()).astype(np.int64), cols)
+    total = int(lens.sum())
+    rr = np.repeat(np.arange(rows, dtype=np.int64), lens)
+    u = rng.rng.random(total)
+    cc = np.minimum((cols * u ** col_beta).astype(np.int64), cols - 1)
+    key = np.unique(rr * cols + cc)   # dedupe + sort (rows major, cols asc)
+    rr2 = (key // cols).astype(np.int64)
+    cc2 = (key % cols).astype(np.int32)
+    row_ptrs = np.zeros(rows + 1, np.int32)
+    np.cumsum(np.bincount(rr2, minlength=rows), out=row_ptrs[1:])
+    vals = rng.rng.uniform(0.1, 1.0, len(key)).astype(np.float32)
+    return CSRMatrix(rows, cols, vals, cc2, row_ptrs)
+
+
+def transition_matrix(adj):
+    """The column-normalised transition matrix of ``adj``'s structure, as
+    the JAX bench makes its PageRank matrix (``bench.py:291-297``): every
+    stored entry of column j is ``1 / outdeg(j)``, the column's count of
+    stored entries."""
+    from ..csr import CSRMatrix
+
+    outd = np.bincount(adj.col_indices,
+                       minlength=adj.num_cols).astype(np.float32)
+    vals = (1.0 / np.maximum(outd, 1.0)[adj.col_indices]).astype(np.float32)
+    return CSRMatrix(adj.num_rows, adj.num_cols, vals, adj.col_indices,
+                     adj.row_ptrs)
 
 
 def clustered_csr(rng: RandomGenerator, n: int, n_clusters: int = 32,

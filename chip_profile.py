@@ -2,6 +2,7 @@
 
     python3 chip_profile.py [--calls 20]
                             [--cells headline,mesh,ab,levers,pagerank]
+                            [--cells ablation]
 
 For ``chip_smoke.py``'s matrices (``headline``: the merge-path power-law
 matrix; ``mesh``: the scrambled 2^20 mesh, served reordered; ``ab``: the
@@ -13,47 +14,115 @@ scaled, on the pattern path; ``pagerank``: one PageRank SpMV of the
 then ``--calls`` calls are traced with ``torch.profiler``.
 Per plan it prints:
 
-* the fold schedule: for each section (in launch order) its CTAs, its runs,
-  and the most and the mean runs one CTA walks;
+* the fold schedule of each section (in launch order) before and after
+  chunking: superblocks and the most runs of one, chunks (K1's CTAs),
+  split superblocks and the most runs of one chunk;
 * device µs per call for each kernel name, with its launches per call;
-* K1's device µs per launch, in section order (the mean over the calls).
+* K1's device µs per section, in section order: the chunked fold plus,
+  where the section splits a superblock, its ordered reduce (the mean over
+  the calls).
+
+``ablation`` (not in the default cells) times K1 alone on the PageRank
+plan's gather table under three cuts of the same plan: one run per chunk
+(R = 1), the module's R, and no cut (one chunk per superblock).
 
 The trace has been seen to drop a few launches of the first kernels of a
 call; a kernel whose launches per call are not a whole number is flagged.
 The first line is the card's name and power limit (``nvidia-smi``).  Fails
 where no CUDA device is available, the trace holds no device time, or it
-misses a fold launch.
+misses a fold or reduce launch.
 Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 import chip_smoke as cs
 
+FOLD_KERNEL = "fold_chunk"
+REDUCE_KERNEL = "chunk_reduce"
 
-def schedule(plan) -> list:
-    """Per fold section: ``(CTAs, runs, max runs per CTA, mean)``."""
-    import numpy as np
 
-    out = []
-    for sec in plan.sections:
-        per_cta = np.diff(sec.cta_ptr.cpu().numpy())
-        out.append((sec.n_cta, int(per_cta.sum()), int(per_cta.max()),
-                    float(per_cta.mean())))
-    return out
+def trace(fn, calls: int) -> list:
+    """Device events of ``calls`` calls of ``fn``, in time order."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from torch.profiler import schedule as schedule_steps
+
+    # one call per profiler step: two untraced (wait, warm-up), then
+    # ``calls`` traced, then one more so the traced cycle closes (a trace
+    # stopped right after its last call can miss that call's kernels)
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       schedule=schedule_steps(wait=1, warmup=1,
+                                               active=calls, repeat=1),
+                       acc_events=True) as prof:
+        for _ in range(calls + 3):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    # device events, less the schedule's own step spans
+    return sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith("ProfilerStep")),
+                  key=lambda e: e.time_range.start)
+
+
+def k1_sections(label: str, kern: list, inner, calls: int) -> list:
+    """K1's device µs per call for each section of ``inner``: its fold
+    launch plus, where the section splits a superblock, the reduce launch
+    that follows it.  Fails unless the trace holds one fold launch per
+    section and one reduce per split section, per call."""
+    per = len(inner.sections)
+    splits = [s.n_split > 0 for s in inner.sections]
+    times = [0.0] * per
+    folds = reduces = 0
+    k = -1
+    for e in kern:
+        if FOLD_KERNEL in e.name:
+            k = folds % per
+            folds += 1
+            times[k] += e.time_range.elapsed_us()
+        elif REDUCE_KERNEL in e.name:
+            cs.check(k >= 0 and splits[k],
+                     f"{label}: a reduce launch after no split section")
+            reduces += 1
+            times[k] += e.time_range.elapsed_us()
+    cs.check(folds == per * calls,
+             f"{label}: {folds} fold launches traced, {per * calls} "
+             f"expected")
+    cs.check(reduces == sum(splits) * calls,
+             f"{label}: {reduces} reduce launches traced, "
+             f"{sum(splits) * calls} expected")
+    return [t / calls for t in times]
+
+
+def print_kernels(kern: list, calls: int) -> None:
+    by_name = {}
+    for e in kern:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        cs.log(f"  {t / calls:10.2f} us  x{n / calls:g}  {name[:96]}")
+    if any(n % calls for _, n in by_name.values()):
+        cs.log("  (a launch count that is not a whole number per call: the "
+               "trace dropped that kernel's launches, and its time is short)")
+
+
+def print_schedule(inner) -> None:
+    for k, geo in enumerate(cs.fold_geometry(inner)):
+        cs.log(f"  section {k}: " + json.dumps(geo))
 
 
 def profile(label: str, A, x, changes: dict, calls: int, dev) -> None:
     import dataclasses
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-    from torch.profiler import schedule as schedule_steps
 
     from tpu_spmv_torch import spmv_auto_config, spmv_csr
     from tpu_spmv_torch.kernels.reorder import ReorderedPlan
@@ -66,49 +135,51 @@ def profile(label: str, A, x, changes: dict, calls: int, dev) -> None:
     plan = res.plan
     inner = plan.inner if isinstance(plan, ReorderedPlan) \
         else plan.plan if isinstance(plan, PatternPlan) else plan
-    # one call per profiler step: two untraced (wait, warm-up), then
-    # ``calls`` traced, then one more so the traced cycle closes (a trace
-    # stopped right after its last call can miss that call's kernels)
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA],
-                       schedule=schedule_steps(wait=1, warmup=1,
-                                               active=calls, repeat=1),
-                       acc_events=True) as prof:
-        for _ in range(calls + 3):   # the plan is cached on A: calls run it
-            spmv_csr(A, xd, cfg)
-            torch.cuda.synchronize()
-            prof.step()
-    # device events, less the schedule's own step spans
-    kern = sorted((e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and not e.name.startswith("ProfilerStep")),
-                  key=lambda e: e.time_range.start)
+    # the plan is cached on A: calls run it
+    kern = trace(lambda: spmv_csr(A, xd, cfg), calls)
     cs.check(len(kern) > 0, f"{label}: the trace holds no device time")
-    by_name = {}
-    for e in kern:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    total = sum(t for t, _ in by_name.values()) / calls
+    total = sum(e.time_range.elapsed_us() for e in kern) / calls
     cs.log(f"== {label}: {type(plan).__name__}, {inner.values} values, sup "
            f"{inner.sup}, {inner.n_groups} groups, tb {inner.tb}, S "
            f"{inner.step_groups}; device {total:.2f} us/call over {calls} "
            f"calls")
-    for k, (ctas, runs, most, mean) in enumerate(schedule(inner)):
-        cs.log(f"  section {k}: {ctas} CTAs, {runs} runs, max {most} / "
-               f"mean {mean:.1f} runs per CTA")
-    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
-        cs.log(f"  {t / calls:10.2f} us  x{n / calls:g}  {name[:96]}")
-    if any(n % calls for _, n in by_name.values()):
-        cs.log("  (a launch count that is not a whole number per call: the "
-               "trace dropped that kernel's launches, and its time is short)")
-    folds = [e.time_range.elapsed_us() for e in kern if "fold_" in e.name]
-    per = len(inner.sections)
-    cs.check(len(folds) == per * calls,
-             f"{label}: {len(folds)} fold launches traced, "
-             f"{per * calls} expected")
-    cs.log("  K1 per launch, section order (us): "
-           + ", ".join(f"{sum(folds[k::per]) / calls:.2f}"
-                       for k in range(per)))
+    print_schedule(inner)
+    print_kernels(kern, calls)
+    cs.log("  K1 per section, fold + reduce, section order (us): "
+           + ", ".join(f"{t:.2f}" for t in k1_sections(label, kern, inner,
+                                                        calls)))
+
+
+def ablation(A, calls: int, dev) -> None:
+    """K1 on the PageRank plan's gather table (x the uniform ranks, scaled
+    as ``spmv_pattern`` feeds it) at R = 1, the module's R and no cut."""
+    import dataclasses
+
+    import torch
+
+    from tpu_spmv_torch import KernelType, SpMVConfig, spmv_csr
+    from tpu_spmv_torch.kernels import window_ell as twe
+
+    n = A.num_rows
+    cfg = SpMVConfig(kernel_type=KernelType.VECTOR_CSR, pattern=True)
+    res = spmv_csr(A, torch.full((n,), 1.0 / n, device=dev), cfg)
+    cs.check(res.error_code == 0, f"ablation: error {res.error_code}")
+    pp = res.plan
+    table = twe.gather_table(pp.plan, pp.scale * (1.0 / n))
+    cs.log(f"== ablation: K1 on the PageRank plan ({pp.plan.values}, sup "
+           f"{pp.plan.sup}, tb {pp.plan.tb}); {cs.nvidia_smi()}")
+    for what, cap in (("R = 1", 1), (f"R = {twe.CHUNK_RUNS} (module)",
+                                     twe.CHUNK_RUNS), ("unsplit", 1 << 30)):
+        plan = dataclasses.replace(pp.plan,
+                                   sections=twe._fold_schedule(pp.plan, cap))
+        kern = trace(lambda: twe.window_ell_fold(plan, table), calls)
+        secs = k1_sections(f"ablation {what}", kern, plan, calls)
+        ms = cs.time_ms(lambda: twe.window_ell_fold(plan, table))
+        cs.log(f"-- {what}: K1 {ms * 1e3:.2f} us/call (CUDA events); per "
+               f"section, fold + reduce (us): "
+               + ", ".join(f"{t:.2f}" for t in secs))
+        print_schedule(plan)
+        print_kernels(kern, calls)
 
 
 def main() -> int:
@@ -139,10 +210,11 @@ def main() -> int:
     if "ab" in cells:
         runs += [(name, a, [{"reorder": False}, {"reorder": None}])
                  for name, a in cs.AB]
-    if "pagerank" in cells:
+    if "pagerank" in cells or "ablation" in cells:
         # PageRank's SpMV: the pattern path at its VECTOR_CSR kernel type
         runs.append(("web_graph_csr", cs.PAGERANK, [
-            {"pattern": True, "kernel_type": KernelType.VECTOR_CSR}]))
+            {"pattern": True, "kernel_type": KernelType.VECTOR_CSR}]
+            if "pagerank" in cells else []))
     for name, a, arms in runs:
         rng = tt.RandomGenerator(42)
         if name == "power_law_csr":
@@ -162,6 +234,8 @@ def main() -> int:
                 M = CSRMatrix(A.num_rows, A.num_cols, s[A.col_indices],
                               A.col_indices, A.row_ptrs)
             profile(f"{name}{a} {changes}", M, x, changes, args.calls, dev)
+        if name == "web_graph_csr" and "ablation" in cells:
+            ablation(A, args.calls, dev)
     return 0
 
 

@@ -8,12 +8,13 @@ Phases (each raises on failure; nothing is caught and passed over):
 2. Build: the host planner library and the CUDA kernels, from the sources
    in this checkout.
 3. Kernels against their plain PyTorch versions on the card: the
-   window-ELL fold (K1) over plans of the bench's smoke matrix at every
-   superblock height and run length, natural and leveled, in each of its
-   three variants: f32 values, bf16 values, and none (pattern plans: the
-   nibble-15 sentinel at superblock height 1024, -1 at 4096 and 16384),
-   the bf16 and pattern plans merge-path with extras sections that publish;
-   the unpermute (K2) on a random ``lam``.
+   window-ELL fold (K1: the chunked fold, and the ordered reduce where a
+   superblock's runs are cut into several chunks) over plans of the bench's
+   smoke matrix at every superblock height and run length, natural and
+   leveled, in each of its three variants: f32 values, bf16 values, and
+   none (pattern plans: the nibble-15 sentinel at superblock height 1024,
+   -1 at 4096 and 16384), the bf16 and pattern plans merge-path with
+   extras sections that publish; the unpermute (K2) on a random ``lam``.
 4. The chunk permute (K3) against its plain version, exactly: x not a
    whole number of chunks nor of float4s, ``src`` with repeats and chunks
    past the end of x, an output ending mid-chunk, a pointer that is not
@@ -37,7 +38,11 @@ Phases (each raises on failure; nothing is caught and passed over):
    timed with CUDA events, and held to the physics guard (streamed bytes /
    time must not exceed 1.02 × measured STREAM).  Each kernel is then
    compared with, and timed beside, its plain version at the plan's shapes
-   (K1 under the row bound, K2 and K3 exactly).
+   (K1 under the row bound and bit for bit across two calls; its ordered
+   reduce, on random partial tiles of the section with the most, K2 and K3
+   exactly).  Each path prints its fold schedule before and after chunking
+   and checks one fold launch per section and one reduce launch per
+   section that splits a superblock.
    Vector CSR (no row split) runs once against the oracle too.
    Then the headline through the JAX bench's two levers (``bench.py:332-375``):
    a bf16 value stream (``bf16_values=True``, held to the oracle at 8e-3,
@@ -79,8 +84,8 @@ operations over the 67 TFLOP/s fp32 peak, whichever is larger.
 
 Everything before the last line is diagnostics.  The line before the
 ``nvidia-smi`` line is one JSON object with a record per kernel (K1's f32
-variant, K2, K3, the probes P4, P2, P3, P5, K1's bf16 and pattern variants,
-P1); the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero,
+variant, K1's ordered reduce, K2, K3, the probes P4, P2, P3, P5, K1's bf16
+and pattern variants, P1); the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero,
 and prints no result, where no CUDA device is available.  Imports nothing
 of JAX.
 """
@@ -194,6 +199,31 @@ def bound(nbytes: float, ops: float, stream_gbs: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def fold_geometry(plan) -> list:
+    """Per fold section of a window-ELL plan, its schedule before and after
+    chunking: output superblocks (one CTA each before) and the most runs
+    of one, then chunks (one CTA each now), split superblocks and the most
+    runs of one chunk."""
+    import numpy as np
+
+    base = plan.base.cpu().numpy()
+    out = []
+    for sec in plan.sections:
+        ro = sec.run_order.cpu().numpy()
+        _, per_sup = np.unique(base[ro], return_counts=True)
+        out.append({"runs": len(ro), "superblocks": sec.n_sup,
+                    "max_runs_per_superblock": int(per_sup.max()),
+                    "chunks": sec.n_chunks, "split": sec.n_split,
+                    "max_runs_per_chunk": sec.max_runs})
+    return out
+
+
+def split_sections(plan) -> int:
+    """Sections of ``plan`` whose schedule splits a superblock: one reduce
+    launch each per call."""
+    return sum(s.n_split > 0 for s in plan.sections)
+
+
 def time_ms(fn, iters: int = ITERS) -> float:
     """ms per ``fn()`` call on the card (CUDA events, median of
     ``SAMPLES`` runs of ``iters`` calls)."""
@@ -218,15 +248,17 @@ def cusparse(A, dev):
             size=(A.num_rows, A.num_cols), check_invariants=False)
 
 
-def hold_kernels(plan, xd, A, x, what: str, timed: bool) -> dict:
+def hold_kernels(plan, xd, A, x, what: str, timed: bool,
+                 stream: float | None = None) -> dict:
     """Each kernel of ``plan`` against its plain version on the inputs the
     path gives it: for a reordered plan the x permute (K3), then the inner
     plan's fold (K1, under the row bound), unpermute (K2) and the row
     permute (K3); K2 and K3 exactly.  A pattern plan's fold gathers from the
     scaled x, as ``spmv_pattern`` feeds it.  With ``timed``, each is timed
     beside its plain version and its library call (cuSPARSE on ``A`` for
-    the fold, which must match the oracle; ``take_along_dim`` for K2,
-    ``index_select`` for K3).  Returns ``{kernel record name: [{"err",
+    the fold, which must match the oracle; ``index_add_`` for the reduce;
+    ``take_along_dim`` for K2, ``index_select`` for K3), and its bound over
+    ``stream`` (GB/s) printed beside.  Returns ``{kernel record name: [{"err",
     "ms", "plain_ms", "library_ms", "nbytes", "ops"}, ...]}`` in path order;
     the times are ``None`` untimed."""
     import torch
@@ -263,8 +295,10 @@ def hold_kernels(plan, xd, A, x, what: str, timed: bool) -> dict:
         parts.append(f"{name} max|Δ| {rec['err']:.3g}" + (
             f" {rec['ms'] * 1e3:.2f} us (plain {rec['plain_ms'] * 1e3:.2f} "
             f"us" + ("" if rec["library_ms"] is None else
-                     f", library {rec['library_ms'] * 1e3:.2f} us") + ")"
-            if timed else ""))
+                     f", library {rec['library_ms'] * 1e3:.2f} us")
+            + ("" if stream is None else
+               f", bound {bound(nbytes, ops, stream)[0] * 1e3:.2f} us")
+            + ")" if timed else ""))
         return got, ref
 
     def permute_library(v, src):
@@ -284,7 +318,7 @@ def hold_kernels(plan, xd, A, x, what: str, timed: bool) -> dict:
         xin = pp.scale * xd
     table = twe.gather_table(inner, xin)
     k2_bytes = 0 if inner.lam is None else inner.lam.numel() * 12
-    live_slots = sum(int(s.cta_ptr[-1]) for s in inner.sections) \
+    live_slots = sum(s.run_order.numel() for s in inner.sections) \
         * inner.tb * 8 * 128
     M = cusparse(A, xd.device) if timed else None
     fold = FOLD_VARIANTS[inner.values]
@@ -295,6 +329,32 @@ def hold_kernels(plan, xd, A, x, what: str, timed: bool) -> dict:
                     exact=False, plain_iters=PLAIN_ITERS)
     exc = max_row_excess(rows_of(out, plan), rows_of(ref, plan), A, x)
     check(exc <= 0, f"K1 vs its plain version, row bound ({what})")
+    again = twe.window_ell_fold(inner, table)
+    check(torch.equal(out, again),
+          f"K1 is not bit-identical across two calls ({what})")
+    parts.append("K1 bit-identical across two calls")
+    # K1's ordered reduce on the section with the most partial tiles, on
+    # random tiles (the fold's own stay inside its call): the same sums in
+    # the same order, so exactly
+    sec = max(inner.sections, key=lambda s: s.n_slots)
+    if sec.n_split:
+        dev = xd.device
+        g = torch.Generator(device=dev).manual_seed(5)
+        partial = torch.randn(sec.n_slots, inner.sup, generator=g,
+                              device=dev)
+        buf_k = torch.zeros(inner.out8 * 128, device=dev)
+        buf_p = buf_k.clone()
+        ptr = sec.split_ptr.long()
+        seg = torch.repeat_interleave(torch.arange(sec.n_split, device=dev),
+                                      ptr[1:] - ptr[:-1])
+        sums = torch.zeros(sec.n_split, inner.sup, device=dev)
+        hold("chunk_reduce",
+             lambda p, s: twe.chunk_reduce(p, s, buf_k),
+             lambda p, s: twe.chunk_reduce_plain(p, s, buf_p), partial, sec,
+             nbytes=(sec.n_slots + sec.n_split) * inner.sup * 4,
+             ops=float(sec.n_slots * inner.sup),
+             library=lambda: sums.index_add_(0, seg, partial),
+             plain_iters=PLAIN_ITERS)
     if M is not None:
         check(spmv_matches((M @ xd).cpu().numpy(), A, x, rel_tol=REL_TOL),
               f"the library call (cuSPARSE) vs the oracle ({what})")
@@ -322,6 +382,7 @@ KERNEL_SOURCES = {
                              "tpu_spmv/kernels/window_ell.py:1313"),
     "window_ell_fold_pattern": ("window_ell.cu",
                                 "tpu_spmv/kernels/window_ell.py:1313"),
+    "chunk_reduce": ("window_ell.cu", "tpu_spmv/kernels/window_ell.py:1313"),
     "unpermute": ("unpermute.cu", "tpu_spmv/kernels/window_ell.py:1463"),
     "permute_chunks": ("permute.cu", "tpu_spmv/kernels/reorder.py:225"),
 }
@@ -429,7 +490,8 @@ def phase_kernels(dev) -> None:
     counts = tk.launch_counts()
     log(f"  K2 random lam: exact; launches in this phase {counts}")
     check(all(counts[k] > 0 for k in tk.FOLD_VARIANTS.values())
-          and counts["unpermute"] > 0, "a kernel's launch count did not move")
+          and counts["chunk_reduce"] > 0 and counts["unpermute"] > 0,
+          "a kernel's launch count did not move")
 
 
 def phase_k3(dev) -> None:
@@ -599,9 +661,12 @@ def phase_main(dev, stream: float) -> tuple:
         f"{len(plan.sections)} sections")
     check(counts["window_ell_fold"] == calls * len(plan.sections),
           "K1 did not launch once per section per call")
+    check(counts["chunk_reduce"] == calls * split_sections(plan),
+          "K1's reduce did not launch once per split section per call")
     check(counts["unpermute"] == (calls if plan.lam is not None else 0),
           "K2 did not launch once per call")
-    check(counts["window_ell_fold"] > 0 and counts["unpermute"] > 0,
+    check(counts["window_ell_fold"] > 0 and counts["chunk_reduce"] > 0
+          and counts["unpermute"] > 0,
           "a kernel of the main path was not launched")
     y = res.y.cpu().numpy()
     check(y.shape == (A.num_rows,) and bool(np.all(np.isfinite(y))),
@@ -613,8 +678,8 @@ def phase_main(dev, stream: float) -> tuple:
         "sup": plan.sup, "groups": plan.n_groups,
         "occupancy": round(plan.occupancy, 4), "extras": plan.n_extra,
         "leveled": plan.lam is not None, "step_groups": plan.step_groups,
-        "tb": plan.tb, "sbn": plan.sbn, "sections": len(plan.sections),
-        "ctas": [s.n_cta for s in plan.sections]}))
+        "tb": plan.tb, "sbn": plan.sbn, "sections": len(plan.sections)}))
+    log("fold schedule: " + json.dumps(fold_geometry(plan)))
     log(f"plan build + upload: {res.plan_seconds:.2f} s (host planner, "
         f"no JAX)")
 
@@ -640,7 +705,8 @@ def phase_main(dev, stream: float) -> tuple:
           f"physics guard: {actual:.1f} GB/s streamed > 1.02 x STREAM")
 
     # each kernel against its plain version at the main path's shapes
-    held = hold_kernels(plan, xd, A, x, "headline", timed=True)
+    held = hold_kernels(plan, xd, A, x, "headline", timed=True,
+                        stream=stream)
 
     # vector CSR: the same kernels, no row split
     vres = spmv_csr(A, xd, SpMVConfig(kernel_type=KernelType.VECTOR_CSR))
@@ -651,7 +717,7 @@ def phase_main(dev, stream: float) -> tuple:
         f"{vres.plan.n_groups}, extras {vres.plan.n_extra}, build "
         f"{vres.plan_seconds:.2f} s")
     return [kernel_record(k, held, counts[k], stream)
-            for k in ("window_ell_fold", "unpermute")], A, x
+            for k in ("window_ell_fold", "chunk_reduce", "unpermute")], A, x
 
 
 def phase_reorder(dev, stream: float) -> dict:
@@ -702,6 +768,8 @@ def phase_reorder(dev, stream: float) -> dict:
           "K3 did not launch twice per call")
     check(counts["window_ell_fold"] == calls * len(inner.sections),
           "K1 did not launch once per inner section per call")
+    check(counts["chunk_reduce"] == calls * split_sections(inner),
+          "K1's reduce did not launch once per split section per call")
     check(inner.lam is not None and counts["unpermute"] == calls,
           "K2 did not launch once per call")
     y = res.y.cpu().numpy()
@@ -715,8 +783,8 @@ def phase_reorder(dev, stream: float) -> dict:
         "occupancy": round(inner.occupancy, 4), "extras": inner.n_extra,
         "leveled": inner.lam is not None, "step_groups": inner.step_groups,
         "tb": inner.tb, "sbn": inner.sbn, "sections": len(inner.sections),
-        "ctas": [s.n_cta for s in inner.sections],
         "blocks": len(rp.col_src)}))
+    log("fold schedule: " + json.dumps(fold_geometry(inner)))
     log(f"host: probe {probe_s:.2f} s (run alone); plan resolution "
         f"{res.plan_seconds:.2f} s (probe, permuted build, upload)")
 
@@ -732,7 +800,8 @@ def phase_reorder(dev, stream: float) -> dict:
           f"physics guard: {actual:.1f} GB/s streamed > 1.02 x STREAM")
 
     # each kernel against its plain version at the reordered path's shapes
-    held = hold_kernels(rp, xd, A, x, "mesh, reordered", timed=True)
+    held = hold_kernels(rp, xd, A, x, "mesh, reordered", timed=True,
+                        stream=stream)
     log(f"K3 permutes: x {inner.num_cols} elements "
         f"({tr.permute_bytes(inner.num_cols) / 1e6:.2f} MB), y {rp.num_rows} "
         f"elements ({tr.permute_bytes(rp.num_rows) / 1e6:.2f} MB)")
@@ -829,7 +898,9 @@ def phase_levers(dev, stream: float, A, x) -> dict:
               f"headline {what}: served by a {plan.values} plan")
         check(counts[fold] == calls * len(plan.sections)
               and sum(counts[k] for k in tk.FOLD_VARIANTS.values())
-              == counts[fold], f"headline {what}: K1 launches {counts}")
+              == counts[fold]
+              and counts["chunk_reduce"] == calls * split_sections(plan),
+              f"headline {what}: K1 launches {counts}")
         check(counts["unpermute"] == (calls if plan.lam is not None else 0),
               f"headline {what}: K2 did not launch once per call")
         y = res.y.cpu().numpy()
@@ -843,12 +914,14 @@ def phase_levers(dev, stream: float, A, x) -> dict:
             f"model {res.bandwidth_gb_s:.1f} GB/s, streamed {actual:.1f} "
             f"GB/s ({res.plan.stream_bytes / 1e6:.2f} MB/call), STREAM "
             f"{stream:.1f} GB/s; sup {plan.sup}, {plan.n_groups} groups, "
-            f"sections {[s.n_cta for s in plan.sections]}; plan build "
+            f"{len(plan.sections)} sections; plan build "
             f"{res.plan_seconds:.2f} s")
+        log(f"headline {what} fold schedule: "
+            + json.dumps(fold_geometry(plan)))
         check(actual <= 1.02 * stream,
               f"physics guard: headline {what} {actual:.1f} GB/s streamed")
         held = hold_kernels(res.plan, xd, M, x, f"headline, {what}",
-                            timed=True)
+                            timed=True, stream=stream)
         if what == "bf16":
             held16, counts16 = held, counts
     return kernel_record("window_ell_fold_bf16", held16,
@@ -918,7 +991,8 @@ def phase_pagerank(dev, stream: float) -> dict:
     plan = pp.plan
     check(counts["window_ell_fold_pattern"] == PR_ITERS * len(plan.sections)
           and counts["window_ell_fold"] == counts["window_ell_fold_bf16"]
-          == 0, f"PageRank: K1 launches {counts}")
+          == 0 and counts["chunk_reduce"] == PR_ITERS * split_sections(plan),
+          f"PageRank: K1 launches {counts}")
     check(plan.lam is not None and counts["unpermute"] == PR_ITERS,
           "PageRank: K2 did not launch once per iteration")
     ranks = res.ranks_host()
@@ -932,7 +1006,6 @@ def phase_pagerank(dev, stream: float) -> dict:
           f"PageRank vs the float64 power iteration at atol {PR_ATOL_TIGHT}")
     check(abs(float(ranks.sum(dtype=np.float64)) - 1.0) < 1e-4, "Σr != 1")
     ms_iter = start.elapsed_time(stop) / res.iterations
-    per_cta = [np.diff(s.cta_ptr.cpu().numpy()) for s in plan.sections]
     log(f"PageRank: {res.iterations} iterations, launches {counts}; OK vs "
         f"float64 power iteration (max|Δ| {float(err.max()):.3g}, rtol "
         f"{PR_RTOL}, atol {PR_ATOL} and {PR_ATOL_TIGHT}), Σr = "
@@ -941,10 +1014,8 @@ def phase_pagerank(dev, stream: float) -> dict:
         "sup": plan.sup, "groups": plan.n_groups,
         "occupancy": round(plan.occupancy, 4), "sbn": plan.sbn,
         "leveled": plan.lam is not None, "step_groups": plan.step_groups,
-        "tb": plan.tb, "ctas": [s.n_cta for s in plan.sections],
-        "runs": [int(c.sum()) for c in per_cta],
-        "max_runs_per_cta": [int(c.max()) for c in per_cta],
-        "stream_mb": round(plan.stream_bytes / 1e6, 2)}))
+        "tb": plan.tb, "stream_mb": round(plan.stream_bytes / 1e6, 2)}))
+    log("PageRank fold schedule: " + json.dumps(fold_geometry(plan)))
     actual = plan.stream_bytes / (ms_iter / 1e3) / 1e9
     log(f"PageRank: {ms_iter:.4f} ms/iteration (CUDA events over the call, "
         f"set-up included), {wall * 1e3 / res.iterations:.4f} ms/iteration "
@@ -958,7 +1029,7 @@ def phase_pagerank(dev, stream: float) -> dict:
     # row's (|A||x|)_i far below the row bound's floor of 1, where a fold
     # that dropped whole rows would still pass
     held = hold_kernels(pp, res.ranks * n, A, ranks * np.float32(n),
-                        "PageRank", timed=True)
+                        "PageRank", timed=True, stream=stream)
     k1 = held["window_ell_fold_pattern"][0]
     k1_gbs = k1["nbytes"] / (k1["ms"] / 1e3) / 1e9
     log(f"PageRank K1 (pattern): {k1['ms'] * 1e3:.2f} us/call, "

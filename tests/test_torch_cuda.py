@@ -8,13 +8,17 @@ so it runs on a machine that has only the port installed:
 
 The fold's outputs are held to the backward-error row bound
 ``|y - y_plain|_i <= 1e-5 * max((|A||x|)_i, 1)``: the kernel and the plain
-version (``index_add_``) sum each row in different orders.  The unpermute
+version (``index_add_``) sum each row in different orders.  The fold is
+bit-identical from call to call, and its ordered reduce matches its plain
+version exactly (the same additions in the same order).  The unpermute
 and the chunk permute move values without arithmetic and must match
 exactly.  The benchmark probes' kernels are held to ``rtol=1e-5`` with
 ``atol = 1e-5 * max|ref|``: fp32 sums in another order, and in P1, P2 and
 P3 atomic adds in no fixed order.  PageRank on the card is held to a float64
 power iteration at ``rtol=1e-4, atol=1e-7``.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -124,6 +128,97 @@ def test_fold_variant_matches_plain(matrix, cuda_device, sup, tb, leveled,
                         else ROW_TOL)
 
 
+@pytest.fixture(scope="module")
+def web_matrix():
+    A = web_graph_csr(RandomGenerator(42), 16384, 16384, avg_nnz=15)
+    return A, RandomGenerator(7).vector(A.num_cols)
+
+
+def web_plan(A, sup, values, dev):
+    """A plan of the web graph with runs of two groups: superblocks of
+    37-161 runs at every height."""
+    hp = tplan.build(A, split_rows=128, sup=sup, t_base=2,
+                     pattern=values == "pattern",
+                     values_dtype="bfloat16" if values == "bfloat16"
+                     else "float32")
+    return twe.plan_from_host(hp, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["float32", "bfloat16", "pattern"])
+@pytest.mark.parametrize("sup", [1024, 4096, 16384])
+@pytest.mark.parametrize("cap", [1, twe.CHUNK_RUNS, None],
+                         ids=["R1", "Rmodule", "unsplit"])
+def test_fold_at_forced_caps_matches_plain(web_matrix, cuda_device, cap, sup,
+                                           values):
+    """The chunked fold at R = 1, the module's R and no cut, on a plan with
+    a superblock of more than 2R runs: against the plain version through
+    the same schedule under the row bound, bit-identical across two calls,
+    and one reduce launch per section that split a superblock."""
+    A, x = web_matrix
+    plan = web_plan(A, sup, values, cuda_device)
+    widest = max(s.max_runs for s in twe._fold_schedule(plan, 1 << 30))
+    if cap is None:
+        cap = widest
+    assert widest > 2 * cap or cap == widest
+    plan = dataclasses.replace(plan, sections=twe._fold_schedule(plan, cap))
+    table = twe.gather_table(plan, torch.from_numpy(x).to(cuda_device))
+    tk.reset_launch_counts()
+    out = twe.window_ell_fold(plan, table)
+    again = twe.window_ell_fold(plan, table)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    assert counts[tk.FOLD_VARIANTS[values]] == 2 * len(plan.sections)
+    assert counts["chunk_reduce"] \
+        == 2 * sum(s.n_split > 0 for s in plan.sections)
+    assert torch.equal(out, again)
+    y = rows_of(out, plan)
+    y_ref = rows_of(twe.window_ell_fold_plain(plan, table), plan)
+    M = ones_of(A) if values == "pattern" else A
+    bound = ROW_TOL * np.maximum(abs_row_scale(M, x), 1.0)
+    assert np.all(np.abs(y - y_ref) <= bound)
+    assert spmv_matches(y, M, x, rel_tol=8e-3 if values == "bfloat16"
+                        else ROW_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sup", [1024, 4096, 16384])
+def test_chunk_reduce_kernel_matches_plain_exactly(web_matrix, cuda_device,
+                                                   sup):
+    """The ordered reduce on random partial tiles of a real schedule (R =
+    1): the kernel and the plain version add the same rows in the same
+    order, so they agree bit for bit, and only split superblocks' tiles
+    are written."""
+    A, _ = web_matrix
+    plan = web_plan(A, sup, "float32", cuda_device)
+    sec = max(twe._fold_schedule(plan, 1), key=lambda s: s.n_slots)
+    assert sec.n_split > 0
+    g = torch.Generator().manual_seed(9)
+    partial = torch.randn(sec.n_slots, sup, generator=g).to(cuda_device)
+    fill = torch.randn(plan.out8 * 128, generator=g).to(cuda_device)
+    before = twe.chunk_reduce.launches
+    got = twe.chunk_reduce(partial, sec, fill.clone())
+    torch.cuda.synchronize()
+    assert twe.chunk_reduce.launches - before == 1
+    want = twe.chunk_reduce_plain(partial, sec, fill.clone())
+    assert torch.equal(got, want)
+    assert int((got != fill).sum()) <= sec.n_split * sup
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["float32", "bfloat16", "pattern"])
+def test_fold_is_bit_identical_across_calls(matrix, cuda_device, values):
+    A, x = matrix
+    hp = tplan.build(A, split_rows=128, sup=4096, pattern=values == "pattern",
+                     values_dtype="bfloat16" if values == "bfloat16"
+                     else "float32")
+    plan = twe.plan_from_host(hp, cuda_device)
+    table = twe.gather_table(plan, torch.from_numpy(x).to(cuda_device))
+    outs = [twe.window_ell_fold(plan, table) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
 @pytest.mark.cuda
 def test_unpermute_kernel_matches_plain(cuda_device):
     rng = np.random.default_rng(3)
@@ -204,6 +299,7 @@ def test_reordered_spmv_csr_on_card_matches_oracle(cuda_device):
     assert counts == {
         "window_ell_fold": len(res.plan.inner.sections),
         "window_ell_fold_bf16": 0, "window_ell_fold_pattern": 0,
+        "chunk_reduce": sum(s.n_split > 0 for s in res.plan.inner.sections),
         "unpermute": int(res.plan.inner.lam is not None),
         "permute_chunks": 2}
     assert spmv_matches(res.y.cpu().numpy(), A, x, rel_tol=ROW_TOL)

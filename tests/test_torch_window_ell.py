@@ -89,7 +89,7 @@ def test_sections_partition_the_plan(matrix):
     assert np.array_equal(np.sort(runs), np.flatnonzero(live))
     bases = [set(hp.base[s.run_order.numpy()].tolist())
              for s in plan.sections]
-    assert all(len(b) == s.n_cta for b, s in zip(bases, plan.sections))
+    assert all(len(b) == s.n_sup for b, s in zip(bases, plan.sections))
     assert sum(len(b) for b in bases) == len(set().union(*bases))
 
 
@@ -171,5 +171,6 @@ def test_launch_counts_do_not_move_on_cpu(matrix):
     twe.spmv_window_ell(plan, torch.from_numpy(x))
     assert tk.launch_counts() == {
         "window_ell_fold": 0, "window_ell_fold_bf16": 0,
-        "window_ell_fold_pattern": 0, "unpermute": 0, "permute_chunks": 0}
+        "window_ell_fold_pattern": 0, "chunk_reduce": 0, "unpermute": 0,
+        "permute_chunks": 0}
     assert sum(twe.window_ell_fold.launches.values()) == 0

@@ -1,7 +1,7 @@
 // K1: the packed window-ELL fold, y_sections = A_packed · [x ++ totals].
 //
-// Replaces the Pallas kernel tpu_spmv/kernels/window_ell.py::_build_pallas
-// (pallas_call at window_ell.py:1454, driven by _spmv_window_ell at
+// Replaces tpu_spmv/kernels/window_ell.py:1313 _build_pallas (the Pallas
+// kernel; pallas_call at window_ell.py:1454, driven by _spmv_window_ell at
 // :1504-1523).  What it computes, for every slot (g, s, l) of a plan
 // section (g = group, s in [0,8) sublane, l in [0,128) lane):
 //
@@ -14,49 +14,64 @@
 // high nibble of packed row t*8+s (`& 15` on both; the int8 load
 // sign-extends, so the high nibble is (v >> 4) & 15).
 //
-// The value stream comes in three forms, a template parameter V of both
-// fold kernels (the Pallas kernel's `pat` and `astype(f32)` branches,
-// window_ell.py:1321-1330, :1362-1367, :1389):
+// The value stream comes in three forms, a template parameter V (the Pallas
+// kernel's `pat` and `astype(f32)` branches, window_ell.py:1321-1330,
+// :1362-1367, :1389):
 //   float          as above;
-//   __nv_bfloat16  converted with __bfloat162float at load, so products and
-//                  sums stay f32 as in the Pallas kernel; 128 threads read
-//                  256 contiguous bytes per sublane;
+//   __nv_bfloat16  converted with __bfloat162float at use, so products and
+//                  sums stay f32 as in the Pallas kernel;
 //   Pattern        no vals pointer (null): prod is the gathered table value
 //                  (every stored nonzero is 1.0).  Pad slots, whose lo and
 //                  wg are 0 and so gather a real x entry, carry a sentinel
 //                  sub-block instead of a zero value: -1 on the int8 stream,
 //                  nibble 15 on the packed one.  Neither is a sub-block of
-//                  the superblock, and the kernels drop such slots.
+//                  the superblock, and the kernel drops such slots.
 //
-// Ordering.  The Pallas grid runs in order on one core and folds runs of
-// one output superblock across steps.  Here the wrapper launches once per
-// plan section (level-1 extras, level-2 extras, rows: the sections between
-// fin_step marks write disjoint superblocks, and each reads only x and the
-// totals earlier sections published), and inside a launch one CTA owns one
-// output superblock: it walks that superblock's runs in plan order and is
-// the only writer of its n_tb*128 outputs.  No atomics; the result is
-// deterministic.  A thread owns one lane (the TPU lane l), so the fold by
-// sub-block is private to the thread: n_tb accumulators in registers at
-// n_tb = 8, a per-thread column of shared memory at 32 and 128.  Per run
-// the thread forms the run's sum, then adds it to its total, which is the
-// Pallas association up to the order within a run.  At n_tb = 8 four
-// slices of 128 threads split a superblock's runs and add their totals in
-// a fixed order at the end.  Runs that hold only zero-valued padding are
-// left out of the schedule by the wrapper (kernels/window_ell.py).
+// Bound.  The slot streams are the bytes: 6 B/slot (f32 value, int8 lo,
+// int8 sb), 0.5 B less with the packed sb, 2 B less with bf16 values, 4 B
+// less on a pattern plan (stream_bytes in kernels/window_ell.py).  The
+// gathered table (x and the extras totals, 1-4 MB) stays in L2, so a
+// slot's only trip out of the SM besides its stream bytes is one L2 gather.
+// Little's law on this card (3.35 TB/s, about 0.7 us of loaded latency)
+// asks for about 2.3 MB in flight, 18-20 KB per SM.
 //
-// Bound.  The slot streams dominate the bytes: 5.5 B/slot with sbn (f32
-// value + int8 lo + half an int8 sb), 6 B/slot without, 2 B less with bf16
-// values, 4 B less on a pattern plan (stream_bytes in
-// tpu_spmv_torch/kernels/window_ell.py).  The gathered table is at most a
-// few MB and stays in L2.  Loads are coalesced: the 128 threads of a CTA
-// read 512 contiguous bytes of vals and 128 of lo per sublane.
+// Schedule.  The Pallas grid runs in order on one core with the whole
+// output resident, and folds each run into it (`o_ref[...] += acc`).  Here
+// the host cuts each output superblock's runs, in plan order, into chunks
+// of at most CHUNK_RUNS runs (kernels/window_ell.py), and one launch per
+// plan section runs one CTA per chunk, heaviest superblock first.  The
+// sections between fin_step marks write disjoint superblocks, and each
+// reads only x and the totals earlier sections published.  A chunk that
+// is its superblock's only one writes the superblock's n_tb*128 outputs;
+// the chunks of a split superblock each write a partial tile to the
+// workspace, and chunk_reduce sums those tiles in chunk order into the
+// output.  Every output is written by exactly one thread, with a fixed
+// order of additions: the result is bit-identical from call to call.
 //
-// What this simple design leaves on the table: a few hundred CTAs on the
-// headline and a dependent gather per slot, so few loads in flight per SM
-// (no cp.async/TMA staging of the slot streams); a serial walk over each
-// slice's runs, so the heaviest superblock sets a section's time; one
-// launch per section with the publish copy between; and the unpermute (K2)
-// as a separate pass instead of this kernel's epilogue.
+// fold_chunk.  A CTA has NS slices of 128 threads (4 at n_tb 8, 2 at 32, 1
+// at 128); slice w folds the chunk's runs w, w+NS, ...  A thread owns one
+// lane l (the TPU lane), so the fold by sub-block is private to the
+// thread: 8 accumulators in registers at n_tb 8 (a select ladder), its own
+// column of the slice's n_tb*128 shared-memory tile at 32 and 128.  The
+// accumulators hold the chunk's total; the slices add theirs in slice
+// order at the end and the CTA writes its tile once.
+//
+// Loads in flight.  A run's groups are contiguous in each slot stream, so
+// a slice stages them in a ring in shared memory: a stage is one group pair
+// (the packed sb's unit), brought by three 1-D bulk copies (vals, lo, sb;
+// cp.async.bulk with an mbarrier per stage, started by the slice's first
+// thread) up to D-1 stages ahead of the fold.  D fills kRingBytes per
+// slice: 2 stages of 12 KB (f32), 3 of 8 KB (bf16), 6-8 of 3-4 KB
+// (pattern), so a slice keeps 12-21 KB of slot streams in flight and an SM,
+// with two CTAs of 2-4 slices, 48-168 KB.  The chunk's run indices and wg
+// entries are read into shared memory once, when the CTA starts.  A
+// thread's fold of a stage reads lo and sb from the staged tiles and
+// puts the stage's 16 gathers in flight together (TB, the run length, is a
+// template parameter, so the loops unroll).
+//
+// What is left on the table: one launch per section (and one reduce where
+// a superblock splits) with the publish copy between, and the unpermute
+// (K2) as a separate pass instead of this kernel's epilogue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,141 +84,298 @@ namespace {
 constexpr int kLane = 128;
 constexpr int kChunks = 8;
 constexpr int kWindow = kChunks * kLane;
+constexpr int kGroupSlots = kChunks * kLane;
+constexpr int kStageGroups = 2;          // a stage is one group pair
+constexpr int kStageSlots = kStageGroups * kChunks;
+constexpr int kRingBytes = 24 * 1024;    // a slice's ring of stages
+constexpr int kMaxDepth = 8;
+constexpr int kBarBytes = 256;           // the mbarriers, at most 4 x 8
 
 // The value type of a pattern plan, which streams no values.
 struct Pattern {};
 
-// One slot's product: its value (f32, or bf16 converted to f32) times the
-// gathered table entry; the entry alone on a pattern plan.
 template <typename V>
-__device__ __forceinline__ float slot_product(const V* __restrict__ vals,
-                                              int64_t i, float gathered) {
+constexpr int value_bytes() {
+  if constexpr (std::is_same_v<V, Pattern>) {
+    return 0;
+  } else {
+    return int(sizeof(V));
+  }
+}
+
+// One stage of a slice's ring: a group pair's vals, lo and sb, in order.
+template <typename V, bool SBN>
+struct Stage {
+  static constexpr int kVals = kStageGroups * kGroupSlots * value_bytes<V>();
+  static constexpr int kLo = kStageGroups * kGroupSlots;
+  static constexpr int kSb = SBN ? kGroupSlots : kStageGroups * kGroupSlots;
+  static constexpr int kBytes = kVals + kLo + kSb;
+  static constexpr int kFit = kRingBytes / kBytes;
+  static constexpr int kDepth = kFit < 2 ? 2 : kFit > kMaxDepth ? kMaxDepth
+                                                                : kFit;
+  static_assert(kBytes % 16 == 0, "bulk copies move multiples of 16 bytes");
+  // the n_tb 8 slice totals are combined through a slice's spent ring
+  static_assert(kDepth * kBytes >= 8 * kLane * 4, "ring too small");
+};
+
+template <int NTB>
+constexpr int slices() {
+  return NTB == 8 ? 4 : NTB == 32 ? 2 : 1;
+}
+
+// Shared memory of one CTA: mbarriers, the chunk's runs and wg entries,
+// the slices' rings, then (n_tb 32 and 128) the slices' tiles.
+__host__ __device__ constexpr int align128(int b) {
+  return (b + 127) / 128 * 128;
+}
+
+template <int NTB, bool SBN, int TB, typename V>
+struct Layout {
+  static constexpr int kNS = slices<NTB>();
+  static constexpr int kRing = kNS * Stage<V, SBN>::kDepth
+                               * Stage<V, SBN>::kBytes;
+  static constexpr int kTiles = NTB > 8 ? kNS * NTB * kLane * 4 : 0;
+  static_assert(kNS * Stage<V, SBN>::kDepth * 8 <= kBarBytes, "barriers");
+  __host__ __device__ static constexpr int ring_offset(int max_runs) {
+    return align128(kBarBytes + 4 * max_runs * (1 + TB));
+  }
+  __host__ __device__ static constexpr int bytes(int max_runs) {
+    return ring_offset(max_runs) + kRing + kTiles;
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Arm the stage's barrier for `bytes` of bulk copies (this thread's arrival).
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Copy `bytes` (a multiple of 16, both ends 16-byte aligned) from global to
+// shared memory; the barrier counts them off when they land.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Sync the 128 threads of slice w (named barriers 1..4; 0 is the CTA's).
+__device__ __forceinline__ void slice_sync(int w) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(w + 1), "r"(kLane) : "memory");
+}
+
+// One slot's product from a staged stage: its value (f32, or bf16 converted
+// to f32) times the gathered table entry; the entry alone on a pattern plan.
+template <typename V>
+__device__ __forceinline__ float slot_product(const unsigned char* stage,
+                                              int i, float gathered) {
   if constexpr (std::is_same_v<V, Pattern>) {
     return gathered;
   } else if constexpr (std::is_same_v<V, __nv_bfloat16>) {
-    return __bfloat162float(vals[i]) * gathered;
+    return __bfloat162float(
+               reinterpret_cast<const __nv_bfloat16*>(stage)[i]) *
+           gathered;
   } else {
-    return vals[i] * gathered;
+    return reinterpret_cast<const float*>(stage)[i] * gathered;
   }
 }
 
-template <bool SBN>
-__device__ __forceinline__ int slot_sub_block(const int8_t* __restrict__ sb,
-                                              int64_t g, int s, int l) {
-  if (SBN) {
-    const int v = sb[((g >> 1) * kChunks + s) * kLane + l];
-    return (g & 1) ? ((v >> 4) & 15) : (v & 15);
+// Fold one staged group pair into this thread's accumulators: the 16
+// gathers go out together, then are added in slot order.  n_tb 8: a select
+// ladder over 8 registers, which a pattern plan's sentinel (-1 or 15)
+// never matches.  n_tb 32/128: the thread's column of the slice's tile
+// (`col` points at row 0 of lane l), where the sentinel -1 is skipped.
+template <int NTB, bool SBN, typename V>
+__device__ __forceinline__ void fold_stage(const unsigned char* stage,
+                                           const int32_t* wgp,
+                                           const float* __restrict__ table,
+                                           int l, float* acc, float* col) {
+  using St = Stage<V, SBN>;
+  const int8_t* slo = reinterpret_cast<const int8_t*>(stage + St::kVals);
+  const int8_t* ssb = slo + St::kLo;
+  float p[kStageSlots];
+  int t[kStageSlots];
+#pragma unroll
+  for (int j = 0; j < kStageGroups; ++j) {
+    const float* __restrict__ win = table + int64_t(wgp[j]) * kWindow;
+#pragma unroll
+    for (int s = 0; s < kChunks; ++s) {
+      const int q = j * kChunks + s;
+      const int i = q * kLane + l;
+      p[q] = slot_product<V>(stage, i, __ldg(win + s * kLane + slo[i]));
+      if (SBN) {
+        const int v = ssb[s * kLane + l];
+        t[q] = j ? ((v >> 4) & 15) : (v & 15);
+      } else {
+        t[q] = ssb[i];
+      }
+    }
   }
-  return sb[(g * kChunks + s) * kLane + l];
+#pragma unroll
+  for (int q = 0; q < kStageSlots; ++q) {
+    if constexpr (NTB == 8) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc[u] += (t[q] == u) ? p[q] : 0.f;
+    } else {
+      if (!std::is_same_v<V, Pattern> || t[q] >= 0) {
+        col[t[q] * kLane] += p[q];
+      }
+    }
+  }
 }
-
-// n_tb = 8: the fold by sub-block is a select ladder into registers (the
-// Pallas masked sums, one thread's lane).  The CTA has kSlices slices of
-// 128 threads; slice w walks runs k0+w, k0+w+kSlices, ... of the
-// superblock, and the slices' totals are added in slice order through
-// shared memory at the end, so the sum order is fixed.  The run length TB
-// is a template parameter so that a run's loads unroll and issue together.
-// A pattern plan's sentinel (-1, or nibble 15) matches no rung of the
-// ladder, so its pad slots add nothing here without a test of their own.
-constexpr int kSlices = 4;
 
 template <int NTB, bool SBN, int TB, typename V>
-__global__ void __launch_bounds__(kLane * kSlices)
-fold_registers(const float* __restrict__ table,
-               const V* __restrict__ vals,
-               const int8_t* __restrict__ lo,
-               const int8_t* __restrict__ sb,
-               const int32_t* __restrict__ wg,
-               const int32_t* __restrict__ base,
-               const int32_t* __restrict__ run_order,
-               const int32_t* __restrict__ cta_ptr,
-               float* __restrict__ out) {
-  __shared__ float part[kSlices - 1][NTB][kLane];
+__global__ void __launch_bounds__(kLane * slices<NTB>())
+fold_chunk(const float* __restrict__ table, const V* __restrict__ vals,
+           const int8_t* __restrict__ lo, const int8_t* __restrict__ sb,
+           const int32_t* __restrict__ wg, const int32_t* __restrict__ base,
+           const int32_t* __restrict__ run_order,
+           const int32_t* __restrict__ chunk_ptr,
+           const int32_t* __restrict__ chunk_slot, int max_runs,
+           float* __restrict__ out, float* __restrict__ partial) {
+  using St = Stage<V, SBN>;
+  using L = Layout<NTB, SBN, TB, V>;
+  constexpr int NS = L::kNS;
+  constexpr int D = St::kDepth;
+  constexpr int kPairs = TB / kStageGroups;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);              // [NS][D]
+  int32_t* runs = reinterpret_cast<int32_t*>(smem + kBarBytes);    // [n]
+  int32_t* wgs = runs + max_runs;                                  // [n][TB]
+  unsigned char* ring = smem + L::ring_offset(max_runs);  // [NS][D][stage]
+  float* tiles = reinterpret_cast<float*>(ring + L::kRing);  // [NS][NTB][128]
+
+  const int k0 = chunk_ptr[blockIdx.x];
+  const int n = chunk_ptr[blockIdx.x + 1] - k0;
+  if (n <= 0) return;
   const int l = threadIdx.x % kLane;
   const int w = threadIdx.x / kLane;
-  const int k0 = cta_ptr[blockIdx.x];
-  const int k1 = cta_ptr[blockIdx.x + 1];
-  float acc[NTB];
-#pragma unroll
-  for (int t = 0; t < NTB; ++t) acc[t] = 0.f;
-  for (int k = k0 + w; k < k1; k += kSlices) {
-    const int64_t r = run_order[k];
-    float run[NTB];
-#pragma unroll
-    for (int t = 0; t < NTB; ++t) run[t] = 0.f;
-#pragma unroll
-    for (int j = 0; j < TB; ++j) {
-      const int64_t g = r * TB + j;
-      const float* __restrict__ win = table + int64_t(wg[g]) * kWindow;
-#pragma unroll
-      for (int s = 0; s < kChunks; ++s) {
-        const int64_t i = (g * kChunks + s) * kLane + l;
-        const float p = slot_product(vals, i, win[s * kLane + lo[i]]);
-        const int target = slot_sub_block<SBN>(sb, g, s, l);
-#pragma unroll
-        for (int t = 0; t < NTB; ++t) run[t] += (target == t) ? p : 0.f;
-      }
+  for (int i = threadIdx.x; i < n * TB; i += blockDim.x) {
+    const int r = run_order[k0 + i / TB];
+    wgs[i] = wg[int64_t(r) * TB + i % TB];
+    if (i % TB == 0) runs[i / TB] = r;
+  }
+  if constexpr (NTB > 8) {
+    for (int i = threadIdx.x; i < NS * NTB * kLane; i += blockDim.x) {
+      tiles[i] = 0.f;
     }
-#pragma unroll
-    for (int t = 0; t < NTB; ++t) acc[t] += run[t];
   }
-  if (w > 0) {
-#pragma unroll
-    for (int t = 0; t < NTB; ++t) part[w - 1][t][l] = acc[t];
-  }
+  if (threadIdx.x < NS * D) mbar_init(bars + threadIdx.x);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   __syncthreads();
-  if (w > 0 || k0 >= k1) return;
-  for (int v = 0; v < kSlices - 1; ++v) {
-#pragma unroll
-    for (int t = 0; t < NTB; ++t) acc[t] += part[v][t][l];
-  }
-  float* __restrict__ o = out + int64_t(base[run_order[k0]]) * kLane + l;
-#pragma unroll
-  for (int t = 0; t < NTB; ++t) o[t * kLane] = acc[t];
-}
 
-// n_tb = 32 or 128: the run sum lives in this thread's column of shared
-// memory (NTB*128 floats per CTA: 16 or 64 KB), the total in the output,
-// which the wrapper zeroes and this CTA alone writes.  A pattern plan's pad
-// slot (sub-block -1) is skipped: it would index below the shared array.
-template <int NTB, bool SBN, typename V>
-__global__ void __launch_bounds__(kLane)
-fold_shared(const float* __restrict__ table,
-            const V* __restrict__ vals,
-            const int8_t* __restrict__ lo,
-            const int8_t* __restrict__ sb,
-            const int32_t* __restrict__ wg,
-            const int32_t* __restrict__ base,
-            const int32_t* __restrict__ run_order,
-            const int32_t* __restrict__ cta_ptr, int tb,
-            float* __restrict__ out) {
-  extern __shared__ float run_sum[];   // [NTB][kLane]
-  const int l = threadIdx.x;
-  const int k0 = cta_ptr[blockIdx.x];
-  const int k1 = cta_ptr[blockIdx.x + 1];
-  if (k0 >= k1) return;
-  float* __restrict__ o = out + int64_t(base[run_order[k0]]) * kLane + l;
-  for (int k = k0; k < k1; ++k) {
-    const int64_t r = run_order[k];
-    for (int t = 0; t < NTB; ++t) run_sum[t * kLane + l] = 0.f;
-    for (int j = 0; j < tb; ++j) {
-      const int64_t g = r * tb + j;
-      const float* __restrict__ win = table + int64_t(wg[g]) * kWindow;
-#pragma unroll
-      for (int s = 0; s < kChunks; ++s) {
-        const int64_t i = (g * kChunks + s) * kLane + l;
-        const float p = slot_product(vals, i, win[s * kLane + lo[i]]);
-        const int target = slot_sub_block<SBN>(sb, g, s, l);
-        if (!std::is_same_v<V, Pattern> || target >= 0) {
-          run_sum[target * kLane + l] += p;
-        }
-      }
+  // slice w folds runs w, w + NS, ... of the chunk, a group pair a stage
+  const int n_stages = (n > w ? (n - w + NS - 1) / NS : 0) * kPairs;
+  uint64_t* bar = bars + w * D;
+  unsigned char* sring = ring + w * D * St::kBytes;
+  auto load_stage = [&](int i) {
+    const int64_t g0 = int64_t(runs[w + (i / kPairs) * NS]) * TB
+                       + (i % kPairs) * kStageGroups;
+    unsigned char* dst = sring + (i % D) * St::kBytes;
+    mbar_expect(bar + i % D, St::kBytes);
+    if constexpr (St::kVals > 0) {
+      bulk_load(dst, vals + g0 * kGroupSlots, St::kVals, bar + i % D);
     }
-    for (int t = 0; t < NTB; ++t) o[t * kLane] += run_sum[t * kLane + l];
+    bulk_load(dst + St::kVals, lo + g0 * kGroupSlots, St::kLo, bar + i % D);
+    bulk_load(dst + St::kVals + St::kLo,
+              sb + (SBN ? g0 / 2 : g0) * kGroupSlots, St::kSb, bar + i % D);
+  };
+  if (l == 0) {
+    for (int i = 0; i < D - 1 && i < n_stages; ++i) load_stage(i);
+  }
+  float acc[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) acc[u] = 0.f;
+  float* col = tiles + w * NTB * kLane + l;
+  for (int i = 0; i < n_stages; ++i) {
+    // the buffer refilled here was folded in step i - 1, before the sync
+    if (l == 0 && i + D - 1 < n_stages) load_stage(i + D - 1);
+    mbar_wait(bar + i % D, (i / D) & 1);
+    const int32_t* wgp = wgs + (w + (i / kPairs) * NS) * TB
+                         + (i % kPairs) * kStageGroups;
+    fold_stage<NTB, SBN, V>(sring + (i % D) * St::kBytes, wgp, table, l, acc,
+                            col);
+    slice_sync(w);
+  }
+
+  const int slot = chunk_slot[blockIdx.x];
+  float* __restrict__ dst =
+      slot < 0 ? out + int64_t(base[runs[0]]) * kLane
+               : partial + int64_t(slot) * NTB * kLane;
+  if constexpr (NTB == 8) {
+    // slices 1.. leave their totals in their spent rings; slice 0 adds them
+    // in slice order
+    float* part = reinterpret_cast<float*>(sring);
+    if (w > 0) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) part[u * kLane + l] = acc[u];
+    }
+    __syncthreads();
+    if (w > 0) return;
+    for (int v = 1; v < NS; ++v) {
+      const float* pv = reinterpret_cast<const float*>(ring + v * D
+                                                       * St::kBytes);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc[u] += pv[u * kLane + l];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) dst[u * kLane + l] = acc[u];
+  } else {
+    __syncthreads();
+    for (int i = threadIdx.x; i < NTB * kLane; i += blockDim.x) {
+      float v = tiles[i];
+      for (int s = 1; s < NS; ++s) v += tiles[s * NTB * kLane + i];
+      dst[i] = v;
+    }
   }
 }
 
-// The arguments every launch takes, the value stream typed by the caller.
+// Split superblock j (blockIdx.y): its output tiles from split_base[j] on
+// are the sum, from zero and in chunk order, of the workspace rows
+// split_ptr[j] .. split_ptr[j+1]-1.
+__global__ void __launch_bounds__(256)
+chunk_reduce(const float* __restrict__ partial,
+             const int32_t* __restrict__ split_ptr,
+             const int32_t* __restrict__ split_base, int width,
+             float* __restrict__ out) {
+  const int j = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= width) return;
+  const int s1 = split_ptr[j + 1];
+  float v = 0.f;
+  for (int c = split_ptr[j]; c < s1; ++c) v += partial[int64_t(c) * width + i];
+  out[int64_t(split_base[j]) * kLane + i] = v;
+}
+
+// The arguments every fold launch takes, the value stream typed by the
+// caller.
 struct FoldArgs {
   const float* table;
   const void* vals;
@@ -212,83 +384,78 @@ struct FoldArgs {
   const int32_t* wg;
   const int32_t* base;
   const int32_t* run_order;
-  const int32_t* cta_ptr;
-  int tb;
+  const int32_t* chunk_ptr;
+  const int32_t* chunk_slot;
+  int n_chunks;
+  int max_runs;
   float* out;
+  float* partial;
 };
 
-template <int NTB, bool SBN, typename V>
-cudaError_t launch_shared(dim3 grid, cudaStream_t stream, const FoldArgs& a) {
-  const int smem = NTB * kLane * int(sizeof(float));
-  if (smem > 48 * 1024) {
+template <int NTB, bool SBN, int TB, typename V>
+cudaError_t launch_chunk(cudaStream_t stream, const FoldArgs& a) {
+  const int smem = Layout<NTB, SBN, TB, V>::bytes(a.max_runs);
+  static int granted = 48 * 1024;   // the default dynamic shared memory cap
+  if (smem > granted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fold_shared<NTB, SBN, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        fold_chunk<NTB, SBN, TB, V>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
+    granted = smem;
   }
-  fold_shared<NTB, SBN, V><<<grid, kLane, smem, stream>>>(
+  fold_chunk<NTB, SBN, TB, V><<<a.n_chunks, kLane * slices<NTB>(), smem,
+                                stream>>>(
       a.table, static_cast<const V*>(a.vals), a.lo, a.sb, a.wg, a.base,
-      a.run_order, a.cta_ptr, a.tb, a.out);
+      a.run_order, a.chunk_ptr, a.chunk_slot, a.max_runs, a.out, a.partial);
   return cudaSuccess;
 }
 
-template <bool SBN, typename V>
-cudaError_t launch_registers(dim3 grid, cudaStream_t stream,
-                             const FoldArgs& a) {
-  const dim3 block(kLane * kSlices);
-  const V* v = static_cast<const V*>(a.vals);
-  switch (a.tb) {
+template <int NTB, bool SBN, typename V>
+cudaError_t launch_tb(int tb, cudaStream_t stream, const FoldArgs& a) {
+  switch (tb) {
     case 2:
-      fold_registers<8, SBN, 2, V><<<grid, block, 0, stream>>>(
-          a.table, v, a.lo, a.sb, a.wg, a.base, a.run_order, a.cta_ptr,
-          a.out);
-      break;
+      return launch_chunk<NTB, SBN, 2, V>(stream, a);
     case 4:
-      fold_registers<8, SBN, 4, V><<<grid, block, 0, stream>>>(
-          a.table, v, a.lo, a.sb, a.wg, a.base, a.run_order, a.cta_ptr,
-          a.out);
-      break;
+      return launch_chunk<NTB, SBN, 4, V>(stream, a);
     case 8:
-      fold_registers<8, SBN, 8, V><<<grid, block, 0, stream>>>(
-          a.table, v, a.lo, a.sb, a.wg, a.base, a.run_order, a.cta_ptr,
-          a.out);
-      break;
+      return launch_chunk<NTB, SBN, 8, V>(stream, a);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaSuccess;
 }
 
-// The kernel for one superblock height and sb packing, typed by V.
+// The kernel for one superblock height, sb packing and run length, typed
+// by V.
 template <typename V>
-cudaError_t launch_fold(dim3 grid, cudaStream_t stream, int n_tb, bool sbn,
+cudaError_t launch_fold(cudaStream_t stream, int tb, int n_tb, bool sbn,
                         const FoldArgs& a) {
-  if (n_tb == 8 && sbn) return launch_registers<true, V>(grid, stream, a);
-  if (n_tb == 8) return launch_registers<false, V>(grid, stream, a);
-  if (n_tb == 32 && !sbn) return launch_shared<32, false, V>(grid, stream, a);
-  if (n_tb == 128 && !sbn) {
-    return launch_shared<128, false, V>(grid, stream, a);
-  }
+  if (n_tb == 8 && sbn) return launch_tb<8, true, V>(tb, stream, a);
+  if (sbn) return cudaErrorInvalidValue;
+  if (n_tb == 8) return launch_tb<8, false, V>(tb, stream, a);
+  if (n_tb == 32) return launch_tb<32, false, V>(tb, stream, a);
+  if (n_tb == 128) return launch_tb<128, false, V>(tb, stream, a);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// One launch over one plan section: n_cta output superblocks, each owning
-// the runs run_order[cta_ptr[c] : cta_ptr[c+1]].  `values` names the value
-// stream: 0 f32, 1 bf16, 2 none (a pattern plan; `vals` is null).  Returns
-// the CUDA error of the launch (0 = launched).  Launches on `stream`; does
-// not synchronize.
-extern "C" int tsp_window_ell_fold(const void* table, const void* vals,
-                                   const void* lo, const void* sb,
-                                   const void* wg, const void* base,
-                                   const void* run_order,
-                                   const void* cta_ptr, int n_cta, int tb,
-                                   int n_tb, int sbn, int values, void* out,
-                                   void* stream) {
-  if (n_cta <= 0) return 0;
-  if ((values == 2) != (vals == nullptr)) return int(cudaErrorInvalidValue);
-  const dim3 grid(n_cta);
+// One launch over one plan section: n_chunks CTAs, chunk c folding the runs
+// run_order[chunk_ptr[c] : chunk_ptr[c+1]] (at most max_runs, all of one
+// output superblock) into `out` (chunk_slot[c] = -1) or into workspace row
+// chunk_slot[c] of `partial` (n_tb*128 floats a row).  `values` names the
+// value stream: 0 f32, 1 bf16, 2 none (a pattern plan; `vals` is null).
+// vals, lo and sb must be 16-byte aligned.  Returns the CUDA error of the
+// launch (0 = launched).  Launches on `stream`; does not synchronize.
+extern "C" int tsp_window_ell_fold(
+    const void* table, const void* vals, const void* lo, const void* sb,
+    const void* wg, const void* base, const void* run_order,
+    const void* chunk_ptr, const void* chunk_slot, int n_chunks, int max_runs,
+    int tb, int n_tb, int sbn, int values, void* out, void* partial,
+    void* stream) {
+  if (n_chunks <= 0) return 0;
+  if ((values == 2) != (vals == nullptr) || max_runs <= 0) {
+    return int(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const FoldArgs a{static_cast<const float*>(table),
                    vals,
@@ -297,23 +464,43 @@ extern "C" int tsp_window_ell_fold(const void* table, const void* vals,
                    static_cast<const int32_t*>(wg),
                    static_cast<const int32_t*>(base),
                    static_cast<const int32_t*>(run_order),
-                   static_cast<const int32_t*>(cta_ptr),
-                   tb,
-                   static_cast<float*>(out)};
+                   static_cast<const int32_t*>(chunk_ptr),
+                   static_cast<const int32_t*>(chunk_slot),
+                   n_chunks,
+                   max_runs,
+                   static_cast<float*>(out),
+                   static_cast<float*>(partial)};
   cudaError_t err;
   switch (values) {
     case 0:
-      err = launch_fold<float>(grid, st, n_tb, sbn != 0, a);
+      err = launch_fold<float>(st, tb, n_tb, sbn != 0, a);
       break;
     case 1:
-      err = launch_fold<__nv_bfloat16>(grid, st, n_tb, sbn != 0, a);
+      err = launch_fold<__nv_bfloat16>(st, tb, n_tb, sbn != 0, a);
       break;
     case 2:
-      err = launch_fold<Pattern>(grid, st, n_tb, sbn != 0, a);
+      err = launch_fold<Pattern>(st, tb, n_tb, sbn != 0, a);
       break;
     default:
       return int(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
+}
+
+// The ordered reduce of one section: n_split superblocks, each n_tb*128
+// outputs wide.  Returns the CUDA error of the launch (0 = launched).
+extern "C" int tsp_window_ell_reduce(const void* partial,
+                                     const void* split_ptr,
+                                     const void* split_base, int n_split,
+                                     int n_tb, void* out, void* stream) {
+  if (n_split <= 0) return 0;
+  const int width = n_tb * kLane;
+  const dim3 grid((width + 255) / 256, n_split);
+  chunk_reduce<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(partial),
+      static_cast<const int32_t*>(split_ptr),
+      static_cast<const int32_t*>(split_base), width,
+      static_cast<float*>(out));
   return int(cudaGetLastError());
 }

@@ -142,8 +142,11 @@ def kernels() -> ctypes.CDLL:
     # every pointer and the stream as c_void_p: a bare Python int would be
     # passed as a 32-bit int and cut the address
     lib.tsp_window_ell_fold.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+        _P]
     lib.tsp_window_ell_fold.restype = _I
+    lib.tsp_window_ell_reduce.argtypes = [_P, _P, _P, _I, _I, _P, _P]
+    lib.tsp_window_ell_reduce.restype = _I
     lib.tsp_unpermute.argtypes = [_P, _I64, _P, _P, _I64, _P]
     lib.tsp_unpermute.restype = _I
     lib.tsp_permute_chunks.argtypes = [_P, _I64, _P, _P, _I64, _P]

@@ -3,19 +3,22 @@
 Port of the device half of ``tpu_spmv/kernels/window_ell.py``:
 
 * :class:`WindowEllPlan` holds a plan's arrays as tensors on one device, plus
-  the port-only fold schedule (:class:`FoldSection`, derived on the host when
+  the port-only fold schedule (:class:`FoldSection`: each superblock's runs
+  cut into chunks of at most :data:`CHUNK_RUNS`, derived on the host when
   the plan is made; not a plan-format field);
 * :func:`plan_from_arrays` makes one from NumPy leaves, either those of a
   JAX ``WindowEllPlan`` (``np.asarray`` of each leaf, a bf16 value stream
   included) or those of a port
   :class:`~tpu_spmv_torch.kernels.plan.HostPlan`;
-* :func:`window_ell_fold` (K1, ``csrc/window_ell.cu``) and :func:`unpermute`
-  (K2, ``csrc/unpermute.cu``) are the kernel wrappers.  Beside each is its
-  plain PyTorch version.  A wrapper takes the plain version only for a
-  tensor on the CPU; for a CUDA tensor it launches its kernel or raises.
-  Each wrapper counts its launches in an attribute, ``launches``: an
-  integer, and for K1 a dict per value stream (f32, bf16, or none for a
-  pattern plan), keyed as :data:`FOLD_VARIANTS`;
+* :func:`window_ell_fold` (K1, ``csrc/window_ell.cu``: the chunked fold,
+  and :func:`chunk_reduce`, the ordered sum of a split superblock's
+  partial tiles) and :func:`unpermute` (K2, ``csrc/unpermute.cu``) are the
+  kernel wrappers.  Beside each is its plain PyTorch version.  A wrapper
+  takes the plain version only for a tensor on the CPU; for a CUDA tensor
+  it launches its kernel or raises.  Each wrapper counts its launches in an
+  attribute, ``launches``: an integer, and for K1's fold a dict per value
+  stream (f32, bf16, or none for a pattern plan), keyed as
+  :data:`FOLD_VARIANTS`;
 * :func:`spmv_window_ell` runs a plan: pad x and append the extras region,
   fold, unpermute through ``lam``, trim to ``num_rows``;
   :func:`spmv_pattern` runs a pattern plan of a column-scaled matrix.
@@ -45,16 +48,48 @@ FOLD_VARIANTS = {"float32": "window_ell_fold",
                  "pattern": "window_ell_fold_pattern"}
 
 
+# R, the most runs one chunk (one CTA of K1) folds.  The card has 132 SMs
+# and holds about two fold CTAs on each (kernel shared memory: 80-100 KB a
+# CTA), so a section wants 264 or more chunks to fill it: PageRank's 3,133
+# live runs make 419 at R = 8, the 2^20 mesh's 1,613 level-1 runs 224.  A
+# superblock cut into several chunks pays for each a partial tile written
+# and read back, n_tb*128 f32: at sup 4096 16 KB each way against the 128
+# KB of slot streams eight pattern runs carry (25%), at sup 1024 4 KB
+# against 384 KB of f32 streams (2%).  Fewer runs per chunk would spend
+# more on tiles than they win in spread.
+CHUNK_RUNS = 8
+
+
 @dataclasses.dataclass(frozen=True)
 class FoldSection:
     """The fold schedule of one plan section (the blocks between two
-    ``fin_step`` marks): its runs grouped by output superblock.  Output
-    superblock ``c`` of the section owns the runs
-    ``run_order[cta_ptr[c]:cta_ptr[c+1]]``, in plan order."""
+    ``fin_step`` marks).  Each output superblock's runs, in plan order, are
+    cut into chunks of at most :data:`CHUNK_RUNS` runs, heaviest superblock
+    first; K1 runs one CTA per chunk.  Chunk ``c`` folds the runs
+    ``run_order[chunk_ptr[c]:chunk_ptr[c+1]]`` (all of one superblock) and
+    writes the superblock's ``n_tb*128`` outputs when ``chunk_slot[c]`` is
+    -1, else its partial tile into workspace row ``chunk_slot[c]``.  Split
+    superblock ``j`` (one cut into several chunks) owns the workspace rows
+    ``split_ptr[j]:split_ptr[j+1]``, in chunk order; the ordered reduce sums
+    them into the output tiles from ``split_base[j]`` on."""
 
-    run_order: torch.Tensor   # i32 (n_runs,) run indices, stable by base
-    cta_ptr: torch.Tensor     # i32 (n_cta + 1,)
-    n_cta: int
+    run_order: torch.Tensor   # i32 (n_runs,) run indices in chunk order
+    chunk_ptr: torch.Tensor   # i32 (n_chunks + 1,)
+    chunk_slot: torch.Tensor  # i32 (n_chunks,) workspace row, or -1
+    split_ptr: torch.Tensor   # i32 (n_split + 1,) workspace row ranges
+    split_base: torch.Tensor  # i32 (n_split,) output base (128-row tiles)
+    n_sup: int                # output superblocks of the section
+    n_slots: int              # workspace rows (partial tiles) written
+    max_runs: int             # most runs in one chunk
+    max_split: int            # most chunks of one split superblock
+
+    @property
+    def n_chunks(self) -> int:
+        return int(self.chunk_slot.shape[0])
+
+    @property
+    def n_split(self) -> int:
+        return int(self.split_base.shape[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,15 +181,52 @@ def _live_runs(aux: dict, vals: torch.Tensor | None,
     return np.any(live.reshape(-1, aux["tb"] * CHUNKS * LANE), axis=1)
 
 
+def _chunk_section(runs: np.ndarray, rb: np.ndarray,
+                   chunk_runs: int) -> dict:
+    """One section's chunk schedule (the fields of :class:`FoldSection`, as
+    NumPy arrays and ints) from its live runs in plan order and their
+    output bases.  A superblock of ``n`` runs becomes ``ceil(n /
+    chunk_runs)`` chunks of nearly equal length, each a contiguous stretch
+    of its runs in plan order; superblocks go heaviest first (ties by
+    base)."""
+    order = np.argsort(rb, kind="stable")
+    ubase, start, counts = np.unique(rb[order], return_index=True,
+                                     return_counts=True)
+    run_order, chunk_ptr, chunk_slot = [], [0], []
+    split_ptr, split_base = [0], []
+    for j in np.argsort(-counts, kind="stable"):
+        n = int(counts[j])
+        n_ch = -(-n // chunk_runs)
+        run_order.append(runs[order[start[j]:start[j] + n]])
+        chunk_ptr.extend(chunk_ptr[-1] + (np.arange(1, n_ch + 1) * n) // n_ch)
+        if n_ch == 1:
+            chunk_slot.append(-1)
+            continue
+        chunk_slot.extend(range(split_ptr[-1], split_ptr[-1] + n_ch))
+        split_ptr.append(split_ptr[-1] + n_ch)
+        split_base.append(int(ubase[j]))
+    i32 = lambda a: np.asarray(a, np.int64).astype(np.int32)  # noqa: E731
+    chunk_ptr = np.asarray(chunk_ptr, np.int64)
+    return dict(run_order=i32(np.concatenate(run_order)),
+                chunk_ptr=i32(chunk_ptr), chunk_slot=i32(chunk_slot),
+                split_ptr=i32(split_ptr), split_base=i32(split_base),
+                n_sup=len(ubase), n_slots=split_ptr[-1],
+                max_runs=int(np.diff(chunk_ptr).max()),
+                max_split=int(np.diff(split_ptr).max(initial=0)))
+
+
 def _fold_sections(aux: dict, live: np.ndarray, base: np.ndarray,
-                   blk_step: np.ndarray, fin_step: np.ndarray) -> list:
+                   blk_step: np.ndarray, fin_step: np.ndarray,
+                   chunk_runs: int = CHUNK_RUNS) -> list:
     """Split the plan's steps into sections at the ``fin_step`` marks and
-    group each section's runs by output superblock (stable, so a
-    superblock's runs keep plan order).  Runs that ``live`` marks dead
-    (:func:`_live_runs`: the padding that rounds sections up to whole
-    blocks, all of it on one superblock per section) are left out: they add
-    nothing for finite x.  Returns ``[(run_order, cta_ptr)]`` as int32
-    arrays, skipping empty sections."""
+    cut each section's runs into chunks (:func:`_chunk_section`, at most
+    ``chunk_runs`` runs each; the tests force smaller caps).  Runs that
+    ``live`` marks dead (:func:`_live_runs`: the padding that rounds
+    sections up to whole blocks, all of it on one superblock per section)
+    are left out: they add nothing for finite x.  Returns one dict of
+    :class:`FoldSection` fields per non-empty section."""
+    if chunk_runs < 1:
+        raise ValueError(f"chunk_runs={chunk_runs}")
     S, tb = aux["step_groups"], aux["tb"]
     runs_per_block = S // tb
     cuts = [0] + [i for i in np.flatnonzero(fin_step == 1) if i > 0] \
@@ -171,17 +243,38 @@ def _fold_sections(aux: dict, live: np.ndarray, base: np.ndarray,
         runs = runs[live[runs]]
         if not len(runs):
             continue
-        rb = base[runs]
-        order = np.argsort(rb, kind="stable")
-        ubase, counts = np.unique(rb, return_counts=True)
-        if seen.intersection(ubase.tolist()):
+        ubase = np.unique(base[runs]).tolist()
+        if seen.intersection(ubase):
             raise InvalidFormatError(
                 "window-ELL plan: two sections write one output superblock")
-        seen.update(ubase.tolist())
-        cta_ptr = np.zeros(len(ubase) + 1, np.int64)
-        np.cumsum(counts, out=cta_ptr[1:])
-        out.append((runs[order].astype(np.int32), cta_ptr.astype(np.int32)))
+        seen.update(ubase)
+        out.append(_chunk_section(runs, base[runs], chunk_runs))
     return out
+
+
+def _upload_sections(sections: list, device) -> tuple:
+    """:class:`FoldSection` per dict of :func:`_fold_sections`, its arrays
+    on ``device``."""
+    return tuple(FoldSection(**{k: guarded_upload(v, device)
+                                if isinstance(v, np.ndarray) else v
+                                for k, v in s.items()})
+                 for s in sections)
+
+
+def _fold_schedule(plan: "WindowEllPlan", chunk_runs: int) -> tuple:
+    """``plan``'s fold sections recut at ``chunk_runs`` runs per chunk, on
+    its device (for tests and ablations; plans carry the schedule at
+    :data:`CHUNK_RUNS`).  ``dataclasses.replace(plan, sections=...)`` runs
+    the plan through it."""
+    cpu = lambda t: t.cpu().numpy()  # noqa: E731
+    aux = {"step_groups": plan.step_groups, "tb": plan.tb,
+           "pat": plan.pat, "sbn": plan.sbn}
+    live = _live_runs(aux, None if plan.pat else plan.vals.cpu(),
+                      cpu(plan.sb))
+    return _upload_sections(
+        _fold_sections(aux, live, cpu(plan.base).astype(np.int64),
+                       cpu(plan.blk_step), cpu(plan.fin_step), chunk_runs),
+        plan.device)
 
 
 def _validate(leaves: dict, aux: dict) -> None:
@@ -267,8 +360,7 @@ def plan_from_arrays(leaves: dict, aux: dict, device="cuda",
     put = lambda a: None if a is None else guarded_upload(a, device)  # noqa: E731
     return WindowEllPlan(
         **{k: put(v) for k, v in leaves.items()}, **aux,
-        sections=tuple(FoldSection(put(ro), put(cp), len(cp) - 1)
-                       for ro, cp in sections),
+        sections=_upload_sections(sections, device),
         occupancy=float(occupancy))
 
 
@@ -296,20 +388,50 @@ def _check_fold(plan: WindowEllPlan, table: torch.Tensor) -> None:
         raise ValueError(f"table on {table.device}, plan on {plan.device}")
 
 
+def chunk_reduce_plain(partial: torch.Tensor, sec: FoldSection,
+                       out: torch.Tensor) -> torch.Tensor:
+    """The ordered reduce's plain version: each split superblock's output
+    tiles are the sum of its chunks' partial tiles (rows of ``partial``,
+    ``(n_slots, n_tb*128)``), added from zero in chunk order, the kernel's
+    order, so the two agree bit for bit.  Writes into ``out`` (flat, f32)
+    and returns it."""
+    if sec.n_split == 0:
+        return out
+    width = partial.shape[1]
+    ptr = sec.split_ptr.long()
+    n_chunks = ptr[1:] - ptr[:-1]
+    acc = torch.zeros(sec.n_split, width, dtype=torch.float32,
+                      device=out.device)
+    for q in range(sec.max_split):
+        take = n_chunks > q
+        acc[take] += partial[ptr[:-1][take] + q]
+    rows = sec.split_base.long().view(-1, 1) * LANE \
+        + torch.arange(width, device=out.device)
+    out[rows.reshape(-1)] = acc.reshape(-1)
+    return out
+
+
 def window_ell_fold_plain(plan: WindowEllPlan,
                           table: torch.Tensor) -> torch.Tensor:
-    """K1's plain version: per section a vectorized gather-multiply and an
-    ``index_add_`` into the output, with the extras totals published into
-    the table's tail before each later section.  bf16 values are converted
-    to f32 before the multiply.  On a pattern plan the product is the
-    gathered value, and the pad slots (sentinel sub-block) are dropped
-    before the ``index_add_``: their rows would fall in a neighbouring
-    superblock.  ``table`` (x zero-padded to ``cols_pad``, then ``e8*128``
-    slots) is not modified.  Returns the flat ``(out8*128,)`` output."""
+    """K1's plain version, through the same chunk schedule as the kernel:
+    per section a vectorized gather-multiply, an ``index_add_`` of each
+    chunk's products into the output (a superblock of one chunk) or into
+    the chunk's row of a zeroed partial workspace, then the ordered reduce
+    (:func:`chunk_reduce_plain`); the extras totals are published into the
+    table's tail before each later section.  bf16 values are converted to
+    f32 before the multiply.  On a pattern plan the product is the gathered
+    value, and the pad slots (sentinel sub-block) are dropped before the
+    ``index_add_``: their rows would fall in a neighbouring superblock.  A
+    run the schedule lost or counted twice, or a chunk that straddled two
+    superblocks, changes the result.  ``table`` (x zero-padded to
+    ``cols_pad``, then ``e8*128`` slots) is not modified.  Returns the flat
+    ``(out8*128,)`` output."""
     _check_fold(plan, table)
     dev = table.device
     table = table.clone()
-    out = torch.zeros(plan.out8 * LANE, dtype=torch.float32, device=dev)
+    n_out = plan.out8 * LANE
+    width = plan.sup
+    out = torch.zeros(n_out, dtype=torch.float32, device=dev)
     vals = None if plan.pat else plan.vals.float().reshape(-1, CHUNKS, LANE)
     lo = plan.lo.reshape(-1, CHUNKS, LANE)
     sbu = _unpack_sb(plan.sb, plan.sbn)
@@ -319,27 +441,83 @@ def window_ell_fold_plain(plan: WindowEllPlan,
         if k:
             table[plan.cols_pad:] = out[plan.extras_base:]
         runs = sec.run_order.long()
+        n_runs = runs.shape[0]
         g = (runs[:, None] * plan.tb
              + torch.arange(plan.tb, device=dev)).reshape(-1)
         idx = plan.wg[g].long().view(-1, 1, 1) * WINDOW + sub + lo[g].long()
         row_base = plan.base[runs].long().repeat_interleave(plan.tb)
         sbg = sbu[g].long()
-        rows = (row_base.view(-1, 1, 1) + sbg) * LANE + lane
+        local = sbg * LANE + lane           # index inside the superblock
+        # each run's chunk, and where that chunk writes
+        chunk = torch.repeat_interleave(
+            torch.arange(sec.n_chunks, device=dev),
+            (sec.chunk_ptr[1:] - sec.chunk_ptr[:-1]).long(),
+            output_size=n_runs)
+        slot = sec.chunk_slot.long()[chunk].repeat_interleave(plan.tb)
+        dest = torch.where(slot.view(-1, 1, 1) < 0,
+                           row_base.view(-1, 1, 1) * LANE + local,
+                           n_out + slot.view(-1, 1, 1) * width + local)
+        buf = torch.zeros(n_out + sec.n_slots * width, dtype=torch.float32,
+                          device=dev)
+        buf[:n_out] = out
         if plan.pat:
             keep = sbg != sentinel(plan.sbn)
-            out.index_add_(0, rows[keep], table[idx][keep])
+            buf.index_add_(0, dest[keep], table[idx][keep])
         else:
-            out.index_add_(0, rows.reshape(-1),
+            buf.index_add_(0, dest.reshape(-1),
                            (vals[g] * table[idx]).reshape(-1))
+        out = chunk_reduce_plain(buf[n_out:].view(-1, width), sec,
+                                 buf[:n_out])
     return out
+
+
+def chunk_reduce(partial: torch.Tensor, sec: FoldSection,
+                 out: torch.Tensor) -> torch.Tensor:
+    """K1's ordered reduce: each split superblock's output tiles are the
+    sum of its chunks' partial tiles in chunk order.  Launches
+    ``csrc/window_ell.cu``'s ``chunk_reduce`` for CUDA tensors (one launch;
+    none for a section without split superblocks), the plain version for
+    CPU ones.  ``partial`` is ``(>= n_slots, n_tb*128)`` f32; writes into
+    ``out`` (flat f32 output) and returns it."""
+    if partial.dtype != torch.float32 or out.dtype != torch.float32 \
+            or partial.ndim != 2 or partial.shape[0] < sec.n_slots \
+            or partial.shape[1] % LANE or partial.shape[1] // LANE \
+            not in _NTB_LEGAL:
+        raise ValueError(f"chunk_reduce: partial {partial.dtype} "
+                         f"{tuple(partial.shape)}, out {out.dtype}")
+    if not (partial.device == out.device == sec.split_ptr.device):
+        raise ValueError("chunk_reduce: tensors on different devices")
+    if out.device.type == "cpu":
+        return chunk_reduce_plain(partial, sec, out)
+    if out.device.type != "cuda":
+        raise ValueError(f"no reduce kernel for {out.device}")
+    if sec.n_split == 0:
+        return out
+    if not (partial.is_contiguous() and out.is_contiguous()):
+        raise ValueError("chunk_reduce: tensors must be contiguous")
+    from ._build import kernels
+
+    err = kernels().tsp_window_ell_reduce(
+        partial.data_ptr(), sec.split_ptr.data_ptr(),
+        sec.split_base.data_ptr(), sec.n_split, partial.shape[1] // LANE,
+        out.data_ptr(),
+        ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream))
+    if err:
+        raise DeviceException(f"chunk reduce launch: cudaError {err}")
+    chunk_reduce.launches += 1
+    return out
+
+
+chunk_reduce.launches = 0
 
 
 def window_ell_fold(plan: WindowEllPlan, table: torch.Tensor) -> torch.Tensor:
     """K1: the packed fold over every plan section, with the publish copy
-    between sections.  Launches ``csrc/window_ell.cu`` once per section on
-    the current stream for a CUDA ``table``, in the variant of the plan's
-    value stream (f32, bf16 or none); takes the plain version for a CPU
-    one.  ``table`` is not modified.  Returns ``(out8*128,)`` f32."""
+    between sections.  For a CUDA ``table``, launches ``csrc/window_ell.cu``'s
+    chunked fold once per section on the current stream, in the variant of
+    the plan's value stream (f32, bf16 or none), then :func:`chunk_reduce`
+    where the section split a superblock; takes the plain version for a
+    CPU one.  ``table`` is not modified.  Returns ``(out8*128,)`` f32."""
     if table.device.type == "cpu":
         return window_ell_fold_plain(plan, table)
     _check_fold(plan, table)
@@ -357,11 +535,17 @@ def window_ell_fold(plan: WindowEllPlan, table: torch.Tensor) -> torch.Tensor:
         table = table.clone()     # the publish copies write into it
     out = torch.zeros(plan.out8 * LANE, dtype=torch.float32,
                       device=table.device)
+    n_slots = max(s.n_slots for s in plan.sections)
+    partial = torch.empty(max(n_slots, 1), plan.sup, dtype=torch.float32,
+                          device=table.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(table.device)
                              .cuda_stream)
     arrays = [plan.vals, plan.lo, plan.sb, plan.wg, plan.base]
     if not all(a is None or a.is_contiguous() for a in arrays):
         raise ValueError("window-ELL plan arrays must be contiguous")
+    # the slot streams arrive by 16-byte bulk copies
+    if any(a is not None and a.data_ptr() % 16 for a in arrays[:3]):
+        raise ValueError("window-ELL slot streams must be 16-byte aligned")
     ptrs = [None if a is None else a.data_ptr() for a in arrays]
     values = plan.values
     for k, sec in enumerate(plan.sections):
@@ -369,11 +553,13 @@ def window_ell_fold(plan: WindowEllPlan, table: torch.Tensor) -> torch.Tensor:
             table[plan.cols_pad:] = out[plan.extras_base:]
         err = lib.tsp_window_ell_fold(
             table.data_ptr(), *ptrs, sec.run_order.data_ptr(),
-            sec.cta_ptr.data_ptr(), sec.n_cta, plan.tb, n_tb,
-            int(plan.sbn), _VALUE_CODES[values], out.data_ptr(), stream)
+            sec.chunk_ptr.data_ptr(), sec.chunk_slot.data_ptr(),
+            sec.n_chunks, sec.max_runs, plan.tb, n_tb, int(plan.sbn),
+            _VALUE_CODES[values], out.data_ptr(), partial.data_ptr(), stream)
         if err:
             raise DeviceException(f"window-ELL fold launch: cudaError {err}")
         window_ell_fold.launches[values] += 1
+        chunk_reduce(partial, sec, out)
     return out
 
 

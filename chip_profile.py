@@ -17,20 +17,34 @@ Per plan it prints:
 * the fold schedule of each section (in launch order) before and after
   chunking: superblocks and the most runs of one, chunks (K1's CTAs),
   split superblocks and the most runs of one chunk;
-* device µs per call for each kernel name, with its launches per call;
-* K1's device µs per section, in section order: the chunked fold plus,
-  where the section splits a superblock, its ordered reduce (the mean over
-  the calls).
+* a call's device span (first launch's start to last launch's end, the
+  median over the calls) beside its busy time, so the device's idle share
+  between launches, and the time of one call replayed from a CUDA graph
+  (the device's own time, launch gaps included, without the host's);
+* device µs per call for each kernel name, with its launches per call,
+  and the launches per call in all; the headline's must be 9 (the table's
+  zero-fill and copy, the output's zero-fill, three folds, two section
+  epilogues and K2), and a call may launch nothing besides the port's
+  kernels but those fills and copies (and a pattern plan's scale
+  multiply): no publish copy, no table clone;
+* K1's device µs per section, in section order: the chunked fold plus its
+  epilogue, the section epilogue after each section but the last and K2
+  after the last where the call ran it (the mean over the calls).
 
-``ablation`` (not in the default cells) times K1 alone on the PageRank
-plan's gather table under three cuts of the same plan: one run per chunk
-(R = 1), the module's R, and no cut (one chunk per superblock).
+``ablation`` (not in the default cells) times K1 as the SpMV runs it
+(``fold_sections``: no epilogue after the last section, whose split tiles
+K2 sums) on the PageRank plan's gather table under three cuts of the same
+plan: one run per chunk (R = 1), the module's R, and no cut (one chunk per
+superblock).
 
 The trace has been seen to drop a few launches of the first kernels of a
-call; a kernel whose launches per call are not a whole number is flagged.
+call: such a trace is reported (its launches against the whole number
+expected) and taken again, three tries in all, and a kernel whose
+launches per call are still not a whole number is flagged.
 The first line is the card's name and power limit (``nvidia-smi``).  Fails
-where no CUDA device is available, the trace holds no device time, or it
-misses a fold or reduce launch.
+where no CUDA device is available, the trace holds no device time, it
+misses a fold or epilogue launch, a call launches more than the kernels
+above, or a call cannot be captured in a CUDA graph.
 Imports nothing of JAX.
 """
 
@@ -43,11 +57,28 @@ import sys
 import chip_smoke as cs
 
 FOLD_KERNEL = "fold_chunk"
-REDUCE_KERNEL = "chunk_reduce"
+EPILOGUE_KERNEL = "section_epilogue"
+K2_KERNEL = "unpermute_kernel"
+K3_KERNEL = "permute_chunks_kernel"
+# launches per call besides the port's kernels: the table's zero-fill and
+# copy and the output's zero-fill, and a pattern plan's scale multiply
+OTHER_LAUNCHES = {False: 3, True: 4}
 
 
-def trace(fn, calls: int) -> list:
-    """Device events of ``calls`` calls of ``fn``, in time order."""
+def trace(fn, calls: int, tries: int = 3) -> list:
+    """Device events of ``calls`` calls of ``fn``, in time order.  A trace
+    that dropped launches (a count that is not a whole number per call) is
+    reported and taken again, up to ``tries`` times in all."""
+    for k in range(1, tries + 1):
+        kern = trace_once(fn, calls)
+        if len(kern) % calls == 0 or k == tries:
+            return kern
+        cs.log(f"  trace {k} of {tries} dropped launches: {len(kern)} over "
+               f"{calls} calls; taken again")
+
+
+def trace_once(fn, calls: int) -> list:
+    """Device events of one trace of ``calls`` calls of ``fn``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -73,32 +104,40 @@ def trace(fn, calls: int) -> list:
                   key=lambda e: e.time_range.start)
 
 
-def k1_sections(label: str, kern: list, inner, calls: int) -> list:
+def k1_sections(label: str, kern: list, inner, calls: int,
+                k2: bool) -> list:
     """K1's device µs per call for each section of ``inner``: its fold
-    launch plus, where the section splits a superblock, the reduce launch
-    that follows it.  Fails unless the trace holds one fold launch per
-    section and one reduce per split section, per call."""
+    launch plus its epilogue, the section epilogue after each section but
+    the last, and K2 after the last where ``k2`` (an SpMV that ran it;
+    else none, as ``fold_sections`` runs K1).  Fails unless the trace
+    holds one fold launch per section and those epilogues, per call."""
     per = len(inner.sections)
-    splits = [s.n_split > 0 for s in inner.sections]
     times = [0.0] * per
-    folds = reduces = 0
+    folds = epilogues = k2s = 0
     k = -1
     for e in kern:
         if FOLD_KERNEL in e.name:
             k = folds % per
             folds += 1
-            times[k] += e.time_range.elapsed_us()
-        elif REDUCE_KERNEL in e.name:
-            cs.check(k >= 0 and splits[k],
-                     f"{label}: a reduce launch after no split section")
-            reduces += 1
-            times[k] += e.time_range.elapsed_us()
+        elif EPILOGUE_KERNEL in e.name:
+            cs.check(0 <= k < per - 1,
+                     f"{label}: a section epilogue after section {k}")
+            epilogues += 1
+        elif K2_KERNEL in e.name and k2:
+            cs.check(k == per - 1, f"{label}: K2 after section {k}")
+            k2s += 1
+        else:
+            continue
+        times[k] += e.time_range.elapsed_us()
     cs.check(folds == per * calls,
              f"{label}: {folds} fold launches traced, {per * calls} "
              f"expected")
-    cs.check(reduces == sum(splits) * calls,
-             f"{label}: {reduces} reduce launches traced, "
-             f"{sum(splits) * calls} expected")
+    want = (per - 1) * calls
+    cs.check(epilogues == want,
+             f"{label}: {epilogues} section epilogues traced, {want} "
+             f"expected")
+    cs.check(k2s == (calls if k2 else 0),
+             f"{label}: {k2s} K2 launches traced")
     return [t / calls for t in times]
 
 
@@ -114,6 +153,42 @@ def print_kernels(kern: list, calls: int) -> None:
                "trace dropped that kernel's launches, and its time is short)")
 
 
+def device_span(kern: list, calls: int) -> float | None:
+    """The median over the calls of one call's device span, µs: from its
+    first launch's start to its last one's end, the busy time plus the
+    device's idle gaps between launches (each call ends in a synchronize,
+    so no call overlaps the next).  None where the trace dropped launches
+    (not the same count for every call)."""
+    import statistics
+
+    per, rem = divmod(len(kern), calls)
+    if rem or not per:
+        return None
+    return statistics.median(
+        max(e.time_range.end for e in kern[c * per:(c + 1) * per])
+        - kern[c * per].time_range.start for c in range(calls))
+
+
+def graph_replay_us(fn) -> float:
+    """µs per replay of one call of ``fn`` captured in a CUDA graph (CUDA
+    events, the median of ``SAMPLES`` runs of ``ITERS`` replays): the call's
+    device time with the gaps between its launches, and none of the host's
+    launch cost."""
+    import torch
+
+    from tpu_spmv_torch.timing import time_cuda
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm up off the capture's stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_cuda(graph.replay, iters=cs.ITERS, samples=cs.SAMPLES) * 1e6
+
+
 def print_schedule(inner) -> None:
     for k, geo in enumerate(cs.fold_geometry(inner)):
         cs.log(f"  section {k}: " + json.dumps(geo))
@@ -127,6 +202,7 @@ def profile(label: str, A, x, changes: dict, calls: int, dev) -> None:
     from tpu_spmv_torch import spmv_auto_config, spmv_csr
     from tpu_spmv_torch.kernels.reorder import ReorderedPlan
     from tpu_spmv_torch.spmv import PatternPlan
+    from tpu_spmv_torch.spmv import _run as run_plan
 
     cfg = dataclasses.replace(spmv_auto_config(A), **changes)
     xd = torch.from_numpy(x).to(dev)
@@ -142,23 +218,42 @@ def profile(label: str, A, x, changes: dict, calls: int, dev) -> None:
     cs.log(f"== {label}: {type(plan).__name__}, {inner.values} values, sup "
            f"{inner.sup}, {inner.n_groups} groups, tb {inner.tb}, S "
            f"{inner.step_groups}; device {total:.2f} us/call over {calls} "
-           f"calls")
+           f"calls, {len(kern) / calls:g} launches/call")
+    span = device_span(kern, calls)
+    if span is not None:
+        cs.log(f"  device span per call {span:.2f} us (median): busy "
+               f"{total:.2f} us, idle {span - total:.2f} us "
+               f"({100 * (1 - total / span):.1f}%)")
+    replay = graph_replay_us(lambda: run_plan(plan, xd))
+    cs.log(f"  one call replayed from a CUDA graph: {replay:.2f} us (CUDA "
+           f"events, median of {cs.SAMPLES} x {cs.ITERS} replays)")
     print_schedule(inner)
     print_kernels(kern, calls)
-    cs.log("  K1 per section, fold + reduce, section order (us): "
-           + ", ".join(f"{t:.2f}" for t in k1_sections(label, kern, inner,
-                                                        calls)))
+    ours = (FOLD_KERNEL, EPILOGUE_KERNEL, K2_KERNEL, K3_KERNEL)
+    other = [e.name for e in kern if not any(k in e.name for k in ours)]
+    cs.check(len(other) <= OTHER_LAUNCHES[inner.pat] * calls,
+             f"{label}: {len(other) / calls:g} launches per call besides "
+             f"the port's kernels: {sorted(set(other))}")
+    n_epi, n_k2 = cs.epilogue_launches(inner)
+    cs.log(f"  launches per call: {len(inner.sections)} folds, {n_epi} "
+           f"section epilogues, {n_k2} K2, {len(other) / calls:g} others")
+    cs.log("  K1 per section, fold + epilogue (K2 after the last), section "
+           "order (us): "
+           + ", ".join(f"{t:.2f}" for t in k1_sections(
+               label, kern, inner, calls, k2=n_k2 == 1)))
 
 
 def ablation(A, calls: int, dev) -> None:
-    """K1 on the PageRank plan's gather table (x the uniform ranks, scaled
-    as ``spmv_pattern`` feeds it) at R = 1, the module's R and no cut."""
+    """K1 as the SpMV runs it on the PageRank plan's gather table (x the
+    uniform ranks, scaled as ``spmv_pattern`` feeds it) at R = 1, the
+    module's R and no cut."""
     import dataclasses
 
     import torch
 
     from tpu_spmv_torch import KernelType, SpMVConfig, spmv_csr
     from tpu_spmv_torch.kernels import window_ell as twe
+    from tpu_spmv_torch.timing import time_cuda
 
     n = A.num_rows
     cfg = SpMVConfig(kernel_type=KernelType.VECTOR_CSR, pattern=True)
@@ -172,11 +267,12 @@ def ablation(A, calls: int, dev) -> None:
                                      twe.CHUNK_RUNS), ("unsplit", 1 << 30)):
         plan = dataclasses.replace(pp.plan,
                                    sections=twe._fold_schedule(pp.plan, cap))
-        kern = trace(lambda: twe.window_ell_fold(plan, table), calls)
-        secs = k1_sections(f"ablation {what}", kern, plan, calls)
-        ms = cs.time_ms(lambda: twe.window_ell_fold(plan, table))
-        cs.log(f"-- {what}: K1 {ms * 1e3:.2f} us/call (CUDA events); per "
-               f"section, fold + reduce (us): "
+        kern = trace(lambda: twe.fold_sections(plan, table), calls)
+        secs = k1_sections(f"ablation {what}", kern, plan, calls, k2=False)
+        us = time_cuda(lambda: twe.fold_sections(plan, table),
+                       iters=cs.ITERS, samples=cs.SAMPLES) * 1e6
+        cs.log(f"-- {what}: K1 {us:.2f} us/call (CUDA events); per "
+               f"section, fold + epilogue (us): "
                + ", ".join(f"{t:.2f}" for t in secs))
         print_schedule(plan)
         print_kernels(kern, calls)

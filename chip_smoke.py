@@ -8,8 +8,9 @@ Phases (each raises on failure; nothing is caught and passed over):
 2. Build: the host planner library and the CUDA kernels, from the sources
    in this checkout.
 3. Kernels against their plain PyTorch versions on the card: the
-   window-ELL fold (K1: the chunked fold, and the ordered reduce where a
-   superblock's runs are cut into several chunks) over plans of the bench's
+   window-ELL fold (K1: the chunked fold, and after each section the
+   section epilogue, which sums a superblock cut into several chunks and
+   publishes the extras totals) over plans of the bench's
    smoke matrix at every superblock height and run length, natural and
    leveled, in each of its three variants: f32 values, bf16 values, and
    none (pattern plans: the nibble-15 sentinel at superblock height 1024,
@@ -38,11 +39,14 @@ Phases (each raises on failure; nothing is caught and passed over):
    timed with CUDA events, and held to the physics guard (streamed bytes /
    time must not exceed 1.02 × measured STREAM).  Each kernel is then
    compared with, and timed beside, its plain version at the plan's shapes
-   (K1 under the row bound and bit for bit across two calls; its ordered
-   reduce, on random partial tiles of the section with the most, K2 and K3
-   exactly).  Each path prints its fold schedule before and after chunking
-   and checks one fold launch per section and one reduce launch per
-   section that splits a superblock.
+   (K1 held whole under the row bound and bit for bit across two calls,
+   and timed as the SpMV runs it, ``fold_sections``; its section
+   epilogue on random partial tiles of the non-last section with the most,
+   the table's tail included, K2 (with random partial tiles of the last
+   section where it splits) and K3 exactly).  Each path prints its fold
+   schedule before and after chunking and checks one fold launch per
+   section, one section epilogue per section but the last and one K2 per
+   call (wherever the plan is leveled or its last section splits).
    Vector CSR (no row split) runs once against the oracle too.
    Then the headline through the JAX bench's two levers (``bench.py:332-375``):
    a bf16 value stream (``bf16_values=True``, held to the oracle at 8e-3,
@@ -54,10 +58,11 @@ Phases (each raises on failure; nothing is caught and passed over):
    ``scrambled_banded_csr(2^20, bandwidth 4096, avg 12)`` (about 13.5M nnz,
    a 2^20-node mesh), which must be served by a ``ReorderedPlan``, checked
    against the oracle, timed, held to the physics guard with both permutes'
-   bytes, and counted: two K3, one K1 per inner section and one K2 launch
-   per call.  Each kernel of the path (the x permute, K1 and K2 on the
-   inner plan, the row permute) is then compared with, and timed beside,
-   its plain version on the inputs the path gives it.
+   bytes, and counted: two K3, one K1 per inner section, one section
+   epilogue per inner section but the last and one K2 launch per call.
+   Each kernel of the path (the x permute, K1 and K2 on the inner plan, the
+   row permute) is then compared with, and timed beside, its plain version
+   on the inputs the path gives it.
 8. Natural against reordered at 262,144 rows, on the planted banded and
    clustered matrices: both plans timed (natural, reordered, reordered,
    natural) and checked against the oracle, and each plan's kernels against
@@ -66,28 +71,34 @@ Phases (each raises on failure; nothing is caught and passed over):
    (``bench.py:279-306``), column-normalised, through ``pagerank`` for 30
    iterations at tolerance 0 after one warm-up run.  It must run on a
    pattern plan at superblock height 4096 with one K1 (pattern variant)
-   launch per section and one K2 launch per iteration, and match a float64
-   power iteration on the host (``rtol 1e-4, atol 1e-7``, ``|Σr - 1| <
-   1e-4``, and at ``atol 1e-9``, which a bf16-rounded table fails); K1 and
-   K2 are held to their plain versions on its inputs, x the ranks times n
-   so that every row's bound is set by its own values and not by the
-   bound's floor.  The time per iteration is printed over the call.  Then a
-   run at the default tolerance reports its iterations.
+   launch per section, one section epilogue per section but the last and
+   one K2 launch per iteration (it sums the last section's split
+   superblocks), and match a float64 power iteration on the host (``rtol
+   1e-4, atol 1e-7``, ``|Σr - 1| < 1e-4``, and at ``atol 1e-9``, which a
+   bf16-rounded table fails); K1 and K2 are held to their plain versions
+   on its inputs, x the ranks times n so that every row's bound is set by
+   its own values and not by the bound's floor.  The time per iteration
+   is printed over the call.  Then a run at the default tolerance reports
+   its iterations.
 
 Where one PyTorch call computes what a kernel computes, it is timed beside
 it and printed on a ``library:`` line (cuSPARSE through a sparse CSR tensor
-for K1 and K2 together, ``take_along_dim`` for K2, ``index_select`` for
-K3); the port never calls them.  Each kernel's bound is the least time the
+for K1 and K2 together, ``index_add_`` of the partial tiles for the section
+epilogue, ``take_along_dim`` for K2, ``index_select`` for K3); the port
+never calls them.  Each kernel's bound is the least time the
 card could take for its work: its bytes (each input read once, each output
-written once) over the STREAM rate measured in this run, or its fp32
-operations over the 67 TFLOP/s fp32 peak, whichever is larger.
+written once; for the epilogues the bytes this run's split tiles need, as
+``epilogue_work`` and ``k2_work`` count them) over the STREAM rate
+measured in this run, or its fp32 operations over the 67 TFLOP/s fp32
+peak, whichever is larger.  Every time is taken with
+``tpu_spmv_torch.timing`` (CUDA events).
 
 Everything before the last line is diagnostics.  The line before the
 ``nvidia-smi`` line is one JSON object with a record per kernel (K1's f32
-variant, K1's ordered reduce, K2, K3, the probes P4, P2, P3, P5, K1's bf16
-and pattern variants, P1); the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero,
-and prints no result, where no CUDA device is available.  Imports nothing
-of JAX.
+variant, K1's section epilogue, K2, K3, the probes P4, P2, P3, P5, K1's
+bf16 and pattern variants, P1); the last line is ``{"ok": true, "device":
+{...}}``.  Exits non-zero, and prints no result, where no CUDA device is
+available.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -218,19 +229,60 @@ def fold_geometry(plan) -> list:
     return out
 
 
-def split_sections(plan) -> int:
-    """Sections of ``plan`` whose schedule splits a superblock: one reduce
-    launch each per call."""
-    return sum(s.n_split > 0 for s in plan.sections)
+def epilogue_launches(plan) -> tuple:
+    """Per SpMV call of a window-ELL plan, ``(section epilogues, K2)``: one
+    section epilogue after each section but the last, and one K2 wherever
+    the plan is leveled or its last section split a superblock."""
+    return (len(plan.sections) - 1,
+            int(plan.lam is not None or plan.sections[-1].n_split > 0))
 
 
-def time_ms(fn, iters: int = ITERS) -> float:
-    """ms per ``fn()`` call on the card (CUDA events, median of
-    ``SAMPLES`` runs of ``iters`` calls)."""
-    from tpu_spmv_torch.timing import time_cuda
+def epilogue_work(plan, sec) -> tuple:
+    """``(bytes, operations)`` the section epilogue of ``sec`` must do:
+    the section's partial tiles read and summed, its split superblocks'
+    output tiles written; the extras region written to the table's tail,
+    and read from the output only on the tiles that no split superblock
+    of the section owns (a split tile is written from its partial tiles);
+    the tile map's entries of the extras region and the split ranges
+    read."""
+    import numpy as np
 
-    return time_cuda(fn, iters=iters, samples=SAMPLES,
-                     warmup=min(10, iters)) * 1e3
+    e0 = plan.extras_base // 128
+    n_extras = plan.out8 - e0
+    n_tb = plan.sup // 128
+    unsplit = int(np.count_nonzero(sec.split_of_tile[e0:].cpu().numpy() < 0))
+    tiles = (sec.n_slots + sec.n_split) * n_tb + n_extras + unsplit
+    return (tiles * 128 * 4.0 + (n_extras + 2 * sec.n_split + 1) * 4.0,
+            float(sec.n_slots * plan.sup))
+
+
+def k2_work(plan, sec) -> tuple:
+    """``(bytes, operations)`` K2 must do with the last section ``sec``
+    (None: no split tiles): per output row, its value written, its ``lam``
+    entry read on a leveled plan, and its source read, one value of ``y``
+    where no split superblock owns the row's tile (none past ``y``'s end),
+    else one value of each of that superblock's partial tiles, summed (a
+    split tile's rows never read ``y``); with split tiles, the tile map's
+    entries of the rows' tiles and the split ranges."""
+    import numpy as np
+
+    n = plan.num_rows
+    tiles = -(-n // 128)
+    rows = np.full(tiles, 128, np.int64)
+    rows[-1] = n - 128 * (tiles - 1)
+    reads = np.where(np.arange(tiles) < plan.out8, rows, 0)
+    summed, index = 0, 0
+    if sec is not None and sec.n_split:
+        owner = np.full(tiles, -1, np.int64)
+        m = min(tiles, plan.out8)
+        owner[:m] = sec.split_of_tile[:m].cpu().numpy()
+        chunks = np.diff(sec.split_ptr.cpu().numpy())
+        split = owner >= 0
+        reads[split] = rows[split] * chunks[owner[split]]
+        summed = int(reads[split].sum())
+        index = tiles + 2 * sec.n_split + 1
+    lam = n if plan.lam is not None else 0
+    return 4.0 * (n + lam + int(reads.sum()) + index), float(summed)
 
 
 def cusparse(A, dev):
@@ -252,22 +304,27 @@ def hold_kernels(plan, xd, A, x, what: str, timed: bool,
                  stream: float | None = None) -> dict:
     """Each kernel of ``plan`` against its plain version on the inputs the
     path gives it: for a reordered plan the x permute (K3), then the inner
-    plan's fold (K1, under the row bound), unpermute (K2) and the row
-    permute (K3); K2 and K3 exactly.  A pattern plan's fold gathers from the
-    scaled x, as ``spmv_pattern`` feeds it.  With ``timed``, each is timed
-    beside its plain version and its library call (cuSPARSE on ``A`` for
-    the fold, which must match the oracle; ``index_add_`` for the reduce;
+    plan's fold (K1, under the row bound), its section epilogue, unpermute
+    (K2, with the last section's partial tiles where it splits) and the
+    row permute (K3); the epilogues and K3 exactly.  A pattern plan's fold
+    gathers from the scaled x, as ``spmv_pattern`` feeds it.  With
+    ``timed``, each is timed beside its plain version and its library call
+    (cuSPARSE on ``A`` for the fold, which must match the oracle;
+    ``index_add_`` of the partial tiles for the section epilogue;
     ``take_along_dim`` for K2, ``index_select`` for K3), and its bound over
-    ``stream`` (GB/s) printed beside.  Returns ``{kernel record name: [{"err",
-    "ms", "plain_ms", "library_ms", "nbytes", "ops"}, ...]}`` in path order;
-    the times are ``None`` untimed."""
+    ``stream`` (GB/s) printed beside.  K1 is held whole
+    (``window_ell_fold``) and timed as the SpMV runs it
+    (``fold_sections``: the folds and the section epilogues after each
+    section but the last).  Returns ``{kernel record name: [{"err", "ms",
+    "plain_ms", "library_ms", "nbytes", "ops"}, ...]}`` in path order; the
+    times are ``None`` untimed."""
     import torch
 
     from tpu_spmv_torch.kernels import FOLD_VARIANTS
     from tpu_spmv_torch.kernels import reorder as tr
     from tpu_spmv_torch.kernels import window_ell as twe
     from tpu_spmv_torch.spmv import PatternPlan
-    from tpu_spmv_torch.timing import time_cuda
+    from tpu_spmv_torch.timing import time_cuda, time_turns
     from tpu_spmv_torch.utils.testing import spmv_matches
 
     rp = plan if isinstance(plan, tr.ReorderedPlan) else None
@@ -276,8 +333,11 @@ def hold_kernels(plan, xd, A, x, what: str, timed: bool,
     held, parts = {}, []
 
     def hold(name, kernel, plain, *args, nbytes, ops=0.0, library=None,
-             exact=True, plain_iters=ITERS):
-        got, ref = kernel(*args), plain(*args)
+             exact=True, plain_iters=ITERS, kw=None, timed_as=None):
+        # timed_as: the (kernel, plain version) calls to time, where they
+        # are not the calls held
+        kw = kw or {}
+        got, ref = kernel(*args, **kw), plain(*args, **kw)
         torch.cuda.synchronize()
         check(not exact or torch.equal(got, ref),
               f"{name} differs from its plain version ({what})")
@@ -285,12 +345,16 @@ def hold_kernels(plan, xd, A, x, what: str, timed: bool,
                "ms": None, "plain_ms": None, "library_ms": None,
                "nbytes": nbytes, "ops": ops}
         if timed:
-            rec["ms"] = time_ms(lambda: kernel(*args))
-            rec["plain_ms"] = time_cuda(lambda: plain(*args),
-                                        iters=plain_iters, samples=SAMPLES,
-                                        warmup=2) * 1e3
-            if library is not None:
-                rec["library_ms"] = time_ms(library)
+            run, run_plain = timed_as or (lambda: kernel(*args, **kw),
+                                          lambda: plain(*args, **kw))
+            # the kernel's wrapper and its library call in turns
+            times = time_turns([run] + ([library] if library else []),
+                               iters=ITERS, samples=SAMPLES)
+            rec["ms"] = times[0] * 1e3
+            if library:
+                rec["library_ms"] = times[1] * 1e3
+            rec["plain_ms"] = time_cuda(run_plain, iters=plain_iters,
+                                        samples=SAMPLES, warmup=2) * 1e3
         held.setdefault(name, []).append(rec)
         parts.append(f"{name} max|Δ| {rec['err']:.3g}" + (
             f" {rec['ms'] * 1e3:.2f} us (plain {rec['plain_ms'] * 1e3:.2f} "
@@ -317,54 +381,84 @@ def hold_kernels(plan, xd, A, x, what: str, timed: bool,
     if pp:
         xin = pp.scale * xd
     table = twe.gather_table(inner, xin)
-    k2_bytes = 0 if inner.lam is None else inner.lam.numel() * 12
+    # the plan's byte model less its K2 part (stream_bytes)
+    k2_model = 0 if inner.lam is None else inner.lam.numel() * 12
     live_slots = sum(s.run_order.numel() for s in inner.sections) \
         * inner.tb * 8 * 128
     M = cusparse(A, xd.device) if timed else None
     fold = FOLD_VARIANTS[inner.values]
+    # the timed calls publish into tables of their own
+    fold_tables = table.clone(), table.clone()
     out, ref = hold(fold, twe.window_ell_fold, twe.window_ell_fold_plain,
-                    inner, table, nbytes=inner.stream_bytes - k2_bytes,
+                    inner, table, nbytes=inner.stream_bytes - k2_model,
                     ops=2.0 * live_slots,
                     library=None if M is None else lambda: M @ xd,
-                    exact=False, plain_iters=PLAIN_ITERS)
+                    exact=False, plain_iters=PLAIN_ITERS,
+                    timed_as=(lambda: twe.fold_sections(inner,
+                                                        fold_tables[0]),
+                              lambda: twe.fold_sections(inner, fold_tables[1],
+                                                        plain=True)))
     exc = max_row_excess(rows_of(out, plan), rows_of(ref, plan), A, x)
     check(exc <= 0, f"K1 vs its plain version, row bound ({what})")
     again = twe.window_ell_fold(inner, table)
     check(torch.equal(out, again),
           f"K1 is not bit-identical across two calls ({what})")
     parts.append("K1 bit-identical across two calls")
-    # K1's ordered reduce on the section with the most partial tiles, on
-    # random tiles (the fold's own stay inside its call): the same sums in
-    # the same order, so exactly
-    sec = max(inner.sections, key=lambda s: s.n_slots)
-    if sec.n_split:
-        dev = xd.device
-        g = torch.Generator(device=dev).manual_seed(5)
-        partial = torch.randn(sec.n_slots, inner.sup, generator=g,
-                              device=dev)
-        buf_k = torch.zeros(inner.out8 * 128, device=dev)
-        buf_p = buf_k.clone()
-        ptr = sec.split_ptr.long()
-        seg = torch.repeat_interleave(torch.arange(sec.n_split, device=dev),
-                                      ptr[1:] - ptr[:-1])
-        sums = torch.zeros(sec.n_split, inner.sup, device=dev)
-        hold("chunk_reduce",
-             lambda p, s: twe.chunk_reduce(p, s, buf_k),
-             lambda p, s: twe.chunk_reduce_plain(p, s, buf_p), partial, sec,
-             nbytes=(sec.n_slots + sec.n_split) * inner.sup * 4,
-             ops=float(sec.n_slots * inner.sup),
-             library=lambda: sums.index_add_(0, seg, partial),
+    # the epilogues on random partial tiles (the fold's own stay inside its
+    # call): the same sums in the same order, so exactly
+    dev = xd.device
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def tiles(sec):
+        return torch.randn(max(sec.n_slots, 1), inner.sup, generator=g,
+                           device=dev)
+
+    if len(inner.sections) > 1:
+        # the section epilogue of the non-last section with the most
+        # partial tiles, on a random output, publishing into a copy of the
+        # gather table (the kernel called as the path calls it; the plain
+        # version into copies of its own); the same tail on both sides too
+        sec = max(inner.sections[:-1], key=lambda s: s.n_slots)
+        partial = tiles(sec)
+        fill = torch.randn(inner.out8 * 128, generator=g, device=dev)
+        out_k, table_k = fill.clone(), table.clone()
+        out_p, table_p = fill.clone(), table.clone()
+        nbytes, ops = epilogue_work(inner, sec)
+        library = None
+        if sec.n_split:
+            ptr = sec.split_ptr.long()
+            seg = torch.repeat_interleave(
+                torch.arange(sec.n_split, device=dev), ptr[1:] - ptr[:-1])
+            sums = torch.zeros(sec.n_split, inner.sup, device=dev)
+            library = lambda: sums.index_add_(0, seg, partial)  # noqa: E731
+        hold("section_epilogue", twe.section_epilogue,
+             lambda p, s, *_: twe.section_epilogue_plain(
+                 p, s, out_p, table_p, inner.extras_base),
+             partial, sec, out_k, table_k, inner.extras_base,
+             nbytes=nbytes, ops=ops, library=library,
              plain_iters=PLAIN_ITERS)
+        check(torch.equal(table_k, table_p),
+              f"the section epilogue's table differs from its plain "
+              f"version's ({what})")
     if M is not None:
         check(spmv_matches((M @ xd).cpu().numpy(), A, x, rel_tol=REL_TOL),
               f"the library call (cuSPARSE) vs the oracle ({what})")
     y = out[:inner.num_rows]
-    if inner.lam is not None:
-        yp = twe._pad_tiles(out, inner.lam.shape[0])
-        lam64 = inner.lam.long()
+    last = inner.sections[-1]
+    if inner.lam is not None or last.n_split:
+        # K2, with the last section's partial tiles where it splits
+        kw = {}
+        if last.n_split:
+            kw = {"partial": tiles(last), "sec": last}
+        nbytes, ops = k2_work(inner, kw.get("sec"))
+        library = None
+        if inner.lam is not None:
+            yp = twe._pad_tiles(out, inner.lam.shape[0])
+            lam64 = inner.lam.long()
+            library = lambda: torch.take_along_dim(yp, lam64, 1)  # noqa: E731
         y, _ = hold("unpermute", twe.unpermute, twe.unpermute_plain, out,
-                    inner.lam, inner.num_rows, nbytes=k2_bytes,
-                    library=lambda: torch.take_along_dim(yp, lam64, 1))
+                    inner.lam, inner.num_rows, nbytes=nbytes, ops=ops,
+                    library=library, kw=kw)
     if rp:
         hold("permute_chunks", tr.permute_chunks, tr.permute_chunks_plain, y,
              rp.row_src, rp.num_rows, nbytes=tr.permute_bytes(rp.num_rows),
@@ -382,7 +476,8 @@ KERNEL_SOURCES = {
                              "tpu_spmv/kernels/window_ell.py:1313"),
     "window_ell_fold_pattern": ("window_ell.cu",
                                 "tpu_spmv/kernels/window_ell.py:1313"),
-    "chunk_reduce": ("window_ell.cu", "tpu_spmv/kernels/window_ell.py:1313"),
+    "section_epilogue": ("window_ell.cu",
+                         "tpu_spmv/kernels/window_ell.py:1313"),
     "unpermute": ("unpermute.cu", "tpu_spmv/kernels/window_ell.py:1463"),
     "permute_chunks": ("permute.cu", "tpu_spmv/kernels/reorder.py:225"),
 }
@@ -490,7 +585,7 @@ def phase_kernels(dev) -> None:
     counts = tk.launch_counts()
     log(f"  K2 random lam: exact; launches in this phase {counts}")
     check(all(counts[k] > 0 for k in tk.FOLD_VARIANTS.values())
-          and counts["chunk_reduce"] > 0 and counts["unpermute"] > 0,
+          and counts["section_epilogue"] > 0 and counts["unpermute"] > 0,
           "a kernel's launch count did not move")
 
 
@@ -659,15 +754,19 @@ def phase_main(dev, stream: float) -> tuple:
     calls = 1 + MEASURE_WARMUP + ITERS * SAMPLES
     log(f"main path launches: {counts} over {calls} calls, "
         f"{len(plan.sections)} sections")
+    n_epi, n_k2 = epilogue_launches(plan)
     check(counts["window_ell_fold"] == calls * len(plan.sections),
           "K1 did not launch once per section per call")
-    check(counts["chunk_reduce"] == calls * split_sections(plan),
-          "K1's reduce did not launch once per split section per call")
-    check(counts["unpermute"] == (calls if plan.lam is not None else 0),
+    check(counts["section_epilogue"] == calls * n_epi,
+          "the section epilogue did not launch once per section but the "
+          "last per call")
+    check(counts["unpermute"] == calls * n_k2,
           "K2 did not launch once per call")
-    check(counts["window_ell_fold"] > 0 and counts["chunk_reduce"] > 0
+    check(counts["window_ell_fold"] > 0 and counts["section_epilogue"] > 0
           and counts["unpermute"] > 0,
           "a kernel of the main path was not launched")
+    log(f"port kernel launches per call: {len(plan.sections)} folds, "
+        f"{n_epi} section epilogues, {n_k2} K2")
     y = res.y.cpu().numpy()
     check(y.shape == (A.num_rows,) and bool(np.all(np.isfinite(y))),
           "output shape / finiteness")
@@ -717,7 +816,8 @@ def phase_main(dev, stream: float) -> tuple:
         f"{vres.plan.n_groups}, extras {vres.plan.n_extra}, build "
         f"{vres.plan_seconds:.2f} s")
     return [kernel_record(k, held, counts[k], stream)
-            for k in ("window_ell_fold", "chunk_reduce", "unpermute")], A, x
+            for k in ("window_ell_fold", "section_epilogue", "unpermute")
+            ], A, x
 
 
 def phase_reorder(dev, stream: float) -> dict:
@@ -768,9 +868,12 @@ def phase_reorder(dev, stream: float) -> dict:
           "K3 did not launch twice per call")
     check(counts["window_ell_fold"] == calls * len(inner.sections),
           "K1 did not launch once per inner section per call")
-    check(counts["chunk_reduce"] == calls * split_sections(inner),
-          "K1's reduce did not launch once per split section per call")
-    check(inner.lam is not None and counts["unpermute"] == calls,
+    n_epi, n_k2 = epilogue_launches(inner)
+    check(counts["section_epilogue"] == calls * n_epi,
+          "the section epilogue did not launch once per inner section but "
+          "the last per call")
+    check(inner.lam is not None and n_k2 == 1
+          and counts["unpermute"] == calls,
           "K2 did not launch once per call")
     y = res.y.cpu().numpy()
     check(y.shape == (A.num_rows,) and bool(np.all(np.isfinite(y))),
@@ -899,9 +1002,10 @@ def phase_levers(dev, stream: float, A, x) -> dict:
         check(counts[fold] == calls * len(plan.sections)
               and sum(counts[k] for k in tk.FOLD_VARIANTS.values())
               == counts[fold]
-              and counts["chunk_reduce"] == calls * split_sections(plan),
+              and counts["section_epilogue"]
+              == calls * epilogue_launches(plan)[0],
               f"headline {what}: K1 launches {counts}")
-        check(counts["unpermute"] == (calls if plan.lam is not None else 0),
+        check(counts["unpermute"] == calls * epilogue_launches(plan)[1],
               f"headline {what}: K2 did not launch once per call")
         y = res.y.cpu().numpy()
         check(y.shape == (M.num_rows,) and bool(np.all(np.isfinite(y)))
@@ -991,7 +1095,8 @@ def phase_pagerank(dev, stream: float) -> dict:
     plan = pp.plan
     check(counts["window_ell_fold_pattern"] == PR_ITERS * len(plan.sections)
           and counts["window_ell_fold"] == counts["window_ell_fold_bf16"]
-          == 0 and counts["chunk_reduce"] == PR_ITERS * split_sections(plan),
+          == 0 and counts["section_epilogue"]
+          == PR_ITERS * epilogue_launches(plan)[0],
           f"PageRank: K1 launches {counts}")
     check(plan.lam is not None and counts["unpermute"] == PR_ITERS,
           "PageRank: K2 did not launch once per iteration")

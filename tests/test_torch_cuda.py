@@ -9,10 +9,12 @@ so it runs on a machine that has only the port installed:
 The fold's outputs are held to the backward-error row bound
 ``|y - y_plain|_i <= 1e-5 * max((|A||x|)_i, 1)``: the kernel and the plain
 version (``index_add_``) sum each row in different orders.  The fold is
-bit-identical from call to call, and its ordered reduce matches its plain
-version exactly (the same additions in the same order).  The unpermute
-and the chunk permute move values without arithmetic and must match
-exactly.  The benchmark probes' kernels are held to ``rtol=1e-5`` with
+bit-identical from call to call, and so is the SpMV.  Its two epilogues,
+the section epilogue (the ordered reduce and the publish of the extras
+totals) and K2 (the unpermute, which sums the last section's split tiles),
+match their plain versions exactly (the same additions in the same order);
+the chunk permute moves values without arithmetic and must match exactly.
+The benchmark probes' kernels are held to ``rtol=1e-5`` with
 ``atol = 1e-5 * max|ref|``: fp32 sums in another order, and in P1, P2 and
 P3 atomic adds in no fixed order.  PageRank on the card is held to a float64
 power iteration at ``rtol=1e-4, atol=1e-7``.
@@ -154,7 +156,7 @@ def test_fold_at_forced_caps_matches_plain(web_matrix, cuda_device, cap, sup,
     """The chunked fold at R = 1, the module's R and no cut, on a plan with
     a superblock of more than 2R runs: against the plain version through
     the same schedule under the row bound, bit-identical across two calls,
-    and one reduce launch per section that split a superblock."""
+    and one section epilogue after each section, the last included."""
     A, x = web_matrix
     plan = web_plan(A, sup, values, cuda_device)
     widest = max(s.max_runs for s in twe._fold_schedule(plan, 1 << 30))
@@ -169,8 +171,7 @@ def test_fold_at_forced_caps_matches_plain(web_matrix, cuda_device, cap, sup,
     torch.cuda.synchronize()
     counts = tk.launch_counts()
     assert counts[tk.FOLD_VARIANTS[values]] == 2 * len(plan.sections)
-    assert counts["chunk_reduce"] \
-        == 2 * sum(s.n_split > 0 for s in plan.sections)
+    assert counts["section_epilogue"] == 2 * len(plan.sections)
     assert torch.equal(out, again)
     y = rows_of(out, plan)
     y_ref = rows_of(twe.window_ell_fold_plain(plan, table), plan)
@@ -181,28 +182,152 @@ def test_fold_at_forced_caps_matches_plain(web_matrix, cuda_device, cap, sup,
                         else ROW_TOL)
 
 
+def small_plan(A, dev, cap, leveled=True):
+    """A merge-path plan of the small power-law matrix at sup 1024, runs of
+    two groups, recut at ``cap`` runs per chunk: three sections; at R = 1
+    each splits, the last included; at the module's R the last does not."""
+    hp = tplan.build(A, split_rows=128, sup=1024, t_base=2,
+                     permute_rows=leveled)
+    plan = twe.plan_from_host(hp, dev)
+    return dataclasses.replace(plan, sections=twe._fold_schedule(plan, cap))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1, twe.CHUNK_RUNS], ids=["R1", "Rmodule"])
 @pytest.mark.parametrize("sup", [1024, 4096, 16384])
 def test_chunk_reduce_kernel_matches_plain_exactly(web_matrix, cuda_device,
-                                                   sup):
-    """The ordered reduce on random partial tiles of a real schedule (R =
-    1): the kernel and the plain version add the same rows in the same
-    order, so they agree bit for bit, and only split superblocks' tiles
-    are written."""
+                                                   sup, cap):
+    """The section epilogue on random partial tiles of a real schedule (R =
+    1, where every section splits, and the module's R), every section: the
+    kernel and the plain version add the same rows in the same order, so
+    they agree bit for bit, on the output and on the table's tail; only
+    split superblocks' tiles of the output and the table's tail are
+    written.  One launch each, split or not."""
     A, _ = web_matrix
     plan = web_plan(A, sup, "float32", cuda_device)
-    sec = max(twe._fold_schedule(plan, 1), key=lambda s: s.n_slots)
-    assert sec.n_split > 0
+    plan = dataclasses.replace(plan, sections=twe._fold_schedule(plan, cap))
     g = torch.Generator().manual_seed(9)
-    partial = torch.randn(sec.n_slots, sup, generator=g).to(cuda_device)
-    fill = torch.randn(plan.out8 * 128, generator=g).to(cuda_device)
-    before = twe.chunk_reduce.launches
-    got = twe.chunk_reduce(partial, sec, fill.clone())
+    n_table = plan.cols_pad + plan.e8 * 128
+    for sec in plan.sections:
+        partial = torch.randn(max(sec.n_slots, 1), sup,
+                              generator=g).to(cuda_device)
+        fill = torch.randn(plan.out8 * 128, generator=g).to(cuda_device)
+        table = torch.randn(n_table, generator=g).to(cuda_device)
+        got_t = table.clone()
+        before = twe.section_epilogue.launches
+        got = twe.section_epilogue(partial, sec, fill.clone(), got_t,
+                                   plan.extras_base)
+        torch.cuda.synchronize()
+        assert twe.section_epilogue.launches - before == 1
+        want_t = table.clone()
+        want = twe.section_epilogue_plain(partial, sec, fill.clone(), want_t,
+                                          plan.extras_base)
+        assert torch.equal(got, want)
+        assert int((got != fill).sum()) <= sec.n_split * sup
+        assert torch.equal(got_t, want_t)
+        assert torch.equal(got_t[:plan.cols_pad], table[:plan.cols_pad])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leveled", [False, True])
+@pytest.mark.parametrize("cap", [1, twe.CHUNK_RUNS], ids=["R1", "Rmodule"])
+def test_final_epilogue_matches_plain_exactly(matrix, cuda_device, cap,
+                                              leveled):
+    """K2 with the last section's tiles (split at R = 1, not at the
+    module's R; unleveled plans take the identity map) against its plain
+    version, bit for bit, on random partial tiles and output; its input is
+    left as it was."""
+    A, _ = matrix
+    plan = small_plan(A, cuda_device, cap, leveled)
+    last = plan.sections[-1]
+    assert (last.n_split > 0) == (cap == 1)
+    g = torch.Generator().manual_seed(11)
+    partial = torch.randn(max(last.n_slots, 1), plan.sup,
+                          generator=g).to(cuda_device)
+    y = torch.randn(plan.out8 * 128, generator=g).to(cuda_device)
+    keep = y.clone()
+    before = twe.unpermute.launches
+    got = twe.unpermute(y, plan.lam, plan.num_rows, partial=partial,
+                        sec=last)
     torch.cuda.synchronize()
-    assert twe.chunk_reduce.launches - before == 1
-    want = twe.chunk_reduce_plain(partial, sec, fill.clone())
-    assert torch.equal(got, want)
-    assert int((got != fill).sum()) <= sec.n_split * sup
+    assert twe.unpermute.launches - before == 1
+    want = twe.unpermute_plain(y, plan.lam, plan.num_rows, partial=partial,
+                               sec=last)
+    assert torch.equal(got, want) and torch.equal(y, keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leveled", [False, True])
+@pytest.mark.parametrize("cap", [1, twe.CHUNK_RUNS], ids=["R1", "Rmodule"])
+def test_spmv_launches_and_is_bit_identical(matrix, cuda_device, cap,
+                                            leveled):
+    """One SpMV: a fold per section, a section epilogue after each but the
+    last, and K2 once wherever the plan is leveled or its last section
+    split; no launch of an epilogue otherwise.  Two calls agree bit for
+    bit, and the output matches the oracle."""
+    A, x = matrix
+    plan = small_plan(A, cuda_device, cap, leveled)
+    xd = torch.from_numpy(x).to(cuda_device)
+    tk.reset_launch_counts()
+    y = twe.spmv_window_ell(plan, xd)
+    torch.cuda.synchronize()
+    n = len(plan.sections)
+    assert n == 3 and tk.launch_counts() == {
+        "window_ell_fold": n, "window_ell_fold_bf16": 0,
+        "window_ell_fold_pattern": 0, "section_epilogue": n - 1,
+        "unpermute": int(leveled or cap == 1), "permute_chunks": 0}
+    again = twe.spmv_window_ell(plan, xd)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    assert spmv_matches(y.cpu().numpy(), A, x, rel_tol=ROW_TOL)
+
+
+@pytest.mark.cuda
+def test_raw_stream_is_the_current_stream(cuda_device):
+    """The wrappers' raw stream (PyTorch's private accessor) is the one
+    ``torch.cuda.current_stream`` names, on the default stream and on a side
+    stream."""
+    index = torch.cuda.current_device()
+    assert twe._current_stream(index) \
+        == torch.cuda.current_stream(index).cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert twe._current_stream(index) == side.cuda_stream
+
+
+@pytest.mark.cuda
+def test_epilogue_wrappers_refuse_wrong_device_or_dtype(matrix,
+                                                        cuda_device):
+    """A tensor on the CPU beside CUDA ones, or of the wrong dtype, raises
+    ``ValueError`` before any launch."""
+    A, _ = matrix
+    plan = small_plan(A, cuda_device, 1)
+    sec = plan.sections[0]
+    partial = torch.zeros(max(s.n_slots for s in plan.sections), plan.sup,
+                          device=cuda_device)
+    out = torch.zeros(plan.out8 * 128, device=cuda_device)
+    table = torch.zeros(plan.cols_pad + plan.e8 * 128, device=cuda_device)
+    before = tk.launch_counts()
+    eb = plan.extras_base
+    bad = [lambda: twe.section_epilogue(partial.cpu(), sec, out, table, eb),
+           lambda: twe.section_epilogue(partial.double(), sec, out, table,
+                                        eb),
+           lambda: twe.section_epilogue(partial, sec, out.double(), table,
+                                        eb),
+           lambda: twe.section_epilogue(partial, sec, out, table.cpu(),
+                                        plan.extras_base),
+           lambda: twe.section_epilogue(partial, sec, out, table.double(),
+                                        plan.extras_base),
+           lambda: twe.unpermute(out.double(), plan.lam, plan.num_rows),
+           lambda: twe.unpermute(out, plan.lam.cpu(), plan.num_rows),
+           lambda: twe.unpermute(out, plan.lam.long(), plan.num_rows),
+           lambda: twe.unpermute(out, plan.lam, plan.num_rows,
+                                 partial=partial.cpu(),
+                                 sec=plan.sections[-1])]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert tk.launch_counts() == before
 
 
 @pytest.mark.cuda
@@ -244,6 +369,7 @@ def test_spmv_csr_on_card_matches_oracle(matrix, cuda_device, kernel_type):
     assert res.error_code == 0 and res.y.device.type == "cuda"
     counts = tk.launch_counts()
     assert counts["window_ell_fold"] == len(res.plan.sections)
+    assert counts["section_epilogue"] == len(res.plan.sections) - 1
     assert counts["unpermute"] == 1
     assert spmv_matches(res.y.cpu().numpy(), A, x, rel_tol=ROW_TOL)
 
@@ -299,8 +425,9 @@ def test_reordered_spmv_csr_on_card_matches_oracle(cuda_device):
     assert counts == {
         "window_ell_fold": len(res.plan.inner.sections),
         "window_ell_fold_bf16": 0, "window_ell_fold_pattern": 0,
-        "chunk_reduce": sum(s.n_split > 0 for s in res.plan.inner.sections),
-        "unpermute": int(res.plan.inner.lam is not None),
+        "section_epilogue": len(res.plan.inner.sections) - 1,
+        "unpermute": int(res.plan.inner.lam is not None
+                         or res.plan.inner.sections[-1].n_split > 0),
         "permute_chunks": 2}
     assert spmv_matches(res.y.cpu().numpy(), A, x, rel_tol=ROW_TOL)
 
@@ -336,7 +463,9 @@ def test_pagerank_on_card_matches_float64(cuda_device, kernel_type):
     counts = tk.launch_counts()
     assert counts["window_ell_fold_pattern"] == 30 * len(plan.sections)
     assert counts["window_ell_fold"] == counts["window_ell_fold_bf16"] == 0
-    assert counts["unpermute"] == (30 if plan.lam is not None else 0)
+    assert counts["section_epilogue"] == 30 * (len(plan.sections) - 1)
+    assert counts["unpermute"] == (30 if plan.lam is not None
+                                   or plan.sections[-1].n_split else 0)
     n = A.num_rows
     rows = np.repeat(np.arange(n), np.diff(A.row_ptrs))
     dang = np.bincount(A.col_indices, minlength=n) == 0

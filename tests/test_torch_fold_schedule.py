@@ -159,26 +159,32 @@ def test_plans_carry_the_module_cap(host_plans):
 
 
 def test_chunk_reduce_sums_in_chunk_order():
-    """The CPU reduce writes each split superblock's tiles as the sum of
-    its workspace rows in chunk order, from zero, and touches nothing
-    else."""
+    """The CPU section epilogue writes each split superblock's tiles as the
+    sum of its workspace rows in chunk order, from zero, and touches
+    nothing else of the output; it publishes the extras region (tiles 24
+    on) into the table's tail, and nothing else of the table."""
     rng = np.random.default_rng(5)
     width = 8 * 128
+    split_base = np.array([16, 0], np.int32)
     sec = twe.FoldSection(
         run_order=torch.zeros(1, dtype=torch.int32),
         chunk_ptr=torch.zeros(1, dtype=torch.int32),
         chunk_slot=torch.zeros(0, dtype=torch.int32),
         split_ptr=torch.tensor([0, 3, 5], dtype=torch.int32),
-        split_base=torch.tensor([16, 0], dtype=torch.int32),
-        n_sup=2, n_slots=5, max_runs=1, max_split=3)
+        split_base=torch.from_numpy(split_base),
+        split_of_tile=torch.from_numpy(twe._split_of_tile(split_base, 8, 32)),
+        n_sup=2, n_chunks=0, n_split=2, n_slots=5, max_runs=1, max_split=3)
     partial = torch.from_numpy(rng.standard_normal((5, width))
                                .astype(np.float32))
     out = torch.full((32 * 128,), 7.0)
-    got = twe.chunk_reduce(partial, sec, out.clone())
     want = out.clone()
     want[16 * 128:24 * 128] = (partial[0] + partial[1]) + partial[2]
     want[0:width] = partial[3] + partial[4]
+    table = torch.zeros(2048 + 8 * 128)
+    got = twe.section_epilogue(partial, sec, out.clone(), table, 24 * 128)
     assert torch.equal(got, want)
+    assert torch.equal(table[2048:], want[24 * 128:])
+    assert not table[:2048].any()
 
 
 def assert_row_bound(y, y_ref, A, x):

@@ -171,6 +171,6 @@ def test_launch_counts_do_not_move_on_cpu(matrix):
     twe.spmv_window_ell(plan, torch.from_numpy(x))
     assert tk.launch_counts() == {
         "window_ell_fold": 0, "window_ell_fold_bf16": 0,
-        "window_ell_fold_pattern": 0, "chunk_reduce": 0, "unpermute": 0,
+        "window_ell_fold_pattern": 0, "section_epilogue": 0, "unpermute": 0,
         "permute_chunks": 0}
     assert sum(twe.window_ell_fold.launches.values()) == 0

@@ -44,9 +44,12 @@
 // reads only x and the totals earlier sections published.  A chunk that
 // is its superblock's only one writes the superblock's n_tb*128 outputs;
 // the chunks of a split superblock each write a partial tile to the
-// workspace, and chunk_reduce sums those tiles in chunk order into the
-// output.  Every output is written by exactly one thread, with a fixed
-// order of additions: the result is bit-identical from call to call.
+// workspace.  After every section but the last, section_epilogue (below)
+// sums those tiles in chunk order into the output and publishes the
+// extras totals into the table; the last section's tiles are summed by
+// K2 (csrc/unpermute.cu), the SpMV's final epilogue.  Every output is
+// written by exactly one thread, with a fixed order of additions: the
+// result is bit-identical from call to call.
 //
 // fold_chunk.  A CTA has NS slices of 128 threads (4 at n_tb 8, 2 at 32, 1
 // at 128); slice w folds the chunk's runs w, w+NS, ...  A thread owns one
@@ -69,15 +72,19 @@
 // puts the stage's 16 gathers in flight together (TB, the run length, is a
 // template parameter, so the loops unroll).
 //
-// What is left on the table: one launch per section (and one reduce where
-// a superblock splits) with the publish copy between, and the unpermute
-// (K2) as a separate pass instead of this kernel's epilogue.
+// What is left on the table: two launches per section (the fold, then its
+// epilogue, which programmatic dependent launch overlaps with the fold's
+// last CTAs), and the final epilogue (K2) as a pass of its own that reads
+// the output back instead of the fold writing rows in place.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
+
+#include "epilogue.cuh"
 
 namespace {
 
@@ -357,21 +364,77 @@ fold_chunk(const float* __restrict__ table, const V* __restrict__ vals,
   }
 }
 
-// Split superblock j (blockIdx.y): its output tiles from split_base[j] on
-// are the sum, from zero and in chunk order, of the workspace rows
-// split_ptr[j] .. split_ptr[j+1]-1.
-__global__ void __launch_bounds__(256)
-chunk_reduce(const float* __restrict__ partial,
-             const int32_t* __restrict__ split_ptr,
-             const int32_t* __restrict__ split_base, int width,
-             float* __restrict__ out) {
-  const int j = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= width) return;
-  const int s1 = split_ptr[j + 1];
-  float v = 0.f;
-  for (int c = split_ptr[j]; c < s1; ++c) v += partial[int64_t(c) * width + i];
-  out[int64_t(split_base[j]) * kLane + i] = v;
+// The section epilogue: the Pallas kernel's in-VMEM `o_ref[...] += acc`
+// over a superblock's runs (window_ell.py:1407-1409) and its publish of the
+// extras totals into the table between sections, after the chunked fold
+// of one section.  Split superblock j's output tiles, from split_base[j]
+// on, are the sum, from zero and in chunk order, of the workspace rows
+// split_ptr[j] .. split_ptr[j+1]-1; split_of_tile[t] is the j that owns
+// tile t, or -1.  The extras region's tiles (from extras_tile on) are
+// copied to the table's tail, summed first where split.
+//
+// Bound: a few hundred KB (the partial tiles read, the split tiles
+// written, the extras region written to the table and read from `out`
+// where no split superblock owns it), 0.05-0.2 us at HBM's rate: launch
+// latency sets its time, which is why it
+// is launched after the fold with programmatic dependent launch.  One warp
+// per 128-float tile, a lane per four floats: each partial row is one
+// 512-byte float4 load of the warp.  Warps 0 .. n_extras-1 take the extras
+// tiles, the rest the split superblocks' tiles below the extras region, so
+// every value is written by one thread; its additions are the reduce's, in
+// the same order.
+constexpr int kEpilogueWarps = 8;
+
+__global__ void __launch_bounds__(kEpilogueWarps * 32)
+section_epilogue(const float* __restrict__ partial,
+                 const int32_t* __restrict__ split_ptr,
+                 const int32_t* __restrict__ split_base,
+                 const int32_t* __restrict__ split_of_tile, int n_split,
+                 int n_tb, int extras_tile, int n_extras,
+                 float* __restrict__ out, float* __restrict__ table_tail) {
+  const int w = blockIdx.x * kEpilogueWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  int t, j;
+  if (w < n_extras) {
+    t = extras_tile + w;
+    j = split_of_tile[t];
+  } else {
+    const int b = w - n_extras;
+    if (b >= n_split * n_tb) return;
+    j = b / n_tb;
+    t = split_base[j] + b % n_tb;
+    if (t >= extras_tile) return;   // an extras tile: a warp above has it
+  }
+  int c0 = 0, c1 = 0;
+  int64_t col = 0;
+  if (j >= 0) {
+    c0 = split_ptr[j];
+    c1 = split_ptr[j + 1];
+    col = int64_t(t - split_base[j]) * kLane;
+  }
+  const int64_t row4 = int64_t(n_tb) * kLane / 4;   // float4s a partial row
+  grid_dependency_wait();
+  float4* o = reinterpret_cast<float4*>(out + int64_t(t) * kLane) + lane;
+  float4 v;
+  if (j >= 0) {
+    v = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4* p = reinterpret_cast<const float4*>(
+                          partial + int64_t(c0) * n_tb * kLane + col) + lane;
+#pragma unroll 4
+    for (int c = c0; c < c1; ++c, p += row4) {
+      const float4 q = *p;
+      v.x += q.x;
+      v.y += q.y;
+      v.z += q.z;
+      v.w += q.w;
+    }
+    *o = v;
+  } else {
+    v = *o;
+  }
+  if (w < n_extras) {
+    reinterpret_cast<float4*>(table_tail)[int64_t(w) * 32 + lane] = v;
+  }
 }
 
 // The arguments every fold launch takes, the value stream typed by the
@@ -437,6 +500,19 @@ cudaError_t launch_fold(cudaStream_t stream, int tb, int n_tb, bool sbn,
   return cudaErrorInvalidValue;
 }
 
+// The argument block of tsp_section_epilogue (epilogue.cuh): the section's
+// SplitTiles, packed once per section, then this launch's fields.
+struct SectionEpilogueArgs {
+  SplitTiles split;
+  const float* partial;        // the workspace, n_tb*128 floats a row
+  int64_t n_tb;
+  int64_t extras_tile;         // the extras region's first tile
+  float* out;                  // split.n_tiles tiles of 128 floats
+  float* table_tail;           // 16-byte aligned
+  void* stream;                // cudaStream_t
+};
+static_assert(sizeof(SectionEpilogueArgs) == 11 * 8, "8-byte fields");
+
 }  // namespace
 
 // One launch over one plan section: n_chunks CTAs, chunk c folding the runs
@@ -488,19 +564,23 @@ extern "C" int tsp_window_ell_fold(
   return int(cudaGetLastError());
 }
 
-// The ordered reduce of one section: n_split superblocks, each n_tb*128
-// outputs wide.  Returns the CUDA error of the launch (0 = launched).
-extern "C" int tsp_window_ell_reduce(const void* partial,
-                                     const void* split_ptr,
-                                     const void* split_base, int n_split,
-                                     int n_tb, void* out, void* stream) {
-  if (n_split <= 0) return 0;
-  const int width = n_tb * kLane;
-  const dim3 grid((width + 255) / 256, n_split);
-  chunk_reduce<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(partial),
-      static_cast<const int32_t*>(split_ptr),
-      static_cast<const int32_t*>(split_base), width,
-      static_cast<float*>(out));
-  return int(cudaGetLastError());
+// The section epilogue of one section: split.n_split superblocks, each
+// n_tb*128 outputs wide, summed into `out`, and the tiles from extras_tile
+// on published into the table's tail.  Launched with programmatic
+// dependent launch.  Returns the CUDA error of the launch (0 = launched, or
+// nothing to do).
+extern "C" int tsp_section_epilogue(const void* block) {
+  SectionEpilogueArgs a;
+  memcpy(&a, block, sizeof a);
+  const SplitTiles& sp = a.split;
+  const int n_extras = int(sp.n_tiles - a.extras_tile);
+  const int warps = n_extras + int(sp.n_split * a.n_tb);
+  if (warps <= 0) return 0;
+  const cudaError_t err = launch_after(
+      section_epilogue, dim3((warps + kEpilogueWarps - 1) / kEpilogueWarps),
+      dim3(kEpilogueWarps * 32), static_cast<cudaStream_t>(a.stream),
+      a.partial, sp.split_ptr, sp.split_base, sp.split_of_tile,
+      int(sp.n_split), int(a.n_tb), int(a.extras_tile), n_extras, a.out,
+      a.table_tail);
+  return int(err != cudaSuccess ? err : cudaGetLastError());
 }

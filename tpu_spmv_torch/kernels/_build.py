@@ -145,9 +145,11 @@ def kernels() -> ctypes.CDLL:
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
         _P]
     lib.tsp_window_ell_fold.restype = _I
-    lib.tsp_window_ell_reduce.argtypes = [_P, _P, _P, _I, _I, _P, _P]
-    lib.tsp_window_ell_reduce.restype = _I
-    lib.tsp_unpermute.argtypes = [_P, _I64, _P, _P, _I64, _P]
+    # the epilogues take one argument block (bytes packed by the wrapper):
+    # one pointer converted per launch instead of eleven or twelve values
+    lib.tsp_section_epilogue.argtypes = [ctypes.c_char_p]
+    lib.tsp_section_epilogue.restype = _I
+    lib.tsp_unpermute.argtypes = [ctypes.c_char_p]
     lib.tsp_unpermute.restype = _I
     lib.tsp_permute_chunks.argtypes = [_P, _I64, _P, _P, _I64, _P]
     lib.tsp_permute_chunks.restype = _I

@@ -10,18 +10,22 @@ Port of the device half of ``tpu_spmv/kernels/window_ell.py``:
   JAX ``WindowEllPlan`` (``np.asarray`` of each leaf, a bf16 value stream
   included) or those of a port
   :class:`~tpu_spmv_torch.kernels.plan.HostPlan`;
-* :func:`window_ell_fold` (K1, ``csrc/window_ell.cu``: the chunked fold,
-  and :func:`chunk_reduce`, the ordered sum of a split superblock's
-  partial tiles) and :func:`unpermute` (K2, ``csrc/unpermute.cu``) are the
-  kernel wrappers.  Beside each is its plain PyTorch version.  A wrapper
-  takes the plain version only for a tensor on the CPU; for a CUDA tensor
-  it launches its kernel or raises.  Each wrapper counts its launches in an
-  attribute, ``launches``: an integer, and for K1's fold a dict per value
-  stream (f32, bf16, or none for a pattern plan), keyed as
-  :data:`FOLD_VARIANTS`;
+* :func:`fold_sections` (K1 as the SpMV runs it, ``csrc/window_ell.cu``:
+  the chunked fold, and :func:`section_epilogue`, which ends each section
+  but the last: the ordered sum of its split superblocks' partial tiles
+  and the publish of the extras totals into the gather table;
+  :func:`window_ell_fold` ends the last section too) and :func:`unpermute` (K2,
+  ``csrc/unpermute.cu``, which ends the SpMV and sums the last section's
+  split tiles) are the kernel wrappers.  Beside each is its plain PyTorch
+  version.  A wrapper takes the plain version only for a tensor on the
+  CPU; for a CUDA tensor it launches its kernel or raises.  Each wrapper
+  counts its launches in an attribute, ``launches``: an integer, and for
+  K1's fold a dict per value stream (f32, bf16, or none for a pattern
+  plan), keyed as :data:`FOLD_VARIANTS`;
 * :func:`spmv_window_ell` runs a plan: pad x and append the extras region,
-  fold, unpermute through ``lam``, trim to ``num_rows``;
-  :func:`spmv_pattern` runs a pattern plan of a column-scaled matrix.
+  fold section by section, unpermute through ``lam``, trim to
+  ``num_rows``; :func:`spmv_pattern` runs a pattern plan of a
+  column-scaled matrix.
 
 Pattern plans stream no values: every stored nonzero is 1.0, and pad slots
 carry a sentinel sub-block that no output row matches (:func:`sentinel`).
@@ -30,16 +34,46 @@ carry a sentinel sub-block that no output row matches (:func:`sentinel`).
 from __future__ import annotations
 
 import dataclasses
-import ctypes
+import functools
+import struct
 
 import numpy as np
 import torch
 
 from ..errors import DeviceException, InvalidFormatError, guarded_upload
+from ._build import kernels
 from .plan import AUX, CHUNKS, LANE, LEAVES, WINDOW, HostPlan
 
 _TB_LEGAL = (2, 4, 8)
 _NTB_LEGAL = (8, 32, 128)
+_F32 = torch.float32
+# a partial tile's width (one superblock, n_tb*128 floats) at each height
+_WIDTHS = tuple(n * LANE for n in _NTB_LEGAL)
+# The argument blocks of the epilogues' entry points (csrc/epilogue.cuh):
+# C structs of 8-byte fields, a pointer or an int64 each, passed as one
+# pointer through ctypes per launch.  Each block begins with the section's
+# SplitTiles, packed once (FoldSection.launch_block), and goes on with the
+# launch's own fields.  The field names are the C structs', in their
+# order; tests/test_torch_epilogue.py holds them to the sources.
+ARG_BLOCKS = {
+    "SplitTiles": ("split_ptr", "split_base", "split_of_tile", "n_split",
+                   "n_tiles"),
+    "SectionEpilogueArgs": ("split", "partial", "n_tb", "extras_tile", "out",
+                            "table_tail", "stream"),
+    "UnpermuteArgs": ("split", "partial", "n_tb", "y", "n_y", "lam", "out",
+                      "n", "stream"),
+}
+
+
+def _launch_fields(block: str) -> struct.Struct:
+    """The packing of a block's fields after its leading ``split``."""
+    return struct.Struct(f"{len(ARG_BLOCKS[block]) - 1}q")
+
+
+_SPLIT_TILES = struct.Struct(f"{len(ARG_BLOCKS['SplitTiles'])}q")
+_NO_SPLIT = bytes(_SPLIT_TILES.size)
+_EPILOGUE_ARGS = _launch_fields("SectionEpilogueArgs")
+_UNPERMUTE_ARGS = _launch_fields("UnpermuteArgs")
 # K1's value-stream codes (tsp_window_ell_fold's `values` argument)
 _VALUE_CODES = {"float32": 0, "bfloat16": 1, "pattern": 2}
 # K1's variants: the kernel name of each value stream's launches
@@ -70,26 +104,38 @@ class FoldSection:
     writes the superblock's ``n_tb*128`` outputs when ``chunk_slot[c]`` is
     -1, else its partial tile into workspace row ``chunk_slot[c]``.  Split
     superblock ``j`` (one cut into several chunks) owns the workspace rows
-    ``split_ptr[j]:split_ptr[j+1]``, in chunk order; the ordered reduce sums
-    them into the output tiles from ``split_base[j]`` on."""
+    ``split_ptr[j]:split_ptr[j+1]``, in chunk order; an epilogue (the
+    section epilogue, or K2 after the last section) sums them into the
+    output tiles from ``split_base[j]`` on.  ``split_of_tile[t]``, over the
+    plan's ``out8`` output tiles, is the split superblock of this section
+    that owns tile ``t``, or -1.  The counts are plain ints, so a launch
+    reads no tensor shape."""
 
     run_order: torch.Tensor   # i32 (n_runs,) run indices in chunk order
     chunk_ptr: torch.Tensor   # i32 (n_chunks + 1,)
     chunk_slot: torch.Tensor  # i32 (n_chunks,) workspace row, or -1
     split_ptr: torch.Tensor   # i32 (n_split + 1,) workspace row ranges
     split_base: torch.Tensor  # i32 (n_split,) output base (128-row tiles)
+    split_of_tile: torch.Tensor  # i32 (out8,) split superblock, or -1
     n_sup: int                # output superblocks of the section
+    n_chunks: int             # chunks (K1's CTAs)
+    n_split: int              # split superblocks
     n_slots: int              # workspace rows (partial tiles) written
     max_runs: int             # most runs in one chunk
     max_split: int            # most chunks of one split superblock
 
-    @property
-    def n_chunks(self) -> int:
-        return int(self.chunk_slot.shape[0])
-
-    @property
-    def n_split(self) -> int:
-        return int(self.split_base.shape[0])
+    @functools.cached_property
+    def launch_block(self) -> bytes:
+        """The section's split superblocks as the epilogues' argument
+        blocks begin (``SplitTiles``, ``csrc/epilogue.cuh``): the device
+        addresses of ``split_ptr``, ``split_base`` and ``split_of_tile``,
+        ``n_split`` and the tile count, packed on first use.  The
+        addresses stay valid while the section lives: it holds those
+        tensors and, frozen, never replaces them."""
+        return _SPLIT_TILES.pack(
+            self.split_ptr.data_ptr(), self.split_base.data_ptr(),
+            self.split_of_tile.data_ptr(), self.n_split,
+            self.split_of_tile.numel())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,9 +256,20 @@ def _chunk_section(runs: np.ndarray, rb: np.ndarray,
     return dict(run_order=i32(np.concatenate(run_order)),
                 chunk_ptr=i32(chunk_ptr), chunk_slot=i32(chunk_slot),
                 split_ptr=i32(split_ptr), split_base=i32(split_base),
-                n_sup=len(ubase), n_slots=split_ptr[-1],
+                n_sup=len(ubase), n_chunks=len(chunk_slot),
+                n_split=len(split_base), n_slots=split_ptr[-1],
                 max_runs=int(np.diff(chunk_ptr).max()),
                 max_split=int(np.diff(split_ptr).max(initial=0)))
+
+
+def _split_of_tile(split_base: np.ndarray, n_tb: int,
+                   out8: int) -> np.ndarray:
+    """Per output tile, the split superblock (index into ``split_base``,
+    ``n_tb`` tiles each) that owns it, or -1."""
+    owner = np.full(out8, -1, np.int32)
+    for j, b in enumerate(split_base):
+        owner[b:b + n_tb] = j
+    return owner
 
 
 def _fold_sections(aux: dict, live: np.ndarray, base: np.ndarray,
@@ -224,7 +281,8 @@ def _fold_sections(aux: dict, live: np.ndarray, base: np.ndarray,
     ``live`` marks dead (:func:`_live_runs`: the padding that rounds
     sections up to whole blocks, all of it on one superblock per section)
     are left out: they add nothing for finite x.  Returns one dict of
-    :class:`FoldSection` fields per non-empty section."""
+    :class:`FoldSection` fields per non-empty section, its tile map
+    (:func:`_split_of_tile`) included."""
     if chunk_runs < 1:
         raise ValueError(f"chunk_runs={chunk_runs}")
     S, tb = aux["step_groups"], aux["tb"]
@@ -248,7 +306,10 @@ def _fold_sections(aux: dict, live: np.ndarray, base: np.ndarray,
             raise InvalidFormatError(
                 "window-ELL plan: two sections write one output superblock")
         seen.update(ubase)
-        out.append(_chunk_section(runs, base[runs], chunk_runs))
+        sec = _chunk_section(runs, base[runs], chunk_runs)
+        sec["split_of_tile"] = _split_of_tile(
+            sec["split_base"], aux["sup"] // LANE, aux["out8"])
+        out.append(sec)
     return out
 
 
@@ -268,7 +329,8 @@ def _fold_schedule(plan: "WindowEllPlan", chunk_runs: int) -> tuple:
     the plan through it."""
     cpu = lambda t: t.cpu().numpy()  # noqa: E731
     aux = {"step_groups": plan.step_groups, "tb": plan.tb,
-           "pat": plan.pat, "sbn": plan.sbn}
+           "pat": plan.pat, "sbn": plan.sbn, "sup": plan.sup,
+           "out8": plan.out8}
     live = _live_runs(aux, None if plan.pat else plan.vals.cpu(),
                       cpu(plan.sb))
     return _upload_sections(
@@ -279,11 +341,19 @@ def _fold_schedule(plan: "WindowEllPlan", chunk_runs: int) -> tuple:
 
 def _validate(leaves: dict, aux: dict) -> None:
     """Host-side bounds checks: the kernels index with these arrays
-    without checking them."""
+    without checking them.  The fold schedule derived from them
+    (:class:`FoldSection`) is in range by construction once ``base`` is:
+    its superblocks are ``base`` entries, its tile maps ``out8`` long.
+    The epilogues publish the extras region, the output's tiles from
+    ``extras_base`` on, into the table's tail as float4s: both must start
+    on a tile."""
     n_tb = aux["sup"] // LANE
     S, tb = aux["step_groups"], aux["tb"]
     if tb not in _TB_LEGAL or S % tb:
         raise InvalidFormatError(f"window-ELL plan: tb={tb}, S={S}")
+    if aux["extras_base"] != (aux["out8"] - aux["e8"]) * LANE \
+            or aux["e8"] < 1 or aux["cols_pad"] % LANE:
+        raise InvalidFormatError("window-ELL plan: extras region")
     G = len(leaves["wg"])
     if G % S or len(leaves["base"]) != G // tb \
             or leaves["lo"].shape != (G * CHUNKS, LANE) \
@@ -371,7 +441,15 @@ def plan_from_host(hp: HostPlan, device="cuda") -> WindowEllPlan:
                             hp.values_dtype)
 
 
-# ---- K1: the window-ELL fold ----
+# ---- K1: the window-ELL fold, and its section epilogue ----
+
+def _current_stream(device_index: int) -> int:
+    """The current CUDA stream of a device as a raw ``cudaStream_t``:
+    ``torch.cuda.current_stream(device_index).cuda_stream`` without
+    building a ``torch.cuda.Stream`` (PyTorch's own accessor, private; a
+    test on the card holds the two equal)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
 
 def _check_fold(plan: WindowEllPlan, table: torch.Tensor) -> None:
     if plan.pat != (plan.vals is None):
@@ -388,13 +466,31 @@ def _check_fold(plan: WindowEllPlan, table: torch.Tensor) -> None:
         raise ValueError(f"table on {table.device}, plan on {plan.device}")
 
 
+def _check_kernel_plan(plan: WindowEllPlan, table: torch.Tensor) -> None:
+    """What K1's kernel and its epilogues take, checked once per call."""
+    _check_fold(plan, table)
+    if not table.is_cuda:
+        raise ValueError(f"no window-ELL kernel for {table.device}")
+    n_tb = plan.sup // LANE
+    if n_tb not in _NTB_LEGAL or plan.tb not in _TB_LEGAL \
+            or (plan.sbn and n_tb != 8):
+        raise NotImplementedError(
+            f"window-ELL kernel: n_tb={n_tb}, tb={plan.tb}, sbn={plan.sbn}")
+    arrays = [plan.vals, plan.lo, plan.sb, plan.wg, plan.base]
+    if not all(a is None or a.is_contiguous() for a in arrays):
+        raise ValueError("window-ELL plan arrays must be contiguous")
+    # the slot streams arrive by 16-byte bulk copies
+    if any(a is not None and a.data_ptr() % 16 for a in arrays[:3]):
+        raise ValueError("window-ELL slot streams must be 16-byte aligned")
+
+
 def chunk_reduce_plain(partial: torch.Tensor, sec: FoldSection,
                        out: torch.Tensor) -> torch.Tensor:
     """The ordered reduce's plain version: each split superblock's output
     tiles are the sum of its chunks' partial tiles (rows of ``partial``,
-    ``(n_slots, n_tb*128)``), added from zero in chunk order, the kernel's
-    order, so the two agree bit for bit.  Writes into ``out`` (flat, f32)
-    and returns it."""
+    ``(n_slots, n_tb*128)``), added from zero in chunk order, the kernels'
+    order, so they agree bit for bit.  Writes into ``out`` (flat, f32) and
+    returns it."""
     if sec.n_split == 0:
         return out
     width = partial.shape[1]
@@ -411,162 +507,225 @@ def chunk_reduce_plain(partial: torch.Tensor, sec: FoldSection,
     return out
 
 
+def section_epilogue_plain(partial: torch.Tensor, sec: FoldSection,
+                           out: torch.Tensor, table: torch.Tensor,
+                           extras_base: int) -> torch.Tensor:
+    """The section epilogue's plain version: the ordered reduce
+    (:func:`chunk_reduce_plain`), then the publish copy of the extras
+    region ``out[extras_base:]`` into the table's tail.  Writes into
+    ``out`` and ``table``; returns ``out``."""
+    chunk_reduce_plain(partial, sec, out)
+    n_extras = out.shape[0] - extras_base
+    table[table.shape[0] - n_extras:] = out[extras_base:]
+    return out
+
+
+def _check_partial(name: str, partial: torch.Tensor, sec: FoldSection,
+                   dev: int, n_out: int) -> int:
+    """What an epilogue's kernel reads of the fold's workspace: ``partial``
+    contiguous f32 on CUDA device ``dev``, a superblock's tiles a row and at
+    least the section's rows, and the section's tile map on ``dev`` over
+    ``n_out`` outputs.  Returns the superblock's height in tiles."""
+    rows, width = partial.shape
+    owner = sec.split_of_tile
+    if partial.dtype != _F32 or partial.get_device() != dev \
+            or owner.get_device() != dev or rows < sec.n_slots \
+            or width not in _WIDTHS or owner.numel() * LANE != n_out \
+            or not partial.is_contiguous():
+        raise ValueError(
+            f"{name}: partial {partial.dtype} {tuple(partial.shape)} on "
+            f"{partial.device}, section of {owner.numel()} tiles on "
+            f"{owner.device}, {n_out} outputs")
+    return width // LANE
+
+
+def section_epilogue(partial: torch.Tensor, sec: FoldSection,
+                     out: torch.Tensor, table: torch.Tensor,
+                     extras_base: int,
+                     stream: int | None = None) -> torch.Tensor:
+    """K1's section epilogue, after a section's fold: each split
+    superblock's output tiles are the sum of its chunks' partial tiles in
+    chunk order (``partial``, ``(>= n_slots, n_tb*128)`` f32), and the
+    extras region ``out[extras_base:]`` is published into the ``table``'s
+    tail, where the next section gathers it.  For CUDA tensors launches
+    ``csrc/window_ell.cu``'s ``section_epilogue`` once on ``stream`` (a raw
+    ``cudaStream_t``, the current stream when None) with programmatic
+    dependent launch; takes the plain version for CPU ones.  The section's
+    arrays were checked when the plan was made; this checks the tensors
+    passed, an attribute read each.  Writes into ``out`` (flat f32, one
+    value per entry of ``sec.split_of_tile`` times 128) and ``table``;
+    returns ``out``."""
+    if not out.is_cuda:
+        if out.is_cpu:
+            return section_epilogue_plain(partial, sec, out, table,
+                                          extras_base)
+        raise ValueError(f"no section epilogue kernel for {out.device}")
+    dev = out.get_device()
+    n_out = out.numel()
+    if out.dtype != _F32 or not out.is_contiguous():
+        raise ValueError(f"section_epilogue takes contiguous float32 out; "
+                         f"got {out.dtype} {tuple(out.shape)}")
+    n_tb = _check_partial("section_epilogue", partial, sec, dev, n_out)
+    n_extras = n_out - extras_base
+    n_table = table.numel()
+    tail = table.data_ptr() + 4 * (n_table - n_extras)
+    if table.dtype != _F32 or table.get_device() != dev \
+            or not table.is_contiguous() or extras_base % LANE \
+            or not 0 < n_extras <= n_table or tail % 16:
+        raise ValueError(
+            f"section_epilogue: table {table.dtype} {tuple(table.shape)} on "
+            f"{table.device}, extras from {extras_base} of {n_out}")
+    err = kernels().tsp_section_epilogue(
+        sec.launch_block + _EPILOGUE_ARGS.pack(
+            partial.data_ptr(), n_tb, extras_base // LANE,
+            out.data_ptr(), tail,
+            _current_stream(dev) if stream is None else stream))
+    if err:
+        raise DeviceException(f"section epilogue launch: cudaError {err}")
+    section_epilogue.launches += 1
+    return out
+
+
+section_epilogue.launches = 0
+
+
+def _fold_section_plain(plan: WindowEllPlan, sec: FoldSection,
+                        table: torch.Tensor,
+                        out: torch.Tensor) -> torch.Tensor:
+    """One section of K1's plain version, through the kernel's chunk
+    schedule: a vectorized gather-multiply over the section's runs, then an
+    ``index_add_`` of each chunk's products into ``out`` (a superblock of
+    one chunk) or into the chunk's row of a zeroed partial workspace, which
+    it returns (``(n_slots, sup)`` f32).  bf16 values are converted to f32
+    before the multiply.  On a pattern plan the product is the gathered
+    value, and the pad slots (sentinel sub-block) are dropped before the
+    ``index_add_``: their rows would fall in a neighbouring superblock."""
+    dev = table.device
+    n_out, width = out.shape[0], plan.sup
+    runs = sec.run_order.long()
+    g = (runs[:, None] * plan.tb
+         + torch.arange(plan.tb, device=dev)).reshape(-1)
+    sub = torch.arange(CHUNKS, device=dev).view(1, CHUNKS, 1) * LANE
+    lane = torch.arange(LANE, device=dev).view(1, 1, LANE)
+    lo = plan.lo.reshape(-1, CHUNKS, LANE)[g]
+    idx = plan.wg[g].long().view(-1, 1, 1) * WINDOW + sub + lo.long()
+    row_base = plan.base[runs].long().repeat_interleave(plan.tb)
+    sbg = _unpack_sb(plan.sb, plan.sbn)[g].long()
+    local = sbg * LANE + lane           # index inside the superblock
+    # each run's chunk, and where that chunk writes
+    chunk = torch.repeat_interleave(
+        torch.arange(sec.n_chunks, device=dev),
+        (sec.chunk_ptr[1:] - sec.chunk_ptr[:-1]).long(),
+        output_size=runs.shape[0])
+    slot = sec.chunk_slot.long()[chunk].repeat_interleave(plan.tb)
+    dest = torch.where(slot.view(-1, 1, 1) < 0,
+                       row_base.view(-1, 1, 1) * LANE + local,
+                       n_out + slot.view(-1, 1, 1) * width + local)
+    buf = torch.zeros(n_out + sec.n_slots * width, dtype=torch.float32,
+                      device=dev)
+    buf[:n_out] = out
+    if plan.pat:
+        keep = sbg != sentinel(plan.sbn)
+        buf.index_add_(0, dest[keep], table[idx][keep])
+    else:
+        vals = plan.vals.reshape(-1, CHUNKS, LANE)[g].float()
+        buf.index_add_(0, dest.reshape(-1), (vals * table[idx]).reshape(-1))
+    out.copy_(buf[:n_out])
+    return buf[n_out:].view(-1, width)
+
+
+def fold_sections(plan: WindowEllPlan, table: torch.Tensor,
+                  plain: bool = False, stream: int | None = None) -> tuple:
+    """K1 as the SpMV runs it, over every section of ``plan`` into a zeroed
+    output: each section's fold, then, before the next section, its
+    section epilogue, which publishes the extras totals into ``table`` (so
+    ``table`` is written).  ``plain`` takes the plain versions (on any
+    device), else the kernels on ``stream`` (a raw ``cudaStream_t``, the
+    current stream when None), the plan checked once.  Returns ``(out,
+    partial)``: the last section's split superblocks are still partial
+    tiles in ``partial`` (None for a plan without sections), for the
+    caller's epilogue."""
+    dev = table.device
+    out = torch.zeros(plan.out8 * LANE, dtype=torch.float32, device=dev)
+    partial = None
+    if not plain:
+        _check_kernel_plan(plan, table)
+        if stream is None:
+            stream = _current_stream(table.get_device())
+        lib = kernels()
+        n_slots = max((s.n_slots for s in plan.sections), default=0)
+        partial = torch.empty(max(n_slots, 1), plan.sup, dtype=torch.float32,
+                              device=dev)
+        ptrs = [None if a is None else a.data_ptr()
+                for a in (plan.vals, plan.lo, plan.sb, plan.wg, plan.base)]
+        values = plan.values
+    last = len(plan.sections) - 1
+    for k, sec in enumerate(plan.sections):
+        if plain:
+            partial = _fold_section_plain(plan, sec, table, out)
+        else:
+            err = lib.tsp_window_ell_fold(
+                table.data_ptr(), *ptrs, sec.run_order.data_ptr(),
+                sec.chunk_ptr.data_ptr(), sec.chunk_slot.data_ptr(),
+                sec.n_chunks, sec.max_runs, plan.tb, plan.sup // LANE,
+                int(plan.sbn), _VALUE_CODES[values], out.data_ptr(),
+                partial.data_ptr(), stream)
+            if err:
+                raise DeviceException(
+                    f"window-ELL fold launch: cudaError {err}")
+            window_ell_fold.launches[values] += 1
+        if k < last:
+            if plain:
+                section_epilogue_plain(partial, sec, out, table,
+                                       plan.extras_base)
+            else:
+                section_epilogue(partial, sec, out, table, plan.extras_base,
+                                 stream)
+    return out, partial
+
+
 def window_ell_fold_plain(plan: WindowEllPlan,
                           table: torch.Tensor) -> torch.Tensor:
-    """K1's plain version, through the same chunk schedule as the kernel:
-    per section a vectorized gather-multiply, an ``index_add_`` of each
-    chunk's products into the output (a superblock of one chunk) or into
-    the chunk's row of a zeroed partial workspace, then the ordered reduce
-    (:func:`chunk_reduce_plain`); the extras totals are published into the
-    table's tail before each later section.  bf16 values are converted to
-    f32 before the multiply.  On a pattern plan the product is the gathered
-    value, and the pad slots (sentinel sub-block) are dropped before the
-    ``index_add_``: their rows would fall in a neighbouring superblock.  A
-    run the schedule lost or counted twice, or a chunk that straddled two
+    """K1's plain version, through the same chunk schedule and in the same
+    order as the kernels: per section the plain fold
+    (:func:`_fold_section_plain`) and the section epilogue's plain version
+    (:func:`section_epilogue_plain`), into a copy of the table.  A run the
+    schedule lost or counted twice, or a chunk that straddled two
     superblocks, changes the result.  ``table`` (x zero-padded to
     ``cols_pad``, then ``e8*128`` slots) is not modified.  Returns the flat
     ``(out8*128,)`` output."""
     _check_fold(plan, table)
-    dev = table.device
     table = table.clone()
-    n_out = plan.out8 * LANE
-    width = plan.sup
-    out = torch.zeros(n_out, dtype=torch.float32, device=dev)
-    vals = None if plan.pat else plan.vals.float().reshape(-1, CHUNKS, LANE)
-    lo = plan.lo.reshape(-1, CHUNKS, LANE)
-    sbu = _unpack_sb(plan.sb, plan.sbn)
-    sub = torch.arange(CHUNKS, device=dev).view(1, CHUNKS, 1) * LANE
-    lane = torch.arange(LANE, device=dev).view(1, 1, LANE)
-    for k, sec in enumerate(plan.sections):
-        if k:
-            table[plan.cols_pad:] = out[plan.extras_base:]
-        runs = sec.run_order.long()
-        n_runs = runs.shape[0]
-        g = (runs[:, None] * plan.tb
-             + torch.arange(plan.tb, device=dev)).reshape(-1)
-        idx = plan.wg[g].long().view(-1, 1, 1) * WINDOW + sub + lo[g].long()
-        row_base = plan.base[runs].long().repeat_interleave(plan.tb)
-        sbg = sbu[g].long()
-        local = sbg * LANE + lane           # index inside the superblock
-        # each run's chunk, and where that chunk writes
-        chunk = torch.repeat_interleave(
-            torch.arange(sec.n_chunks, device=dev),
-            (sec.chunk_ptr[1:] - sec.chunk_ptr[:-1]).long(),
-            output_size=n_runs)
-        slot = sec.chunk_slot.long()[chunk].repeat_interleave(plan.tb)
-        dest = torch.where(slot.view(-1, 1, 1) < 0,
-                           row_base.view(-1, 1, 1) * LANE + local,
-                           n_out + slot.view(-1, 1, 1) * width + local)
-        buf = torch.zeros(n_out + sec.n_slots * width, dtype=torch.float32,
-                          device=dev)
-        buf[:n_out] = out
-        if plan.pat:
-            keep = sbg != sentinel(plan.sbn)
-            buf.index_add_(0, dest[keep], table[idx][keep])
-        else:
-            buf.index_add_(0, dest.reshape(-1),
-                           (vals[g] * table[idx]).reshape(-1))
-        out = chunk_reduce_plain(buf[n_out:].view(-1, width), sec,
-                                 buf[:n_out])
+    out, partial = fold_sections(plan, table, plain=True)
+    if plan.sections:
+        section_epilogue_plain(partial, plan.sections[-1], out, table,
+                               plan.extras_base)
     return out
-
-
-def chunk_reduce(partial: torch.Tensor, sec: FoldSection,
-                 out: torch.Tensor) -> torch.Tensor:
-    """K1's ordered reduce: each split superblock's output tiles are the
-    sum of its chunks' partial tiles in chunk order.  Launches
-    ``csrc/window_ell.cu``'s ``chunk_reduce`` for CUDA tensors (one launch;
-    none for a section without split superblocks), the plain version for
-    CPU ones.  ``partial`` is ``(>= n_slots, n_tb*128)`` f32; writes into
-    ``out`` (flat f32 output) and returns it."""
-    if partial.dtype != torch.float32 or out.dtype != torch.float32 \
-            or partial.ndim != 2 or partial.shape[0] < sec.n_slots \
-            or partial.shape[1] % LANE or partial.shape[1] // LANE \
-            not in _NTB_LEGAL:
-        raise ValueError(f"chunk_reduce: partial {partial.dtype} "
-                         f"{tuple(partial.shape)}, out {out.dtype}")
-    if not (partial.device == out.device == sec.split_ptr.device):
-        raise ValueError("chunk_reduce: tensors on different devices")
-    if out.device.type == "cpu":
-        return chunk_reduce_plain(partial, sec, out)
-    if out.device.type != "cuda":
-        raise ValueError(f"no reduce kernel for {out.device}")
-    if sec.n_split == 0:
-        return out
-    if not (partial.is_contiguous() and out.is_contiguous()):
-        raise ValueError("chunk_reduce: tensors must be contiguous")
-    from ._build import kernels
-
-    err = kernels().tsp_window_ell_reduce(
-        partial.data_ptr(), sec.split_ptr.data_ptr(),
-        sec.split_base.data_ptr(), sec.n_split, partial.shape[1] // LANE,
-        out.data_ptr(),
-        ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream))
-    if err:
-        raise DeviceException(f"chunk reduce launch: cudaError {err}")
-    chunk_reduce.launches += 1
-    return out
-
-
-chunk_reduce.launches = 0
 
 
 def window_ell_fold(plan: WindowEllPlan, table: torch.Tensor) -> torch.Tensor:
-    """K1: the packed fold over every plan section, with the publish copy
-    between sections.  For a CUDA ``table``, launches ``csrc/window_ell.cu``'s
-    chunked fold once per section on the current stream, in the variant of
-    the plan's value stream (f32, bf16 or none), then :func:`chunk_reduce`
-    where the section split a superblock; takes the plain version for a
-    CPU one.  ``table`` is not modified.  Returns ``(out8*128,)`` f32."""
-    if table.device.type == "cpu":
+    """K1 with its output whole: :func:`fold_sections` into a copy of
+    ``table``, then the last section's :func:`section_epilogue` too (whose
+    publish the copy takes), where the SpMV leaves that section's split
+    superblocks to K2.  For a CUDA ``table``, launches
+    ``csrc/window_ell.cu``'s chunked fold once per section on the current
+    stream, in the variant of the plan's value stream (f32, bf16 or none),
+    and a section epilogue after each; takes the plain version for a CPU
+    one.  ``table`` is not modified.  Returns ``(out8*128,)`` f32."""
+    if table.is_cpu:
         return window_ell_fold_plain(plan, table)
-    _check_fold(plan, table)
-    if table.device.type != "cuda":
-        raise ValueError(f"no window-ELL kernel for {table.device}")
-    n_tb = plan.sup // LANE
-    if n_tb not in _NTB_LEGAL or plan.tb not in _TB_LEGAL \
-            or (plan.sbn and n_tb != 8):
-        raise NotImplementedError(
-            f"window-ELL kernel: n_tb={n_tb}, tb={plan.tb}, sbn={plan.sbn}")
-    from ._build import kernels
-
-    lib = kernels()
-    if len(plan.sections) > 1:
-        table = table.clone()     # the publish copies write into it
-    out = torch.zeros(plan.out8 * LANE, dtype=torch.float32,
-                      device=table.device)
-    n_slots = max(s.n_slots for s in plan.sections)
-    partial = torch.empty(max(n_slots, 1), plan.sup, dtype=torch.float32,
-                          device=table.device)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(table.device)
-                             .cuda_stream)
-    arrays = [plan.vals, plan.lo, plan.sb, plan.wg, plan.base]
-    if not all(a is None or a.is_contiguous() for a in arrays):
-        raise ValueError("window-ELL plan arrays must be contiguous")
-    # the slot streams arrive by 16-byte bulk copies
-    if any(a is not None and a.data_ptr() % 16 for a in arrays[:3]):
-        raise ValueError("window-ELL slot streams must be 16-byte aligned")
-    ptrs = [None if a is None else a.data_ptr() for a in arrays]
-    values = plan.values
-    for k, sec in enumerate(plan.sections):
-        if k:
-            table[plan.cols_pad:] = out[plan.extras_base:]
-        err = lib.tsp_window_ell_fold(
-            table.data_ptr(), *ptrs, sec.run_order.data_ptr(),
-            sec.chunk_ptr.data_ptr(), sec.chunk_slot.data_ptr(),
-            sec.n_chunks, sec.max_runs, plan.tb, n_tb, int(plan.sbn),
-            _VALUE_CODES[values], out.data_ptr(), partial.data_ptr(), stream)
-        if err:
-            raise DeviceException(f"window-ELL fold launch: cudaError {err}")
-        window_ell_fold.launches[values] += 1
-        chunk_reduce(partial, sec, out)
+    table = table.clone()
+    out, partial = fold_sections(plan, table)
+    if plan.sections:
+        section_epilogue(partial, plan.sections[-1], out, table,
+                         plan.extras_base)
     return out
 
 
 window_ell_fold.launches = dict.fromkeys(FOLD_VARIANTS, 0)
 
 
-# ---- K2: the row unpermute ----
+# ---- K2: the row unpermute, the SpMV's final epilogue ----
 
 def _pad_tiles(y: torch.Tensor, n_tiles_pad: int) -> torch.Tensor:
     """The first ``n_tiles_pad`` 128-row tiles of the flat output ``y``,
@@ -579,40 +738,67 @@ def _pad_tiles(y: torch.Tensor, n_tiles_pad: int) -> torch.Tensor:
     return padded
 
 
-def unpermute_plain(y: torch.Tensor, lam: torch.Tensor,
-                    num_rows: int) -> torch.Tensor:
-    """K2's plain version: ``out[t, j] = y[t, lam[t, j]]`` over the padded
-    tiles, flattened and trimmed to ``num_rows``."""
+def unpermute_plain(y: torch.Tensor, lam: torch.Tensor | None,
+                    num_rows: int, *, partial: torch.Tensor | None = None,
+                    sec: FoldSection | None = None) -> torch.Tensor:
+    """K2's plain version: ``unpermute_plain(chunk_reduce_plain(partial,
+    sec, y), lam, num_rows)`` (the reduce on a copy of ``y``, and only
+    where ``sec`` split a superblock); the unpermute itself is ``out[t, j]
+    = y[t, lam[t, j]]`` over the padded tiles, flattened and trimmed to
+    ``num_rows``, or ``y[:num_rows]`` without ``lam``."""
+    if sec is not None and sec.n_split:
+        y = chunk_reduce_plain(partial, sec, y.clone())
+    if lam is None:
+        return y.reshape(-1)[:num_rows]
     yp = _pad_tiles(y, lam.shape[0])
     return torch.take_along_dim(yp, lam.long(), dim=1).reshape(-1)[:num_rows]
 
 
-def unpermute(y: torch.Tensor, lam: torch.Tensor,
-              num_rows: int) -> torch.Tensor:
-    """K2: restore row order from a leveled output (flat, a whole number of
-    128-row tiles).  Launches ``csrc/unpermute.cu`` for CUDA tensors, which
-    reads past-the-end tiles as zeros instead of padding them; the plain
-    version for CPU ones.  ``lam`` (int32, values in [0, 128), checked when
-    the plan is made) gives each row's source lane."""
-    if y.dtype != torch.float32 or lam.dtype != torch.int32 \
-            or lam.ndim != 2 or lam.shape[1] != LANE:
-        raise ValueError("unpermute takes float32 y and int32 (T, 128) lam")
-    if y.numel() % LANE or not 0 <= num_rows <= lam.numel():
-        raise ValueError(f"unpermute: {y.numel()} values, lam {lam.shape}, "
-                         f"num_rows {num_rows}")
-    if y.device != lam.device:
-        raise ValueError(f"y on {y.device}, lam on {lam.device}")
-    if y.device.type == "cpu":
-        return unpermute_plain(y, lam, num_rows)
-    if y.device.type != "cuda":
+def unpermute(y: torch.Tensor, lam: torch.Tensor | None, num_rows: int, *,
+              partial: torch.Tensor | None = None,
+              sec: FoldSection | None = None,
+              stream: int | None = None) -> torch.Tensor:
+    """K2, the SpMV's final epilogue: restore row order from a leveled
+    output (flat, a whole number of 128-row tiles; ``lam``, int32 ``(T,
+    128)`` with values in [0, 128) checked when the plan is made, gives
+    each row's source lane; None for the identity), trimmed to
+    ``num_rows``.  With the last section's ``sec`` and ``partial`` tiles,
+    the rows of its split superblocks are their chunk-order sums (the
+    section epilogue's) instead of ``y``'s.  Launches ``csrc/unpermute.cu``
+    for CUDA tensors on ``stream`` (a raw ``cudaStream_t``, the current
+    stream when None) with programmatic dependent launch, reading
+    past-the-end tiles as zeros instead of padding them; the plain version
+    for CPU ones.  ``y`` is not modified.  Checks the tensors passed, an
+    attribute read each."""
+    if not y.is_cuda:
+        if y.is_cpu:
+            return unpermute_plain(y, lam, num_rows, partial=partial,
+                                   sec=sec)
         raise ValueError(f"no unpermute kernel for {y.device}")
-    from ._build import kernels
-
-    y, lam = y.contiguous(), lam.contiguous()
-    res = torch.empty(num_rows, dtype=torch.float32, device=y.device)
-    err = kernels().tsp_unpermute(
-        y.data_ptr(), y.numel(), lam.data_ptr(), res.data_ptr(), num_rows,
-        ctypes.c_void_p(torch.cuda.current_stream(y.device).cuda_stream))
+    dev = y.get_device()
+    n_y = y.numel()
+    if y.dtype != _F32 or n_y % LANE or not y.is_contiguous():
+        raise ValueError(f"unpermute takes contiguous float32 y, a whole "
+                         f"number of tiles; got {y.dtype} {tuple(y.shape)}")
+    lam_ptr, n_src = 0, n_y
+    if lam is not None:
+        if lam.dtype != torch.int32 or lam.get_device() != dev \
+                or lam.dim() != 2 or lam.shape[1] != LANE \
+                or not lam.is_contiguous():
+            raise ValueError(f"unpermute takes int32 (T, 128) lam on y's "
+                             f"device; got {lam.dtype} {tuple(lam.shape)} "
+                             f"on {lam.device}")
+        lam_ptr, n_src = lam.data_ptr(), lam.numel()
+    if not 0 <= num_rows <= n_src:
+        raise ValueError(f"unpermute: {n_src} rows, num_rows {num_rows}")
+    split, partial_ptr, n_tb = _NO_SPLIT, 0, 0
+    if sec is not None and sec.n_split:
+        n_tb = _check_partial("unpermute", partial, sec, dev, n_y)
+        split, partial_ptr = sec.launch_block, partial.data_ptr()
+    res = torch.empty(num_rows, dtype=_F32, device=y.device)
+    err = kernels().tsp_unpermute(split + _UNPERMUTE_ARGS.pack(
+        partial_ptr, n_tb, y.data_ptr(), n_y, lam_ptr, res.data_ptr(),
+        num_rows, _current_stream(dev) if stream is None else stream))
     if err:
         raise DeviceException(f"unpermute launch: cudaError {err}")
     unpermute.launches += 1
@@ -636,11 +822,22 @@ def gather_table(plan: WindowEllPlan, x: torch.Tensor) -> torch.Tensor:
 def spmv_window_ell(plan: WindowEllPlan, x: torch.Tensor) -> torch.Tensor:
     """``y = A @ x`` through a plan (``_spmv_window_ell``,
     ``window_ell.py:1504-1523``).  ``x`` is the unpadded ``(num_cols,)``
-    operand on the plan's device; returns ``(num_rows,)`` f32."""
-    out = window_ell_fold(plan, gather_table(plan, x))
-    if plan.lam is not None:
-        return unpermute(out, plan.lam, plan.num_rows)
-    return out[:plan.num_rows]
+    operand on the plan's device; returns ``(num_rows,)`` f32.  K1 folds
+    each section into the call's own gather table, each section but the
+    last ended by :func:`section_epilogue`; :func:`unpermute` (K2) ends the
+    call wherever the plan is leveled or its last section split a
+    superblock, and sums that section's split tiles.  On the card every
+    launch goes to the stream current at the call; on the CPU the plain
+    versions run in the same order."""
+    table = gather_table(plan, x)
+    plain = table.is_cpu
+    stream = None if plain else _current_stream(table.get_device())
+    out, partial = fold_sections(plan, table, plain, stream)
+    last = plan.sections[-1] if plan.sections else None
+    if plan.lam is None and (last is None or not last.n_split):
+        return out[:plan.num_rows]
+    return unpermute(out, plan.lam, plan.num_rows, partial=partial, sec=last,
+                     stream=stream)
 
 
 def spmv_pattern(plan: WindowEllPlan, scale: torch.Tensor,

@@ -22,11 +22,12 @@ Per plan it prints:
   between launches, and the time of one call replayed from a CUDA graph
   (the device's own time, launch gaps included, without the host's);
 * device µs per call for each kernel name, with its launches per call,
-  and the launches per call in all; the headline's must be 9 (the table's
-  zero-fill and copy, the output's zero-fill, three folds, two section
-  epilogues and K2), and a call may launch nothing besides the port's
-  kernels but those fills and copies (and a pattern plan's scale
-  multiply): no publish copy, no table clone;
+  and the launches per call in all; the headline's must be 8 (the gather
+  table's set-up, K3, the output's zero-fill, three folds, two section
+  epilogues and K2), every call must set up its table with one K3 launch,
+  and a call may launch nothing besides the port's kernels but the
+  output's zero-fill (and a pattern plan's scale multiply): no zero-fill
+  or copy of the table, no publish copy, no table clone, no permute pass;
 * K1's device µs per section, in section order: the chunked fold plus its
   epilogue, the section epilogue after each section but the last and K2
   after the last where the call ran it (the mean over the calls).
@@ -43,8 +44,8 @@ expected) and taken again, three tries in all, and a kernel whose
 launches per call are still not a whole number is flagged.
 The first line is the card's name and power limit (``nvidia-smi``).  Fails
 where no CUDA device is available, the trace holds no device time, it
-misses a fold or epilogue launch, a call launches more than the kernels
-above, or a call cannot be captured in a CUDA graph.
+misses a table set-up, fold or epilogue launch, a call launches more than
+the kernels above, or a call cannot be captured in a CUDA graph.
 Imports nothing of JAX.
 """
 
@@ -60,9 +61,9 @@ FOLD_KERNEL = "fold_chunk"
 EPILOGUE_KERNEL = "section_epilogue"
 K2_KERNEL = "unpermute_kernel"
 K3_KERNEL = "permute_chunks_kernel"
-# launches per call besides the port's kernels: the table's zero-fill and
-# copy and the output's zero-fill, and a pattern plan's scale multiply
-OTHER_LAUNCHES = {False: 3, True: 4}
+# launches per call besides the port's kernels: the output's zero-fill, and
+# a pattern plan's scale multiply (K3 writes the whole gather table)
+OTHER_LAUNCHES = {False: 1, True: 2}
 
 
 def trace(fn, calls: int, tries: int = 3) -> list:
@@ -234,9 +235,16 @@ def profile(label: str, A, x, changes: dict, calls: int, dev) -> None:
     cs.check(len(other) <= OTHER_LAUNCHES[inner.pat] * calls,
              f"{label}: {len(other) / calls:g} launches per call besides "
              f"the port's kernels: {sorted(set(other))}")
+    setups = [e for e in kern if K3_KERNEL in e.name]
+    cs.check(len(setups) == calls,
+             f"{label}: {len(setups)} table set-ups (K3) traced over "
+             f"{calls} calls")
     n_epi, n_k2 = cs.epilogue_launches(inner)
-    cs.log(f"  launches per call: {len(inner.sections)} folds, {n_epi} "
-           f"section epilogues, {n_k2} K2, {len(other) / calls:g} others")
+    n_k2 = n_k2 or int(isinstance(plan, ReorderedPlan))
+    cs.log(f"  launches per call: 1 table set-up, {len(inner.sections)} "
+           f"folds, {n_epi} section epilogues, {n_k2} K2, "
+           f"{len(other) / calls:g} others; the set-up "
+           f"{sum(e.time_range.elapsed_us() for e in setups) / calls:.2f} us")
     cs.log("  K1 per section, fold + epilogue (K2 after the last), section "
            "order (us): "
            + ", ".join(f"{t:.2f}" for t in k1_sections(

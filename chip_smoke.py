@@ -16,7 +16,8 @@ Phases (each raises on failure; nothing is caught and passed over):
    none (pattern plans: the nibble-15 sentinel at superblock height 1024,
    -1 at 4096 and 16384), the bf16 and pattern plans merge-path with
    extras sections that publish; the unpermute (K2) on a random ``lam``.
-4. The chunk permute (K3) against its plain version, exactly: x not a
+4. The public chunk permute (K3's kernel, which every SpMV runs as its
+   gather table's set-up) against its plain version, exactly: x not a
    whole number of chunks nor of float4s, ``src`` with repeats and chunks
    past the end of x, an output ending mid-chunk, a pointer that is not
    16-byte aligned, and a round trip (order, then its inverse) that gives x
@@ -39,14 +40,15 @@ Phases (each raises on failure; nothing is caught and passed over):
    timed with CUDA events, and held to the physics guard (streamed bytes /
    time must not exceed 1.02 × measured STREAM).  Each kernel is then
    compared with, and timed beside, its plain version at the plan's shapes
-   (K1 held whole under the row bound and bit for bit across two calls,
-   and timed as the SpMV runs it, ``fold_sections``; its section
-   epilogue on random partial tiles of the non-last section with the most,
-   the table's tail included, K2 (with random partial tiles of the last
-   section where it splits) and K3 exactly).  Each path prints its fold
-   schedule before and after chunking and checks one fold launch per
-   section, one section epilogue per section but the last and one K2 per
-   call (wherever the plan is leveled or its last section splits).
+   (the gather table's set-up, K3 in order, exactly; K1 held whole under
+   the row bound and bit for bit across two calls, and timed as the SpMV
+   runs it, ``fold_sections``; its section epilogue on random partial
+   tiles of the non-last section with the most, the table's tail
+   included, and K2, with random partial tiles of the last section where
+   it splits, exactly).  Each path prints its fold schedule before and
+   after chunking and checks one table set-up per call, one fold launch
+   per section, one section epilogue per section but the last and one K2
+   per call (wherever the plan is leveled or its last section splits).
    Vector CSR (no row split) runs once against the oracle too.
    Then the headline through the JAX bench's two levers (``bench.py:332-375``):
    a bf16 value stream (``bf16_values=True``, held to the oracle at 8e-3,
@@ -57,12 +59,16 @@ Phases (each raises on failure; nothing is caught and passed over):
    configuration (``reorder=None``: the probe decides) on
    ``scrambled_banded_csr(2^20, bandwidth 4096, avg 12)`` (about 13.5M nnz,
    a 2^20-node mesh), which must be served by a ``ReorderedPlan``, checked
-   against the oracle, timed, held to the physics guard with both permutes'
-   bytes, and counted: two K3, one K1 per inner section, one section
-   epilogue per inner section but the last and one K2 launch per call.
-   Each kernel of the path (the x permute, K1 and K2 on the inner plan, the
-   row permute) is then compared with, and timed beside, its plain version
-   on the inputs the path gives it.
+   against the oracle and, bit for bit, against the old composition
+   (``permute_chunks`` of x, the inner SpMV, ``permute_chunks`` of its
+   rows), timed, held to the physics guard with the set-up's and the tile
+   map's bytes, and counted: one K3 (the table's set-up, which gathers x's
+   chunks in the plan's order), one K1 per inner section, one section
+   epilogue per inner section but the last and one K2 (which writes the
+   rows back in natural order through the tile map) per call.  Each kernel
+   of the path is then compared with, and timed beside, its plain version
+   on the inputs the path gives it; the public ``permute_chunks`` of x is
+   timed beside ``index_select``.
 8. Natural against reordered at 262,144 rows, on the planted banded and
    clustered matrices: both plans timed (natural, reordered, reordered,
    natural) and checked against the oracle, and each plan's kernels against
@@ -84,18 +90,23 @@ Phases (each raises on failure; nothing is caught and passed over):
 Where one PyTorch call computes what a kernel computes, it is timed beside
 it and printed on a ``library:`` line (cuSPARSE through a sparse CSR tensor
 for K1 and K2 together, ``index_add_`` of the partial tiles for the section
-epilogue, ``take_along_dim`` for K2, ``index_select`` for K3); the port
-never calls them.  Each kernel's bound is the least time the
-card could take for its work: its bytes (each input read once, each output
-written once; for the epilogues the bytes this run's split tiles need, as
-``epilogue_work`` and ``k2_work`` count them) over the STREAM rate
+epilogue, ``take_along_dim`` for K2, ``torch.take`` over the composed row
+index for K2 with a tile map, ``torch.nn.functional.pad`` for the table's
+set-up in order, ``index_select`` for it through a chunk map and for the
+public permute); the port never calls them.  Each kernel's bound is the
+least time the card could take for its work: its bytes (each input read
+once, each output written once; for the epilogues the bytes this run's
+split tiles need, as ``epilogue_work`` and ``k2_work`` count them; for the
+table's set-up x and the chunk map read, as ``setup_bytes`` counts them
+for the plan's byte model, and the table written) over the STREAM rate
 measured in this run, or its fp32 operations over the 67 TFLOP/s fp32
 peak, whichever is larger.  Every time is taken with
 ``tpu_spmv_torch.timing`` (CUDA events).
 
 Everything before the last line is diagnostics.  The line before the
 ``nvidia-smi`` line is one JSON object with a record per kernel (K1's f32
-variant, K1's section epilogue, K2, K3, the probes P4, P2, P3, P5, K1's
+variant, K1's section epilogue, K2, K3 as the mesh's table set-up, the
+probes P4, P2, P3, P5, K1's
 bf16 and pattern variants, P1); the last line is ``{"ok": true, "device":
 {...}}``.  Exits non-zero, and prints no result, where no CUDA device is
 available.  Imports nothing of JAX.
@@ -256,33 +267,50 @@ def epilogue_work(plan, sec) -> tuple:
             float(sec.n_slots * plan.sup))
 
 
-def k2_work(plan, sec) -> tuple:
-    """``(bytes, operations)`` K2 must do with the last section ``sec``
-    (None: no split tiles): per output row, its value written, its ``lam``
-    entry read on a leveled plan, and its source read, one value of ``y``
-    where no split superblock owns the row's tile (none past ``y``'s end),
-    else one value of each of that superblock's partial tiles, summed (a
-    split tile's rows never read ``y``); with split tiles, the tile map's
-    entries of the rows' tiles and the split ranges."""
+def k2_work(plan, sec, n: int | None = None, tile_src=None) -> tuple:
+    """``(bytes, operations)`` K2 must do for ``n`` output rows (default
+    the plan's) with the last section ``sec`` (None: no split tiles) and
+    the tile map ``tile_src`` (None: the identity): per output tile, its
+    ``tile_src`` entry read; per output row, its value written, its
+    ``lam`` entry read on a leveled plan, and its source read, one value
+    of ``y`` where no split superblock owns the row's source tile (none
+    past ``y``'s end), else one value of each of that superblock's partial
+    tiles, summed (a split tile's rows never read ``y``); with split
+    tiles, the split map's entries of the source tiles and the split
+    ranges."""
     import numpy as np
 
-    n = plan.num_rows
+    n = plan.num_rows if n is None else n
     tiles = -(-n // 128)
     rows = np.full(tiles, 128, np.int64)
     rows[-1] = n - 128 * (tiles - 1)
-    reads = np.where(np.arange(tiles) < plan.out8, rows, 0)
-    summed, index = 0, 0
+    src = np.arange(tiles) if tile_src is None \
+        else tile_src[:tiles].cpu().numpy().astype(np.int64)
+    inside = (src >= 0) & (src < plan.out8)
+    reads = np.where(inside, rows, 0)
+    summed = 0
+    index = 0 if tile_src is None else tiles
     if sec is not None and sec.n_split:
         owner = np.full(tiles, -1, np.int64)
-        m = min(tiles, plan.out8)
-        owner[:m] = sec.split_of_tile[:m].cpu().numpy()
+        owner[inside] = sec.split_of_tile.cpu().numpy()[src[inside]]
         chunks = np.diff(sec.split_ptr.cpu().numpy())
         split = owner >= 0
         reads[split] = rows[split] * chunks[owner[split]]
         summed = int(reads[split].sum())
-        index = tiles + 2 * sec.n_split + 1
+        index += tiles + 2 * sec.n_split + 1
     lam = n if plan.lam is not None else 0
     return 4.0 * (n + lam + int(reads.sum()) + index), float(summed)
+
+
+def setup_work(plan, n_x: int, src) -> float:
+    """Bytes the gather table's set-up must move: x and the chunk map
+    ``src`` (None: in order) read once, as ``setup_bytes`` counts them for
+    the plan's byte model, and the table written once."""
+    from tpu_spmv_torch.kernels.window_ell import setup_bytes
+
+    n_table = plan.cols_pad + plan.e8 * 128
+    return float(setup_bytes(n_x, 0 if src is None else src.numel())
+                 + 4 * n_table)
 
 
 def cusparse(A, dev):
@@ -303,22 +331,27 @@ def cusparse(A, dev):
 def hold_kernels(plan, xd, A, x, what: str, timed: bool,
                  stream: float | None = None) -> dict:
     """Each kernel of ``plan`` against its plain version on the inputs the
-    path gives it: for a reordered plan the x permute (K3), then the inner
-    plan's fold (K1, under the row bound), its section epilogue, unpermute
-    (K2, with the last section's partial tiles where it splits) and the
-    row permute (K3); the epilogues and K3 exactly.  A pattern plan's fold
-    gathers from the scaled x, as ``spmv_pattern`` feeds it.  With
-    ``timed``, each is timed beside its plain version and its library call
-    (cuSPARSE on ``A`` for the fold, which must match the oracle;
+    path gives it: the gather table's set-up (K3: for a reordered plan
+    through ``col_src``, else in order), the (inner) plan's fold (K1, under
+    the row bound), its section epilogue and K2 (with the last section's
+    partial tiles where it splits, and for a reordered plan through
+    ``row_src`` as its tile map); K3 and the epilogues exactly.  A pattern
+    plan's table is set up from the scaled x, as ``spmv_pattern`` feeds it.
+    With ``timed``, each is timed beside its plain version and its library
+    call (``torch.nn.functional.pad`` for the set-up in order,
+    ``index_select`` of x's chunks, precomputed zero-padded, through it;
+    cuSPARSE on ``A`` for the fold, which must match the oracle;
     ``index_add_`` of the partial tiles for the section epilogue;
-    ``take_along_dim`` for K2, ``index_select`` for K3), and its bound over
-    ``stream`` (GB/s) printed beside.  K1 is held whole
+    ``take_along_dim`` for K2, ``torch.take`` through the precomputed
+    composed row index with a tile map), and its bound over ``stream``
+    (GB/s) printed beside.  K1 is held whole
     (``window_ell_fold``) and timed as the SpMV runs it
     (``fold_sections``: the folds and the section epilogues after each
     section but the last).  Returns ``{kernel record name: [{"err", "ms",
     "plain_ms", "library_ms", "nbytes", "ops"}, ...]}`` in path order; the
     times are ``None`` untimed."""
     import torch
+    import torch.nn.functional as F
 
     from tpu_spmv_torch.kernels import FOLD_VARIANTS
     from tpu_spmv_torch.kernels import reorder as tr
@@ -330,6 +363,7 @@ def hold_kernels(plan, xd, A, x, what: str, timed: bool,
     rp = plan if isinstance(plan, tr.ReorderedPlan) else None
     pp = plan if isinstance(plan, PatternPlan) else None
     inner = rp.inner if rp else pp.plan if pp else plan
+    dev = xd.device
     held, parts = {}, []
 
     def hold(name, kernel, plain, *args, nbytes, ops=0.0, library=None,
@@ -365,22 +399,25 @@ def hold_kernels(plan, xd, A, x, what: str, timed: bool,
             + ")" if timed else ""))
         return got, ref
 
-    def permute_library(v, src):
-        n = src.numel() * 128
-        v2 = torch.zeros(n, dtype=v.dtype, device=v.device)
-        v2[:min(n, v.numel())] = v[:n]
-        v2, s64 = v2.view(-1, 128), src.long()
-        return lambda: v2.index_select(0, s64)
-
-    xin = xd
-    if rp:
-        xin, _ = hold("permute_chunks", tr.permute_chunks,
-                      tr.permute_chunks_plain, xd, rp.col_src,
-                      inner.num_cols, nbytes=tr.permute_bytes(inner.num_cols),
-                      library=permute_library(xd, rp.col_src))
-    if pp:
-        xin = pp.scale * xd
-    table = twe.gather_table(inner, xin)
+    xin = pp.scale * xd if pp else xd
+    src = rp.col_src if rp else None
+    n_table = inner.cols_pad + inner.e8 * 128
+    if src is None:
+        pad = n_table - xin.numel()
+        library = lambda: F.pad(xin, (0, pad))  # noqa: E731
+    else:
+        # x's chunks and one zero chunk; each table chunk's source
+        n_src = -(-xin.numel() // 128)
+        x2d = torch.zeros(n_src + 1, 128, device=dev)
+        x2d.view(-1)[:xin.numel()] = xin
+        idx = torch.full((n_table // 128,), n_src, dtype=torch.long,
+                         device=dev)
+        idx[:src.numel()] = src.long()
+        library = lambda: x2d.index_select(0, idx)  # noqa: E731
+    table, _ = hold("permute_chunks", twe.gather_table,
+                    twe.gather_table_plain, inner, xin, src,
+                    nbytes=setup_work(inner, xin.numel(), src),
+                    library=library)
     # the plan's byte model less its K2 part (stream_bytes)
     k2_model = 0 if inner.lam is None else inner.lam.numel() * 12
     live_slots = sum(s.run_order.numel() for s in inner.sections) \
@@ -406,7 +443,6 @@ def hold_kernels(plan, xd, A, x, what: str, timed: bool,
     parts.append("K1 bit-identical across two calls")
     # the epilogues on random partial tiles (the fold's own stay inside its
     # call): the same sums in the same order, so exactly
-    dev = xd.device
     g = torch.Generator(device=dev).manual_seed(5)
 
     def tiles(sec):
@@ -443,26 +479,30 @@ def hold_kernels(plan, xd, A, x, what: str, timed: bool,
     if M is not None:
         check(spmv_matches((M @ xd).cpu().numpy(), A, x, rel_tol=REL_TOL),
               f"the library call (cuSPARSE) vs the oracle ({what})")
-    y = out[:inner.num_rows]
     last = inner.sections[-1]
-    if inner.lam is not None or last.n_split:
-        # K2, with the last section's partial tiles where it splits
+    if inner.lam is not None or last.n_split or rp:
+        # K2, with the last section's partial tiles where it splits, and a
+        # reordered plan's row map
         kw = {}
         if last.n_split:
             kw = {"partial": tiles(last), "sec": last}
-        nbytes, ops = k2_work(inner, kw.get("sec"))
+        n = rp.num_rows if rp else inner.num_rows
         library = None
-        if inner.lam is not None:
+        if rp:
+            kw["tile_src"] = rp.row_src
+            rows = torch.arange(n, device=dev)
+            t = rp.row_src.long()[rows >> 7] * 128
+            lane = rows & 127
+            flat = t + (lane if inner.lam is None
+                        else inner.lam.view(-1).long()[t + lane])
+            library = lambda: torch.take(out, flat)  # noqa: E731
+        elif inner.lam is not None:
             yp = twe._pad_tiles(out, inner.lam.shape[0])
             lam64 = inner.lam.long()
             library = lambda: torch.take_along_dim(yp, lam64, 1)  # noqa: E731
-        y, _ = hold("unpermute", twe.unpermute, twe.unpermute_plain, out,
-                    inner.lam, inner.num_rows, nbytes=nbytes, ops=ops,
-                    library=library, kw=kw)
-    if rp:
-        hold("permute_chunks", tr.permute_chunks, tr.permute_chunks_plain, y,
-             rp.row_src, rp.num_rows, nbytes=tr.permute_bytes(rp.num_rows),
-             library=permute_library(y, rp.row_src))
+        nbytes, ops = k2_work(inner, kw.get("sec"), n, kw.get("tile_src"))
+        hold("unpermute", twe.unpermute, twe.unpermute_plain, out,
+             inner.lam, n, nbytes=nbytes, ops=ops, library=library, kw=kw)
     log(f"kernels vs plain, {what}: K1 row-bound excess {exc:.3g}; "
         + "; ".join(parts))
     return held
@@ -585,7 +625,8 @@ def phase_kernels(dev) -> None:
     counts = tk.launch_counts()
     log(f"  K2 random lam: exact; launches in this phase {counts}")
     check(all(counts[k] > 0 for k in tk.FOLD_VARIANTS.values())
-          and counts["section_epilogue"] > 0 and counts["unpermute"] > 0,
+          and counts["section_epilogue"] > 0 and counts["unpermute"] > 0
+          and counts["permute_chunks"] > 0,
           "a kernel's launch count did not move")
 
 
@@ -762,11 +803,13 @@ def phase_main(dev, stream: float) -> tuple:
           "last per call")
     check(counts["unpermute"] == calls * n_k2,
           "K2 did not launch once per call")
+    check(counts["permute_chunks"] == calls,
+          "the table's set-up (K3) did not launch once per call")
     check(counts["window_ell_fold"] > 0 and counts["section_epilogue"] > 0
-          and counts["unpermute"] > 0,
+          and counts["unpermute"] > 0 and counts["permute_chunks"] > 0,
           "a kernel of the main path was not launched")
-    log(f"port kernel launches per call: {len(plan.sections)} folds, "
-        f"{n_epi} section epilogues, {n_k2} K2")
+    log(f"port kernel launches per call: 1 table set-up, "
+        f"{len(plan.sections)} folds, {n_epi} section epilogues, {n_k2} K2")
     y = res.y.cpu().numpy()
     check(y.shape == (A.num_rows,) and bool(np.all(np.isfinite(y))),
           "output shape / finiteness")
@@ -787,7 +830,8 @@ def phase_main(dev, stream: float) -> tuple:
     actual = plan.stream_bytes / secs / 1e9
 
     def plain_spmv():
-        out = twe.window_ell_fold_plain(plan, twe.gather_table(plan, xd))
+        out = twe.window_ell_fold_plain(plan,
+                                        twe.gather_table_plain(plan, xd))
         return twe.unpermute_plain(out, plan.lam, plan.num_rows)
 
     plain_secs = time_cuda(plain_spmv, iters=PLAIN_ITERS, samples=SAMPLES,
@@ -820,6 +864,19 @@ def phase_main(dev, stream: float) -> tuple:
             ], A, x
 
 
+def old_composition(rp, xd):
+    """The reordered SpMV as earlier versions ran it, on the same plan:
+    ``permute_chunks`` of x into the plan's block order, the inner plan's
+    SpMV, ``permute_chunks`` of its rows back (three calls, each its own
+    kernel launches)."""
+    from tpu_spmv_torch.kernels import reorder as tr
+    from tpu_spmv_torch.kernels import window_ell as twe
+
+    xp = tr.permute_chunks(xd, rp.col_src, rp.inner.num_cols)
+    return tr.permute_chunks(twe.spmv_window_ell(rp.inner, xp), rp.row_src,
+                             rp.num_rows)
+
+
 def phase_reorder(dev, stream: float) -> dict:
     import numpy as np
     import torch
@@ -828,7 +885,9 @@ def phase_reorder(dev, stream: float) -> dict:
     from tpu_spmv_torch import kernels as tk
     from tpu_spmv_torch import spmv_auto_config, spmv_csr
     from tpu_spmv_torch.kernels import reorder as tr
+    from tpu_spmv_torch.kernels.window_ell import setup_bytes
     from tpu_spmv_torch.spmv import MEASURE_WARMUP, MERGE_SPLIT_ROWS
+    from tpu_spmv_torch.timing import time_turns
     from tpu_spmv_torch.utils.testing import (RandomGenerator,
                                               scrambled_banded_csr,
                                               spmv_matches)
@@ -864,23 +923,27 @@ def phase_reorder(dev, stream: float) -> dict:
     calls = 1 + MEASURE_WARMUP + ITERS * SAMPLES
     log(f"reordered path ({KernelType(cfg.kernel_type).name}) launches: "
         f"{counts} over {calls} calls, {len(inner.sections)} sections")
-    check(counts["permute_chunks"] == 2 * calls,
-          "K3 did not launch twice per call")
+    check(counts["permute_chunks"] == calls,
+          "K3 (the table's set-up) did not launch once per call")
     check(counts["window_ell_fold"] == calls * len(inner.sections),
           "K1 did not launch once per inner section per call")
-    n_epi, n_k2 = epilogue_launches(inner)
-    check(counts["section_epilogue"] == calls * n_epi,
+    check(counts["section_epilogue"] == calls * epilogue_launches(inner)[0],
           "the section epilogue did not launch once per inner section but "
           "the last per call")
-    check(inner.lam is not None and n_k2 == 1
-          and counts["unpermute"] == calls,
-          "K2 did not launch once per call")
+    # K2 ends every reordered call: it maps the tiles back
+    check(counts["unpermute"] == calls,
+          "K2 (with the tile map) did not launch once per call")
     y = res.y.cpu().numpy()
     check(y.shape == (A.num_rows,) and bool(np.all(np.isfinite(y))),
           "output shape / finiteness")
     check(spmv_matches(y, A, x, rel_tol=REL_TOL),
           "reordered output vs the CPU oracle")
-    log("correctness vs CPU oracle (rel 1e-5): OK")
+    old = old_composition(rp, xd)
+    torch.cuda.synchronize()
+    check(torch.equal(res.y, old),
+          "the reordered output differs from the old composition's")
+    log("correctness vs CPU oracle (rel 1e-5): OK; bit-identical to the old "
+        "composition (permute_chunks, inner SpMV, permute_chunks)")
     log("reordered plan: " + json.dumps({
         "sup": inner.sup, "groups": inner.n_groups,
         "occupancy": round(inner.occupancy, 4), "extras": inner.n_extra,
@@ -896,7 +959,7 @@ def phase_reorder(dev, stream: float) -> dict:
     log(f"reordered spmv: {res.elapsed_ms * 1e3:.2f} us/call (median of "
         f"{SAMPLES} x {ITERS} calls), {res.gflops:.2f} GFLOP/s, byte model "
         f"{res.bandwidth_gb_s:.1f} GB/s, streamed {actual:.1f} GB/s "
-        f"({rp.stream_bytes / 1e6:.2f} MB/call, of which permutes "
+        f"({rp.stream_bytes / 1e6:.2f} MB/call, of which x and the maps "
         f"{(rp.stream_bytes - inner.stream_bytes) / 1e6:.2f} MB); STREAM "
         f"{stream:.1f} GB/s")
     check(actual <= 1.02 * stream,
@@ -905,9 +968,21 @@ def phase_reorder(dev, stream: float) -> dict:
     # each kernel against its plain version at the reordered path's shapes
     held = hold_kernels(rp, xd, A, x, "mesh, reordered", timed=True,
                         stream=stream)
-    log(f"K3 permutes: x {inner.num_cols} elements "
-        f"({tr.permute_bytes(inner.num_cols) / 1e6:.2f} MB), y {rp.num_rows} "
-        f"elements ({tr.permute_bytes(rp.num_rows) / 1e6:.2f} MB)")
+    n_table = inner.cols_pad + inner.e8 * 128
+    log(f"K3 as the table's set-up: x {rp.num_cols} elements and "
+        f"{len(rp.col_src)} chunk indices read "
+        f"({setup_bytes(rp.num_cols, len(rp.col_src)) / 1e6:.2f} MB), the "
+        f"table's {n_table} elements written ({4 * n_table / 1e6:.2f} MB)")
+    # the public permute of x into the plan's order, beside index_select
+    # of x's chunks (x a whole number of chunks here), in turns
+    check(rp.num_cols % 128 == 0, "the mesh is a whole number of chunks")
+    x2d, src64 = xd.view(-1, 128), rp.col_src.long()
+    us = [t * 1e6 for t in time_turns(
+        [lambda: tr.permute_chunks(xd, rp.col_src, inner.num_cols),
+         lambda: x2d.index_select(0, src64)], iters=ITERS, samples=SAMPLES)]
+    log(f"K3 as the public permute_chunks of x: {us[0]:.2f} us per call, "
+        f"index_select {us[1]:.2f} us (in turns, median of {SAMPLES} x "
+        f"{ITERS} calls)")
     return kernel_record("permute_chunks", held, counts["permute_chunks"],
                          stream)
 
@@ -1007,6 +1082,9 @@ def phase_levers(dev, stream: float, A, x) -> dict:
               f"headline {what}: K1 launches {counts}")
         check(counts["unpermute"] == calls * epilogue_launches(plan)[1],
               f"headline {what}: K2 did not launch once per call")
+        check(counts["permute_chunks"] == calls,
+              f"headline {what}: the table's set-up did not launch once per "
+              f"call")
         y = res.y.cpu().numpy()
         check(y.shape == (M.num_rows,) and bool(np.all(np.isfinite(y)))
               and spmv_matches(y, M, x, rel_tol=tol),
@@ -1100,6 +1178,8 @@ def phase_pagerank(dev, stream: float) -> dict:
           f"PageRank: K1 launches {counts}")
     check(plan.lam is not None and counts["unpermute"] == PR_ITERS,
           "PageRank: K2 did not launch once per iteration")
+    check(counts["permute_chunks"] == PR_ITERS,
+          "PageRank: the table's set-up did not launch once per iteration")
     ranks = res.ranks_host()
     check(ranks.shape == (n,) and bool(np.all(np.isfinite(ranks))),
           "PageRank ranks: shape / finiteness")

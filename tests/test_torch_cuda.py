@@ -12,8 +12,11 @@ version (``index_add_``) sum each row in different orders.  The fold is
 bit-identical from call to call, and so is the SpMV.  Its two epilogues,
 the section epilogue (the ordered reduce and the publish of the extras
 totals) and K2 (the unpermute, which sums the last section's split tiles),
-match their plain versions exactly (the same additions in the same order);
-the chunk permute moves values without arithmetic and must match exactly.
+match their plain versions exactly (the same additions in the same order),
+with and without K2's tile map; the chunk permute and the gather table's
+set-up (K3) move values without arithmetic and must match exactly, and a
+reordered SpMV must equal the old composition of two permutes around the
+inner SpMV bit for bit.
 The benchmark probes' kernels are held to ``rtol=1e-5`` with
 ``atol = 1e-5 * max|ref|``: fp32 sums in another order, and in P1, P2 and
 P3 atomic adds in no fixed order.  PageRank on the card is held to a float64
@@ -275,7 +278,7 @@ def test_spmv_launches_and_is_bit_identical(matrix, cuda_device, cap,
     assert n == 3 and tk.launch_counts() == {
         "window_ell_fold": n, "window_ell_fold_bf16": 0,
         "window_ell_fold_pattern": 0, "section_epilogue": n - 1,
-        "unpermute": int(leveled or cap == 1), "permute_chunks": 0}
+        "unpermute": int(leveled or cap == 1), "permute_chunks": 1}
     again = twe.spmv_window_ell(plan, xd)
     torch.cuda.synchronize()
     assert torch.equal(y, again)
@@ -298,8 +301,9 @@ def test_raw_stream_is_the_current_stream(cuda_device):
 @pytest.mark.cuda
 def test_epilogue_wrappers_refuse_wrong_device_or_dtype(matrix,
                                                         cuda_device):
-    """A tensor on the CPU beside CUDA ones, or of the wrong dtype, raises
-    ``ValueError`` before any launch."""
+    """A tensor on the CPU beside CUDA ones, of the wrong dtype, or a map
+    too short for the output, raises ``ValueError`` before any launch
+    (the epilogues, K2's tile map, the gather table's set-up)."""
     A, _ = matrix
     plan = small_plan(A, cuda_device, 1)
     sec = plan.sections[0]
@@ -307,6 +311,8 @@ def test_epilogue_wrappers_refuse_wrong_device_or_dtype(matrix,
                           device=cuda_device)
     out = torch.zeros(plan.out8 * 128, device=cuda_device)
     table = torch.zeros(plan.cols_pad + plan.e8 * 128, device=cuda_device)
+    tiles = torch.arange(plan.out8, dtype=torch.int32, device=cuda_device)
+    x = torch.zeros(plan.num_cols, device=cuda_device)
     before = tk.launch_counts()
     eb = plan.extras_base
     bad = [lambda: twe.section_epilogue(partial.cpu(), sec, out, table, eb),
@@ -323,7 +329,18 @@ def test_epilogue_wrappers_refuse_wrong_device_or_dtype(matrix,
            lambda: twe.unpermute(out, plan.lam.long(), plan.num_rows),
            lambda: twe.unpermute(out, plan.lam, plan.num_rows,
                                  partial=partial.cpu(),
-                                 sec=plan.sections[-1])]
+                                 sec=plan.sections[-1]),
+           lambda: twe.unpermute(out, plan.lam, plan.num_rows,
+                                 tile_src=tiles.cpu()),
+           lambda: twe.unpermute(out, plan.lam, plan.num_rows,
+                                 tile_src=tiles.long()),
+           lambda: twe.unpermute(out, plan.lam, plan.num_rows,
+                                 tile_src=tiles[:2]),
+           lambda: twe.gather_table(plan, x.cpu().double()),
+           lambda: twe.gather_table(plan, x.double()),
+           lambda: twe.gather_table(plan, x, tiles.cpu()),
+           lambda: twe.gather_table(plan, x, tiles.long()),
+           lambda: twe.gather_table(plan, x, tiles[:2])]
     for call in bad:
         with pytest.raises(ValueError):
             call()
@@ -371,6 +388,7 @@ def test_spmv_csr_on_card_matches_oracle(matrix, cuda_device, kernel_type):
     assert counts["window_ell_fold"] == len(res.plan.sections)
     assert counts["section_epilogue"] == len(res.plan.sections) - 1
     assert counts["unpermute"] == 1
+    assert counts["permute_chunks"] == 1
     assert spmv_matches(res.y.cpu().numpy(), A, x, rel_tol=ROW_TOL)
 
 
@@ -426,10 +444,121 @@ def test_reordered_spmv_csr_on_card_matches_oracle(cuda_device):
         "window_ell_fold": len(res.plan.inner.sections),
         "window_ell_fold_bf16": 0, "window_ell_fold_pattern": 0,
         "section_epilogue": len(res.plan.inner.sections) - 1,
-        "unpermute": int(res.plan.inner.lam is not None
-                         or res.plan.inner.sections[-1].n_split > 0),
-        "permute_chunks": 2}
+        "unpermute": 1, "permute_chunks": 1}
     assert spmv_matches(res.y.cpu().numpy(), A, x, rel_tol=ROW_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [None, 1], ids=["Rmodule", "R1"])
+def test_reordered_spmv_equals_the_old_composition(cuda_device, cap):
+    """The reordered SpMV through the composed maps (K3 setting up the
+    table from x's chunks in ``col_src`` order, K2 writing output tile
+    ``b`` from the inner tile ``row_src[b]``) equals, bit for bit, the old
+    composition run on the same plan in the same process: ``permute_chunks``
+    of x, the inner SpMV, ``permute_chunks`` of its rows (three kernels);
+    at the module's R and at R = 1, where K2 sums the last section's split
+    tiles through the tile map."""
+    A = scrambled_banded_csr(RandomGenerator(42), 16384, 1024, 6.0)
+    xd = torch.from_numpy(RandomGenerator(7).vector(A.num_cols)).to(
+        cuda_device)
+    rp = spmv_csr(A, xd, spmv_auto_config(A)).plan
+    assert isinstance(rp, tr.ReorderedPlan)
+    if cap is not None:
+        rp = dataclasses.replace(rp, inner=dataclasses.replace(
+            rp.inner, sections=twe._fold_schedule(rp.inner, cap)))
+        assert rp.inner.sections[-1].n_split > 0
+    tk.reset_launch_counts()
+    got = tr.spmv_reordered(rp, xd)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["permute_chunks"] == 1
+    assert tk.launch_counts()["unpermute"] == 1
+    xp = tr.permute_chunks(xd, rp.col_src, rp.inner.num_cols)
+    old = tr.permute_chunks(twe.spmv_window_ell(rp.inner, xp), rp.row_src,
+                            rp.num_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, old)
+
+
+def nan_reused(n: int, dev) -> int:
+    """Leave a NaN-filled block of ``n`` floats free in the caching
+    allocator, where the next allocation of that size takes it; returns its
+    address."""
+    buf = torch.full((n,), float("nan"), device=dev)
+    ptr = buf.data_ptr()
+    del buf
+    return ptr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["in order", "reordered", "unaligned x",
+                                  "ragged end", "src past the end"])
+def test_gather_table_kernel_matches_plain(matrix, cuda_device, case):
+    """The gather table's set-up (K3, one launch) against its plain version,
+    bit for bit, written over a block that held NaN: every element of the
+    table, the padding columns and the extras tail included, is written.
+    In order (``src=None``) and through a chunk permutation; an x view one
+    float in (the per-element path); x ending three floats short of the
+    plan's columns (a ragged end); ``src`` with chunks past x's end and a
+    negative one, over an x that ends mid-chunk."""
+    A, x = matrix
+    plan = small_plan(A, cuda_device, twe.CHUNK_RUNS)
+    nb = -(-plan.num_cols // 128)
+    g = np.random.default_rng(8)
+    base = torch.from_numpy(RandomGenerator(6).vector(plan.num_cols + 1)) \
+        .to(cuda_device)
+    xv, src = base[:plan.num_cols], None
+    if case != "in order" and case != "ragged end":
+        src = torch.from_numpy(g.permutation(nb).astype(np.int32))
+    if case == "unaligned x":
+        xv = base[1:]
+    elif case == "ragged end":
+        xv = base[:plan.num_cols - 3]
+    elif case == "src past the end":
+        xv = base[:plan.num_cols - 50]
+        src[[0, 3, 7]] = torch.tensor([nb, nb + 9, -3], dtype=torch.int32)
+    if src is not None:
+        src = src.to(cuda_device)
+    n_table = plan.cols_pad + plan.e8 * 128
+    ptr = nan_reused(n_table, cuda_device)
+    before = tr.permute_chunks.launches
+    got = twe.gather_table(plan, xv, src)
+    torch.cuda.synchronize()
+    assert tr.permute_chunks.launches - before == 1
+    assert got.data_ptr() == ptr and got.shape == (n_table,)
+    want = twe.gather_table_plain(plan, xv, src)
+    assert not torch.isnan(got).any() and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leveled", [False, True])
+@pytest.mark.parametrize("cap", [1, twe.CHUNK_RUNS], ids=["R1", "Rmodule"])
+def test_final_epilogue_tile_map_matches_plain_exactly(matrix, cuda_device,
+                                                       cap, leveled):
+    """K2 with a tile map (a random permutation of the plan's tiles, one
+    entry past them in place of its last, which reads as zeros) and the
+    last section's tiles (split at R = 1) against its plain version, bit
+    for bit, over an output that ends mid-tile; one launch."""
+    A, _ = matrix
+    plan = small_plan(A, cuda_device, cap, leveled)
+    last = plan.sections[-1]
+    g = torch.Generator().manual_seed(12)
+    partial = torch.randn(max(last.n_slots, 1), plan.sup,
+                          generator=g).to(cuda_device)
+    y = torch.randn(plan.out8 * 128, generator=g).to(cuda_device)
+    n_tiles = plan.out8 if plan.lam is None else plan.lam.shape[0]
+    tile_src = torch.from_numpy(np.random.default_rng(5).permutation(
+        n_tiles).astype(np.int32))
+    tile_src[-1] = n_tiles
+    tile_src = tile_src.to(cuda_device)
+    n = n_tiles * 128 - 77
+    before = twe.unpermute.launches
+    got = twe.unpermute(y, plan.lam, n, partial=partial, sec=last,
+                        tile_src=tile_src)
+    torch.cuda.synchronize()
+    assert twe.unpermute.launches - before == 1
+    want = twe.unpermute_plain(y, plan.lam, n, partial=partial, sec=last,
+                               tile_src=tile_src)
+    assert torch.equal(got, want) and not got[(n_tiles - 1) * 128:].any()
 
 
 @pytest.mark.cuda
@@ -466,6 +595,7 @@ def test_pagerank_on_card_matches_float64(cuda_device, kernel_type):
     assert counts["section_epilogue"] == 30 * (len(plan.sections) - 1)
     assert counts["unpermute"] == (30 if plan.lam is not None
                                    or plan.sections[-1].n_split else 0)
+    assert counts["permute_chunks"] == 30
     n = A.num_rows
     rows = np.repeat(np.arange(n), np.diff(A.row_ptrs))
     dang = np.bincount(A.col_indices, minlength=n) == 0

@@ -12,7 +12,8 @@ sums the last section's split tiles on its way.  Here:
   publish copy, bit for bit, on the output and on the table's tail;
 * the wrappers' argument blocks name the C structs' fields, in order;
 * K2's plain version is ``unpermute_plain`` after ``chunk_reduce_plain``,
-  bit for bit, leveled and not, with the last section split and not;
+  bit for bit, leveled and not, with the last section split and not, and
+  with a tile map the chunk permute of that;
 * the CPU SpMV, which runs the plain versions in the kernels' order, matches
   the JAX package's ``spmv_window_ell`` / ``spmv_pattern`` (Pallas interpret
   mode) under the backward-error row bound, and the CPU oracle under
@@ -172,10 +173,11 @@ def c_struct_fields(source: str, name: str) -> list:
 @pytest.mark.parametrize("source, block", [
     ("epilogue.cuh", "SplitTiles"),
     ("window_ell.cu", "SectionEpilogueArgs"),
-    ("unpermute.cu", "UnpermuteArgs")])
+    ("unpermute.cu", "UnpermuteArgs"),
+    ("permute.cu", "PermuteArgs")])
 def test_argument_blocks_match_the_c_structs(source, block):
-    """The wrapper's field names of each epilogue argument block are the C
-    struct's, in order, and every field it packs as 8 bytes is a pointer
+    """The wrapper's field names of each argument block (the epilogues',
+    the table set-up's) are the C struct's, in order, and every field it packs as 8 bytes is a pointer
     or an ``int64_t`` (a leading ``SplitTiles split`` is packed once per
     section, as its own block)."""
     fields = c_struct_fields(source, block)
@@ -219,6 +221,41 @@ def test_k2_is_the_unpermute_after_the_reduce(plans, name, sup, tb, pat,
         # the split rows really came from the partial tiles
         assert not torch.equal(got, twe.unpermute_plain(y, plan.lam,
                                                         plan.num_rows))
+
+
+@pytest.mark.parametrize("num_rows", ["whole", "mid-tile"])
+@pytest.mark.parametrize("split", [False, True], ids=["unsplit", "split"])
+@pytest.mark.parametrize("leveled", [False, True])
+@pytest.mark.parametrize("name, sup, tb, pat", PLANS)
+def test_k2_tile_map_is_the_permute_after_the_unpermute(
+        plans, name, sup, tb, pat, leveled, split, num_rows):
+    """K2 with a tile map (``tile_src``, a reordered plan's ``row_src``)
+    equals the chunk permute of its output without one, over every tile,
+    trimmed: ``permute_chunks_plain(unpermute(...), tile_src, num_rows)``,
+    bit for bit, leveled and not, the last section split (R = 1) and not,
+    ``num_rows`` a whole number of tiles and ending mid-tile.  The map is a
+    random permutation of the plan's tiles, one entry past them (which
+    reads as zeros) in place of its last."""
+    plan = recut(plans[name, sup, leveled], 1)
+    last = plan.sections[-1]
+    kw = {"partial": random_partial(last, sup, 3), "sec": last} \
+        if split else {}
+    y = torch.randn(plan.out8 * 128,
+                    generator=torch.Generator().manual_seed(4))
+    keep = y.clone()
+    n_tiles = plan.out8 if plan.lam is None else plan.lam.shape[0]
+    tile_src = torch.from_numpy(np.random.default_rng(5).permutation(
+        n_tiles).astype(np.int32))
+    tile_src[-1] = n_tiles
+    n = n_tiles * 128 - (77 if num_rows == "mid-tile" else 0)
+    got = twe.unpermute(y, plan.lam, n, tile_src=tile_src, **kw)
+    inner = twe.unpermute_plain(y, plan.lam, n_tiles * 128, **kw)
+    want = twe.permute_chunks_plain(inner, tile_src, n)
+    assert got.shape == (n,) and torch.equal(got, want)
+    assert not got[(n_tiles - 1) * 128:].any()
+    assert torch.equal(y, keep)
+    with pytest.raises(ValueError):
+        twe.unpermute(y, plan.lam, n_tiles * 128 + 1, tile_src=tile_src)
 
 
 def jax_plan(hp: tplan.HostPlan) -> jwe.WindowEllPlan:

@@ -4,8 +4,12 @@
 Host part: the planted-locality generators, ``block_order``,
 ``reorder_gain``, ``permute_csr`` and the probe verdicts must be EQUAL to the
 JAX package's on the same matrix, and the reordered plan equal leaf for leaf.
-Device part: the chunk permute's plain version must be bit-equal to the JAX
-Pallas kernel in interpret mode (it moves values without arithmetic).
+Device part: the chunk permute's plain version, and the gather table's set-up
+that takes its place on the reordered path, must be bit-equal to the JAX
+Pallas kernel in interpret mode (they move values without arithmetic), and
+the reordered SpMV through the composed maps (the permuted table, K2's tile
+map) bit-equal to the old composition of two permutes around the inner
+SpMV.
 Reordered SpMVs are held to the backward-error row bound
 ``|y - y_ref|_i <= 1e-5 * max((|A||x|)_i, 1)`` against JAX and the oracle:
 the two packages sum each row in different orders (and the JAX dispatch picks
@@ -15,6 +19,8 @@ The JAX planner calls ``_absorb_run_padding``, which its module does not
 define; the tests bind the port's copy into the JAX module for their
 duration (``monkeypatch``), so no file of the JAX package changes.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -208,6 +214,72 @@ def test_permute_chunks_plain_reads_outside_x_as_zero():
         tr.permute_chunks(x, src.long(), 10)
 
 
+@pytest.fixture(scope="module")
+def unaligned_plans():
+    """The 8000 x 8000 matrix, its natural plan and its reordered plan, on
+    the CPU."""
+    A = unaligned_matrix()
+    natural = twe.plan_from_host(tplan.build(A, split_rows=128,
+                                             step_groups=8), "cpu")
+    return A, natural, tr.build_reordered(A, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["reordered", "in order", "past the end"])
+def test_gather_table_plain_equals_jax_permute(unaligned_plans, case):
+    """The gather table's set-up, plain, is JAX's ``permute_chunks`` of x
+    (Pallas interpret mode) over the plan's columns, zero-padded to
+    ``cols_pad`` and the ``e8*128`` extras tail: x of 8000 (not whole
+    chunks) through the reordered plan's ``col_src``; in order
+    (``src=None``, JAX through the identity) on the natural plan; through a
+    ``src`` with chunks past x's end (chunk 63, in JAX's zero padding).
+    The wrapper takes it on the CPU."""
+    A, natural, rp = unaligned_plans
+    x = tt.RandomGenerator(7).vector(A.num_cols)
+    plan, src = (natural, None) if case == "in order" \
+        else (rp.inner, rp.col_src.clone())
+    if case == "past the end":
+        src[::5] = 63
+    jsrc = np.arange(63, dtype=np.int32) if src is None else src.numpy()
+    ref = np.zeros(plan.cols_pad + plan.e8 * 128, np.float32)
+    ref[:plan.num_cols] = np.asarray(jr.permute_chunks(
+        jnp.asarray(x), jnp.asarray(jsrc), plan.num_cols))
+    xt = torch.from_numpy(x)
+    got = twe.gather_table_plain(plan, xt, src)
+    assert got.dtype == torch.float32 and torch.equal(got,
+                                                      torch.from_numpy(ref))
+    if case == "past the end":
+        assert not got[:128].any() and got[128:plan.num_cols].any()
+    assert torch.equal(twe.gather_table(plan, xt, src), got)
+    with pytest.raises(ValueError):
+        twe.gather_table(plan, torch.zeros(plan.cols_pad + 1), None)
+
+
+@pytest.mark.parametrize("cap", [twe.CHUNK_RUNS, 1], ids=["Rmodule", "R1"])
+@pytest.mark.parametrize("which", ["banded", "clustered", "unaligned"])
+def test_spmv_reordered_equals_the_old_composition(which, cap):
+    """The reordered SpMV through the composed maps (the table set up from
+    x's chunks in ``col_src`` order, K2 writing output tile ``b`` from the
+    inner tile ``row_src[b]``) equals the old composition, ``permute(
+    spmv_window_ell(inner, permute(x, col_src)), row_src)``, bit for bit:
+    at the module's R and at R = 1, where the last section splits and K2
+    sums its tiles through the tile map."""
+    A = {"banded": lambda: port_matrix(BANDED_16K),
+         "clustered": lambda: port_matrix(CLUSTERED_16K),
+         "unaligned": unaligned_matrix}[which]()
+    rp = tr.build_reordered(A, device="cpu")
+    inner = dataclasses.replace(rp.inner,
+                                sections=twe._fold_schedule(rp.inner, cap))
+    rp = dataclasses.replace(rp, inner=inner)
+    if cap == 1:
+        assert inner.sections[-1].n_split > 0
+    xt = torch.from_numpy(tt.RandomGenerator(7).vector(A.num_cols))
+    old = tr.permute_chunks_plain(
+        twe.spmv_window_ell(inner, tr.permute_chunks_plain(
+            xt, rp.col_src, inner.num_cols)), rp.row_src, rp.num_rows)
+    got = tr.spmv_reordered(rp, xt)
+    assert got.shape == (A.num_rows,) and torch.equal(got, old)
+
+
 # ---- the reordered plan ----
 
 def assert_reordered_equal(jrp, rp):
@@ -289,12 +361,16 @@ def test_permuted_banded_build_raises_m7(monkeypatch):
         tr.build_reordered(A, device="cpu")
 
 
-def test_reordered_stream_bytes_add_both_permutes():
+def test_reordered_stream_bytes_add_the_setup_and_the_tile_map():
+    """The inner plan's bytes, x and ``col_src`` read once by the table's
+    set-up, and ``row_src`` read by K2, 4 B an output tile."""
     A = unaligned_matrix()
     rp = tr.build_reordered(A, device="cpu")
     assert rp.inner.num_cols == 63 * 128
     assert rp.stream_bytes == rp.inner.stream_bytes \
-        + 63 * 128 * 8 + 63 * 4 + 8000 * 8 + 63 * 4
+        + 8000 * 4 + 63 * 4 + 63 * 4
+    assert rp.stream_bytes - rp.inner.stream_bytes \
+        == twe.setup_bytes(8000, 63) + 63 * 4
 
 
 # ---- the dispatch ----

@@ -1,14 +1,14 @@
 """The window-ELL planner (:mod:`.plan`, NumPy), its device kernels
-(:mod:`.window_ell`, CUDA through :mod:`._build`), and block reordering
-(:mod:`.reorder`: the probe in NumPy, the chunk permute in CUDA).
+(:mod:`.window_ell`, CUDA through :mod:`._build`: the gather table's
+set-up, which is the chunk permute, the fold and the epilogues), and block
+reordering (:mod:`.reorder`: the probe in NumPy, the reordered plan).
 
-Each kernel wrapper counts its launches in an attribute, ``launches`` (for
-K1's fold a dict per value stream); :func:`launch_counts` reads them all and
-:func:`reset_launch_counts` sets them to 0."""
+Each kernel counts its launches in an attribute of a wrapper, ``launches``
+(for K1's fold a dict per value stream); :func:`launch_counts` reads them
+all and :func:`reset_launch_counts` sets them to 0."""
 
-from .reorder import permute_chunks
-from .window_ell import (FOLD_VARIANTS, section_epilogue, unpermute,
-                         window_ell_fold)
+from .window_ell import (FOLD_VARIANTS, permute_chunks, section_epilogue,
+                         unpermute, window_ell_fold)
 
 
 def reset_launch_counts() -> None:
@@ -21,7 +21,8 @@ def launch_counts() -> dict:
     """``{kernel name: launches}``: K1's fold once per variant (f32, bf16
     and pattern value streams) and its section epilogue (one launch after
     each section but the last of an SpMV), then K2 (the SpMV's final
-    epilogue) and K3."""
+    epilogue) and K3 (the gather table's set-up, once a call, and the
+    public ``permute_chunks``)."""
     counts = {name: window_ell_fold.launches[v]
               for v, name in FOLD_VARIANTS.items()}
     counts.update(section_epilogue=section_epilogue.launches,

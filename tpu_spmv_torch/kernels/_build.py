@@ -132,7 +132,6 @@ def build_kernels() -> str:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_I64 = ctypes.c_int64
 
 
 @functools.cache
@@ -145,14 +144,13 @@ def kernels() -> ctypes.CDLL:
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
         _P]
     lib.tsp_window_ell_fold.restype = _I
-    # the epilogues take one argument block (bytes packed by the wrapper):
-    # one pointer converted per launch instead of eleven or twelve values
-    lib.tsp_section_epilogue.argtypes = [ctypes.c_char_p]
-    lib.tsp_section_epilogue.restype = _I
-    lib.tsp_unpermute.argtypes = [ctypes.c_char_p]
-    lib.tsp_unpermute.restype = _I
-    lib.tsp_permute_chunks.argtypes = [_P, _I64, _P, _P, _I64, _P]
-    lib.tsp_permute_chunks.restype = _I
+    # the epilogues and the table's set-up take one argument block (bytes
+    # packed by the wrapper): one pointer converted per launch instead of
+    # seven to thirteen values
+    for fn in (lib.tsp_section_epilogue, lib.tsp_unpermute,
+               lib.tsp_permute_chunks):
+        fn.argtypes = [ctypes.c_char_p]
+        fn.restype = _I
     # the benchmark probes (tpu_spmv_torch/probes)
     lib.tsp_probe_proto_v2.argtypes = [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]

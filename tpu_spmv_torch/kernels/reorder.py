@@ -19,13 +19,13 @@ Host part (NumPy, equal to the JAX module's on the same matrix):
 
 Device part:
 
-* :func:`permute_chunks` (K3, ``csrc/permute.cu``) gathers 128-element
-  chunks; beside it, its plain version :func:`permute_chunks_plain`.  The
-  wrapper takes the plain version only for a tensor on the CPU, and counts
-  its launches in ``permute_chunks.launches``;
+* :func:`permute_chunks` (K3, ``csrc/permute.cu``, defined beside the
+  gather table's set-up in :mod:`.window_ell`) gathers 128-element chunks;
+  beside it, its plain version :func:`permute_chunks_plain`;
 * :class:`ReorderedPlan` is the inner window-ELL plan plus the two gather
-  maps; :func:`spmv_reordered` runs it as
-  ``unpermute(inner(permute(x)))``;
+  maps; :func:`spmv_reordered` runs it as the inner plan's SpMV with the
+  x permute fused into the gather table's set-up (K3) and the row permute
+  composed into K2's tile map, so each vector is written once;
 * :func:`build_reordered` (through :func:`build_reordered_host`, the host
   half the dispatch caches) and :func:`reordered_from_arrays` make one,
   from a host CSR or from a JAX ``ReorderedPlan``'s arrays.
@@ -33,7 +33,6 @@ Device part:
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import os
 
@@ -41,10 +40,12 @@ import numpy as np
 import torch
 
 from ..csr import CSRMatrix
-from ..errors import DeviceException, InvalidFormatError, guarded_upload
+from ..errors import InvalidFormatError, guarded_upload
 from .plan import (LANE, SUP_LEVELS, HostPlan, _choose_sup,
                    _sampled_sup_costs, build_auto)
-from .window_ell import WindowEllPlan, plan_from_arrays, spmv_window_ell
+from .window_ell import permute_chunks, permute_chunks_plain  # noqa: F401
+from .window_ell import (WindowEllPlan, gather_table, plan_from_arrays,
+                         setup_bytes, spmv_on_table)
 
 BLOCK = LANE            # permutation granularity: one 128-element chunk
 # top-K quotient-graph pruning: each block keeps its K heaviest neighbours,
@@ -220,68 +221,6 @@ def maybe_reorder(csr: CSRMatrix, choice: tuple | None = None,
     return None
 
 
-# ---- K3: the chunk permute ----
-
-def _check_permute(x: torch.Tensor, src: torch.Tensor, out_len: int) -> None:
-    if x.dtype != torch.float32 or x.ndim != 1 or src.dtype != torch.int32 \
-            or src.ndim != 1:
-        raise ValueError("permute_chunks takes float32 x and int32 src, "
-                         "both 1-D")
-    if not 0 <= out_len <= src.numel() * LANE:
-        raise ValueError(f"permute_chunks: out_len {out_len} for "
-                         f"{src.numel()} chunks")
-    if x.device != src.device:
-        raise ValueError(f"x on {x.device}, src on {src.device}")
-
-
-def permute_chunks_plain(x: torch.Tensor, src: torch.Tensor,
-                         out_len: int) -> torch.Tensor:
-    """K3's plain version: ``index_select`` of 128-element chunks from x
-    zero-padded by one chunk, every source chunk outside
-    ``[0, ceil(len(x)/128))`` mapped to that zero chunk; flattened and
-    trimmed to ``out_len``."""
-    _check_permute(x, src, out_len)
-    n_src = -(-x.numel() // LANE)
-    x2d = torch.zeros(n_src + 1, LANE, dtype=torch.float32, device=x.device)
-    x2d.view(-1)[:x.numel()] = x
-    idx = src.long()
-    idx = torch.where((idx >= 0) & (idx < n_src), idx, n_src)
-    return x2d.index_select(0, idx).reshape(-1)[:out_len]
-
-
-def permute_chunks(x: torch.Tensor, src: torch.Tensor,
-                   out_len: int) -> torch.Tensor:
-    """K3: ``out[j*128 + e] = x[src[j]*128 + e]`` for the first ``out_len``
-    elements, a chunk or element past the end of x reading as 0
-    (``permute_chunks``, ``tpu_spmv/kernels/reorder.py:260-271``).  Launches
-    ``csrc/permute.cu`` for CUDA tensors; the plain version for CPU ones."""
-    _check_permute(x, src, out_len)
-    if x.device.type == "cpu":
-        return permute_chunks_plain(x, src, out_len)
-    if x.device.type != "cuda":
-        raise ValueError(f"no permute kernel for {x.device}")
-    from ._build import kernels
-
-    x, src = x.contiguous(), src.contiguous()
-    out = torch.empty(out_len, dtype=torch.float32, device=x.device)
-    err = kernels().tsp_permute_chunks(
-        x.data_ptr(), x.numel(), src.data_ptr(), out.data_ptr(), out_len,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    if err:
-        raise DeviceException(f"permute_chunks launch: cudaError {err}")
-    permute_chunks.launches += 1
-    return out
-
-
-permute_chunks.launches = 0
-
-
-def permute_bytes(out_len: int) -> int:
-    """Bytes one chunk permute moves: read and write 4 B per element kept,
-    and 4 B of ``src`` per chunk."""
-    return out_len * 8 + -(-out_len // LANE) * 4
-
-
 # ---- the reordered plan ----
 
 @dataclasses.dataclass(frozen=True)
@@ -307,19 +246,23 @@ class ReorderedPlan:
 
     @property
     def stream_bytes(self) -> float:
-        """Bytes one SpMV moves: the inner plan's and both permutes'."""
-        return self.inner.stream_bytes + permute_bytes(self.inner.num_cols) \
-            + permute_bytes(self.num_rows)
+        """Bytes one SpMV moves: the inner plan's, x and ``col_src`` read
+        by the gather table's set-up (:func:`~.window_ell.setup_bytes`),
+        and ``row_src`` read by K2, 4 B an output tile."""
+        return self.inner.stream_bytes \
+            + setup_bytes(self.num_cols, len(self.col_src)) \
+            + 4 * -(-self.num_rows // LANE)
 
 
 def spmv_reordered(rp: ReorderedPlan, x: torch.Tensor) -> torch.Tensor:
-    """``y = A @ x`` through a reordered plan: gather x into the plan's block
-    order, run the inner plan, gather the rows back
-    (``tpu_spmv/kernels/reorder.py:320-328``)."""
-    inner = rp.inner
-    xp = permute_chunks(x, rp.col_src, inner.num_cols)
-    return permute_chunks(spmv_window_ell(inner, xp), rp.row_src,
-                          rp.num_rows)
+    """``y = A @ x`` through a reordered plan
+    (``tpu_spmv/kernels/reorder.py:320-328``: gather x into the plan's
+    block order, run the inner plan, gather the rows back), with neither
+    gather a pass of its own: the gather table's set-up (K3) reads x's
+    chunks in ``col_src`` order, and K2 writes the output tile ``b`` from
+    the inner plan's tile ``row_src[b]``, trimmed to ``num_rows``."""
+    table = gather_table(rp.inner, x, rp.col_src)
+    return spmv_on_table(rp.inner, table, rp.row_src, rp.num_rows)
 
 
 def _check_maps(col_src: np.ndarray, row_src: np.ndarray, num_rows: int,

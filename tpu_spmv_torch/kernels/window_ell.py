@@ -10,22 +10,29 @@ Port of the device half of ``tpu_spmv/kernels/window_ell.py``:
   JAX ``WindowEllPlan`` (``np.asarray`` of each leaf, a bf16 value stream
   included) or those of a port
   :class:`~tpu_spmv_torch.kernels.plan.HostPlan`;
-* :func:`fold_sections` (K1 as the SpMV runs it, ``csrc/window_ell.cu``:
-  the chunked fold, and :func:`section_epilogue`, which ends each section
-  but the last: the ordered sum of its split superblocks' partial tiles
-  and the publish of the extras totals into the gather table;
-  :func:`window_ell_fold` ends the last section too) and :func:`unpermute` (K2,
-  ``csrc/unpermute.cu``, which ends the SpMV and sums the last section's
-  split tiles) are the kernel wrappers.  Beside each is its plain PyTorch
-  version.  A wrapper takes the plain version only for a tensor on the
-  CPU; for a CUDA tensor it launches its kernel or raises.  Each wrapper
-  counts its launches in an attribute, ``launches``: an integer, and for
+* :func:`gather_table` (K3, ``csrc/permute.cu``, the SpMV's first kernel:
+  the gather table written in one pass, x's 128-element chunks in the
+  order a reordered plan gives, then zeros), :func:`fold_sections` (K1 as
+  the SpMV runs it, ``csrc/window_ell.cu``: the chunked fold, and
+  :func:`section_epilogue`, which ends each section but the last: the
+  ordered sum of its split superblocks' partial tiles and the publish of
+  the extras totals into the gather table; :func:`window_ell_fold` ends
+  the last section too) and :func:`unpermute` (K2, ``csrc/unpermute.cu``,
+  which ends the SpMV, sums the last section's split tiles and, for a
+  reordered plan, puts its tiles back in the natural order) are the
+  kernel wrappers, with :func:`permute_chunks`, K3 as the public chunk
+  permute.  Beside each is its plain PyTorch version.  A wrapper takes the
+  plain version only for a tensor on the CPU; for a CUDA tensor it
+  launches its kernel or raises.  Each kernel counts its launches in an
+  attribute of one wrapper, ``launches``: an integer (K3's on
+  :func:`permute_chunks`, which :func:`gather_table` adds to), and for
   K1's fold a dict per value stream (f32, bf16, or none for a pattern
   plan), keyed as :data:`FOLD_VARIANTS`;
-* :func:`spmv_window_ell` runs a plan: pad x and append the extras region,
-  fold section by section, unpermute through ``lam``, trim to
-  ``num_rows``; :func:`spmv_pattern` runs a pattern plan of a
-  column-scaled matrix.
+* :func:`spmv_window_ell` runs a plan: set up the gather table, fold
+  section by section, unpermute through ``lam``, trim to ``num_rows``;
+  :func:`spmv_on_table` is the part after the set-up, which a reordered
+  plan shares; :func:`spmv_pattern` runs a pattern plan of a column-scaled
+  matrix.
 
 Pattern plans stream no values: every stored nonzero is 1.0, and pad slots
 carry a sentinel sub-block that no output row matches (:func:`sentinel`).
@@ -49,19 +56,21 @@ _NTB_LEGAL = (8, 32, 128)
 _F32 = torch.float32
 # a partial tile's width (one superblock, n_tb*128 floats) at each height
 _WIDTHS = tuple(n * LANE for n in _NTB_LEGAL)
-# The argument blocks of the epilogues' entry points (csrc/epilogue.cuh):
-# C structs of 8-byte fields, a pointer or an int64 each, passed as one
-# pointer through ctypes per launch.  Each block begins with the section's
-# SplitTiles, packed once (FoldSection.launch_block), and goes on with the
-# launch's own fields.  The field names are the C structs', in their
-# order; tests/test_torch_epilogue.py holds them to the sources.
+# The argument blocks of the epilogues' and the table set-up's entry points
+# (csrc/epilogue.cuh): C structs of 8-byte fields, a pointer or an int64
+# each, passed as one pointer through ctypes per launch.  An epilogue's
+# block begins with the section's SplitTiles, packed once
+# (FoldSection.launch_block), and goes on with the launch's own fields.
+# The field names are the C structs', in their order;
+# tests/test_torch_epilogue.py holds them to the sources.
 ARG_BLOCKS = {
     "SplitTiles": ("split_ptr", "split_base", "split_of_tile", "n_split",
                    "n_tiles"),
     "SectionEpilogueArgs": ("split", "partial", "n_tb", "extras_tile", "out",
                             "table_tail", "stream"),
-    "UnpermuteArgs": ("split", "partial", "n_tb", "y", "n_y", "lam", "out",
-                      "n", "stream"),
+    "UnpermuteArgs": ("split", "partial", "n_tb", "y", "n_y", "lam",
+                      "tile_src", "n_src", "out", "n", "stream"),
+    "PermuteArgs": ("x", "n_x", "src", "out", "out_len", "n_out", "stream"),
 }
 
 
@@ -74,6 +83,7 @@ _SPLIT_TILES = struct.Struct(f"{len(ARG_BLOCKS['SplitTiles'])}q")
 _NO_SPLIT = bytes(_SPLIT_TILES.size)
 _EPILOGUE_ARGS = _launch_fields("SectionEpilogueArgs")
 _UNPERMUTE_ARGS = _launch_fields("UnpermuteArgs")
+_PERMUTE_ARGS = struct.Struct(f"{len(ARG_BLOCKS['PermuteArgs'])}q")
 # K1's value-stream codes (tsp_window_ell_fold's `values` argument)
 _VALUE_CODES = {"float32": 0, "bfloat16": 1, "pattern": 2}
 # K1's variants: the kernel name of each value stream's launches
@@ -740,14 +750,22 @@ def _pad_tiles(y: torch.Tensor, n_tiles_pad: int) -> torch.Tensor:
 
 def unpermute_plain(y: torch.Tensor, lam: torch.Tensor | None,
                     num_rows: int, *, partial: torch.Tensor | None = None,
-                    sec: FoldSection | None = None) -> torch.Tensor:
+                    sec: FoldSection | None = None,
+                    tile_src: torch.Tensor | None = None) -> torch.Tensor:
     """K2's plain version: ``unpermute_plain(chunk_reduce_plain(partial,
     sec, y), lam, num_rows)`` (the reduce on a copy of ``y``, and only
     where ``sec`` split a superblock); the unpermute itself is ``out[t, j]
     = y[t, lam[t, j]]`` over the padded tiles, flattened and trimmed to
-    ``num_rows``, or ``y[:num_rows]`` without ``lam``."""
+    ``num_rows``, or ``y[:num_rows]`` without ``lam``.  With ``tile_src``,
+    the unpermuted rows of every tile (``lam``'s, or ``y``'s without it)
+    go through :func:`permute_chunks_plain` by ``tile_src``, trimmed to
+    ``num_rows``."""
     if sec is not None and sec.n_split:
         y = chunk_reduce_plain(partial, sec, y.clone())
+    if tile_src is not None:
+        n_src = y.numel() if lam is None else lam.numel()
+        return permute_chunks_plain(unpermute_plain(y, lam, n_src), tile_src,
+                                    num_rows)
     if lam is None:
         return y.reshape(-1)[:num_rows]
     yp = _pad_tiles(y, lam.shape[0])
@@ -757,6 +775,7 @@ def unpermute_plain(y: torch.Tensor, lam: torch.Tensor | None,
 def unpermute(y: torch.Tensor, lam: torch.Tensor | None, num_rows: int, *,
               partial: torch.Tensor | None = None,
               sec: FoldSection | None = None,
+              tile_src: torch.Tensor | None = None,
               stream: int | None = None) -> torch.Tensor:
     """K2, the SpMV's final epilogue: restore row order from a leveled
     output (flat, a whole number of 128-row tiles; ``lam``, int32 ``(T,
@@ -764,16 +783,19 @@ def unpermute(y: torch.Tensor, lam: torch.Tensor | None, num_rows: int, *,
     each row's source lane; None for the identity), trimmed to
     ``num_rows``.  With the last section's ``sec`` and ``partial`` tiles,
     the rows of its split superblocks are their chunk-order sums (the
-    section epilogue's) instead of ``y``'s.  Launches ``csrc/unpermute.cu``
-    for CUDA tensors on ``stream`` (a raw ``cudaStream_t``, the current
-    stream when None) with programmatic dependent launch, reading
-    past-the-end tiles as zeros instead of padding them; the plain version
-    for CPU ones.  ``y`` is not modified.  Checks the tensors passed, an
-    attribute read each."""
+    section epilogue's) instead of ``y``'s.  With ``tile_src`` (int32, one
+    entry per output tile: a reordered plan's ``row_src``), output tile
+    ``b`` is the plan's tile ``tile_src[b]``, unpermuted; a tile past the
+    plan's reads as zeros.  Launches ``csrc/unpermute.cu`` for CUDA
+    tensors on ``stream`` (a raw ``cudaStream_t``, the current stream when
+    None) with programmatic dependent launch, reading past-the-end tiles
+    as zeros instead of padding them; the plain version for CPU ones.
+    ``y`` is not modified.  Checks the tensors passed, an attribute read
+    each."""
     if not y.is_cuda:
         if y.is_cpu:
             return unpermute_plain(y, lam, num_rows, partial=partial,
-                                   sec=sec)
+                                   sec=sec, tile_src=tile_src)
         raise ValueError(f"no unpermute kernel for {y.device}")
     dev = y.get_device()
     n_y = y.numel()
@@ -789,16 +811,25 @@ def unpermute(y: torch.Tensor, lam: torch.Tensor | None, num_rows: int, *,
                              f"device; got {lam.dtype} {tuple(lam.shape)} "
                              f"on {lam.device}")
         lam_ptr, n_src = lam.data_ptr(), lam.numel()
-    if not 0 <= num_rows <= n_src:
-        raise ValueError(f"unpermute: {n_src} rows, num_rows {num_rows}")
+    tile_ptr, n_max = 0, n_src
+    if tile_src is not None:
+        if tile_src.dtype != torch.int32 or tile_src.get_device() != dev \
+                or tile_src.dim() != 1 or not tile_src.is_contiguous():
+            raise ValueError(f"unpermute takes contiguous 1-D int32 "
+                             f"tile_src on y's device; got {tile_src.dtype} "
+                             f"{tuple(tile_src.shape)} on {tile_src.device}")
+        tile_ptr, n_max = tile_src.data_ptr(), tile_src.numel() * LANE
+    if not 0 <= num_rows <= n_max:
+        raise ValueError(f"unpermute: {n_max} rows, num_rows {num_rows}")
     split, partial_ptr, n_tb = _NO_SPLIT, 0, 0
     if sec is not None and sec.n_split:
         n_tb = _check_partial("unpermute", partial, sec, dev, n_y)
         split, partial_ptr = sec.launch_block, partial.data_ptr()
     res = torch.empty(num_rows, dtype=_F32, device=y.device)
     err = kernels().tsp_unpermute(split + _UNPERMUTE_ARGS.pack(
-        partial_ptr, n_tb, y.data_ptr(), n_y, lam_ptr, res.data_ptr(),
-        num_rows, _current_stream(dev) if stream is None else stream))
+        partial_ptr, n_tb, y.data_ptr(), n_y, lam_ptr, tile_ptr, n_src,
+        res.data_ptr(), num_rows,
+        _current_stream(dev) if stream is None else stream))
     if err:
         raise DeviceException(f"unpermute launch: cudaError {err}")
     unpermute.launches += 1
@@ -808,36 +839,169 @@ def unpermute(y: torch.Tensor, lam: torch.Tensor | None, num_rows: int, *,
 unpermute.launches = 0
 
 
+# ---- K3: the chunk gather, the gather table's set-up ----
+
+def _check_permute(x: torch.Tensor, src: torch.Tensor, out_len: int) -> None:
+    if x.dtype != torch.float32 or x.ndim != 1 or src.dtype != torch.int32 \
+            or src.ndim != 1:
+        raise ValueError("permute_chunks takes float32 x and int32 src, "
+                         "both 1-D")
+    if not 0 <= out_len <= src.numel() * LANE:
+        raise ValueError(f"permute_chunks: out_len {out_len} for "
+                         f"{src.numel()} chunks")
+    if x.device != src.device:
+        raise ValueError(f"x on {x.device}, src on {src.device}")
+
+
+def permute_chunks_plain(x: torch.Tensor, src: torch.Tensor,
+                         out_len: int) -> torch.Tensor:
+    """K3's plain version: ``index_select`` of 128-element chunks from x
+    zero-padded by one chunk, every source chunk outside
+    ``[0, ceil(len(x)/128))`` mapped to that zero chunk; flattened and
+    trimmed to ``out_len``."""
+    _check_permute(x, src, out_len)
+    n_src = -(-x.numel() // LANE)
+    x2d = torch.zeros(n_src + 1, LANE, dtype=torch.float32, device=x.device)
+    x2d.view(-1)[:x.numel()] = x
+    idx = src.long()
+    idx = torch.where((idx >= 0) & (idx < n_src), idx, n_src)
+    return x2d.index_select(0, idx).reshape(-1)[:out_len]
+
+
+def _permute_into(x: torch.Tensor, src: torch.Tensor | None,
+                  out: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Launch K3 (``csrc/permute.cu``) on the current stream of ``out``'s
+    device: ``out[:out_len]`` gathered from x by ``src`` (None: in order),
+    the rest of ``out`` (contiguous f32, checked by the caller) zeroed.
+    Checks the other tensors' attributes only; counts the launch in
+    ``permute_chunks.launches``.  Returns ``out``."""
+    dev = out.get_device()
+    if x.dtype != _F32 or x.dim() != 1 or x.get_device() != dev:
+        raise ValueError(f"K3 takes 1-D float32 x on {out.device}; got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if src is not None:
+        if src.dtype != torch.int32 or src.dim() != 1 \
+                or src.get_device() != dev or out_len > src.numel() * LANE:
+            raise ValueError(f"K3 takes 1-D int32 src on {out.device}, a "
+                             f"chunk per 128 of {out_len} outputs; got "
+                             f"{src.dtype} {tuple(src.shape)} on "
+                             f"{src.device}")
+        src = src.contiguous()      # held until the launch is queued
+    if not out.numel():
+        return out
+    x = x.contiguous()
+    err = kernels().tsp_permute_chunks(_PERMUTE_ARGS.pack(
+        x.data_ptr(), x.numel(), 0 if src is None else src.data_ptr(),
+        out.data_ptr(), out_len, out.numel(), _current_stream(dev)))
+    if err:
+        raise DeviceException(f"permute_chunks launch: cudaError {err}")
+    permute_chunks.launches += 1
+    return out
+
+
+def permute_chunks(x: torch.Tensor, src: torch.Tensor,
+                   out_len: int) -> torch.Tensor:
+    """K3 as the public chunk permute: ``out[j*128 + e] = x[src[j]*128 +
+    e]`` for the first ``out_len`` elements, a chunk or element past the
+    end of x reading as 0 (``permute_chunks``,
+    ``tpu_spmv/kernels/reorder.py:260-271``).  Launches ``csrc/permute.cu``
+    for CUDA tensors; the plain version for CPU ones."""
+    if not x.is_cuda:
+        return permute_chunks_plain(x, src, out_len)
+    if out_len < 0:
+        raise ValueError(f"permute_chunks: out_len {out_len}")
+    return _permute_into(x, src, torch.empty(out_len, dtype=_F32,
+                                             device=x.device), out_len)
+
+
+permute_chunks.launches = 0
+
+
+def setup_bytes(n_x: int, n_src: int) -> int:
+    """Bytes the gather table's set-up reads: x once (``n_x`` floats) and
+    ``n_src`` int32 chunk indices (0 in order).  Its write of the table is
+    the plan's own (:attr:`WindowEllPlan.stream_bytes` counts the table
+    once)."""
+    return 4 * (n_x + n_src)
+
+
+def _table_len(plan: WindowEllPlan, x: torch.Tensor,
+               src: torch.Tensor | None) -> int:
+    """The positions of the table that come from x: ``len(x)`` in order,
+    the plan's columns through ``src``."""
+    if src is not None:
+        return plan.num_cols
+    if x.numel() > plan.cols_pad:
+        raise ValueError(f"x of {x.numel()} for a plan of {plan.cols_pad} "
+                         f"padded columns")
+    return x.numel()
+
+
+def gather_table_plain(plan: WindowEllPlan, x: torch.Tensor,
+                       src: torch.Tensor | None = None) -> torch.Tensor:
+    """The table's set-up, plain: x (or, with ``src``,
+    :func:`permute_chunks_plain` of x over the plan's ``num_cols``)
+    zero-padded to ``cols_pad``, then the ``e8*128`` extras-total slots,
+    zero."""
+    if x.dtype != _F32 or x.dim() != 1 or x.device != plan.device:
+        raise ValueError(f"the gather table takes 1-D float32 x on "
+                         f"{plan.device}; got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    n = _table_len(plan, x, src)
+    table = torch.zeros(plan.cols_pad + plan.e8 * LANE, dtype=_F32,
+                        device=plan.device)
+    table[:n] = x if src is None else permute_chunks_plain(x, src, n)
+    return table
+
+
+def gather_table(plan: WindowEllPlan, x: torch.Tensor,
+                 src: torch.Tensor | None = None) -> torch.Tensor:
+    """The SpMV's gather table, which K1 reads and the section epilogues
+    publish into: x zero-padded to ``cols_pad``, then the ``e8*128``
+    extras-total slots, zero.  With ``src`` (int32, one entry per 128
+    columns: a reordered plan's ``col_src``), the plan's column chunk ``j``
+    is x's chunk ``src[j]`` (a chunk or element past the end of x reads
+    as 0).  For a CUDA ``x`` launches K3 (``csrc/permute.cu``) once, which
+    writes every element of the table; the plain version for a CPU one."""
+    if not x.is_cuda:
+        return gather_table_plain(plan, x, src)
+    n_table = plan.cols_pad + plan.e8 * LANE
+    out_len = _table_len(plan, x, src)
+    return _permute_into(x, src, torch.empty(n_table, dtype=_F32,
+                                             device=plan.device), out_len)
+
+
 # ---- the SpMV ----
 
-def gather_table(plan: WindowEllPlan, x: torch.Tensor) -> torch.Tensor:
-    """x zero-padded to ``cols_pad``, then the ``e8*128`` extras-total
-    slots (zero until the fold publishes into them)."""
-    table = torch.zeros(plan.cols_pad + plan.e8 * LANE, dtype=torch.float32,
-                        device=plan.device)
-    table[:x.shape[0]] = x
-    return table
+def spmv_on_table(plan: WindowEllPlan, table: torch.Tensor,
+                  tile_src: torch.Tensor | None = None,
+                  num_rows: int | None = None) -> torch.Tensor:
+    """The SpMV after the table's set-up: K1 folds each section into the
+    call's own gather table ``table``, each section but the last ended by
+    :func:`section_epilogue`; :func:`unpermute` (K2) ends the call wherever
+    the plan is leveled, its last section split a superblock, or
+    ``tile_src`` maps its tiles (a reordered plan's ``row_src``), and sums
+    that section's split tiles.  Returns ``num_rows`` (default the plan's)
+    f32 rows.  On the card every launch goes to the stream current at the
+    call; on the CPU the plain versions run in the same order."""
+    plain = table.is_cpu
+    stream = None if plain else _current_stream(table.get_device())
+    out, partial = fold_sections(plan, table, plain, stream)
+    last = plan.sections[-1] if plan.sections else None
+    num_rows = plan.num_rows if num_rows is None else num_rows
+    if tile_src is None and plan.lam is None \
+            and (last is None or not last.n_split):
+        return out[:num_rows]
+    return unpermute(out, plan.lam, num_rows, partial=partial, sec=last,
+                     tile_src=tile_src, stream=stream)
 
 
 def spmv_window_ell(plan: WindowEllPlan, x: torch.Tensor) -> torch.Tensor:
     """``y = A @ x`` through a plan (``_spmv_window_ell``,
     ``window_ell.py:1504-1523``).  ``x`` is the unpadded ``(num_cols,)``
-    operand on the plan's device; returns ``(num_rows,)`` f32.  K1 folds
-    each section into the call's own gather table, each section but the
-    last ended by :func:`section_epilogue`; :func:`unpermute` (K2) ends the
-    call wherever the plan is leveled or its last section split a
-    superblock, and sums that section's split tiles.  On the card every
-    launch goes to the stream current at the call; on the CPU the plain
-    versions run in the same order."""
-    table = gather_table(plan, x)
-    plain = table.is_cpu
-    stream = None if plain else _current_stream(table.get_device())
-    out, partial = fold_sections(plan, table, plain, stream)
-    last = plan.sections[-1] if plan.sections else None
-    if plan.lam is None and (last is None or not last.n_split):
-        return out[:plan.num_rows]
-    return unpermute(out, plan.lam, plan.num_rows, partial=partial, sec=last,
-                     stream=stream)
+    operand on the plan's device; returns ``(num_rows,)`` f32: the gather
+    table's set-up (:func:`gather_table`), then :func:`spmv_on_table`."""
+    return spmv_on_table(plan, gather_table(plan, x))
 
 
 def spmv_pattern(plan: WindowEllPlan, scale: torch.Tensor,

@@ -1,15 +1,23 @@
 """Where one SpMV's device time goes, kernel by kernel, on one NVIDIA GPU.
 
     python3 chip_profile.py [--calls 20]
-                            [--cells headline,mesh,ab,levers,pagerank]
-                            [--cells ablation]
+                            [--cells headline,mesh,banded,ab,levers,pagerank]
+                            [--cells web,pagerank1m,wide,floors,ablation]
 
 For ``chip_smoke.py``'s matrices (``headline``: the merge-path power-law
-matrix; ``mesh``: the scrambled 2^20 mesh, served reordered; ``ab``: the
-planted banded and clustered matrices at 262,144 rows, natural and
-reordered; ``levers``: the headline with a bf16 value stream and, column-
-scaled, on the pattern path; ``pagerank``: one PageRank SpMV of the
-262,144-node web graph, on its pattern plan), each plan is resolved through
+matrix; ``mesh``: the scrambled 2^20 mesh, served reordered; ``banded``:
+the same mesh with ``reorder=False``, its natural arm, served by a
+row-banded stack of plans; ``ab``: the planted banded and clustered
+matrices at 131,072 rows, natural and reordered; ``levers``: the headline
+with a bf16 value stream and, column-scaled, on the pattern path;
+``pagerank``: one PageRank SpMV of the 262,144-node web graph, on its
+pattern plan; and, not in the default
+cells, ``web``: the 1M-node web graph, a banded stack; ``pagerank1m``:
+PageRank's SpMV on it column-normalised, a banded pattern stack; ``wide``:
+the 1M x 4M web graph on column strips, the headline's law with 1.5M
+columns on a composite plan, the 1.5M-node web graph on the flat path;
+``floors``: the headline as SCALAR_CSR, its naive plan, and as
+ELL_KERNEL, the flat path), each plan is resolved through
 ``spmv_csr`` (auto configuration, with the cell's changes) and warmed up,
 then ``--calls`` calls are traced with ``torch.profiler``.
 Per plan it prints:
@@ -27,10 +35,14 @@ Per plan it prints:
   epilogues and K2), every call must set up its table with one K3 launch,
   and a call may launch nothing besides the port's kernels but the
   output's zero-fill (and a pattern plan's scale multiply): no zero-fill
-  or copy of the table, no publish copy, no table clone, no permute pass;
+  or copy of the table, no publish copy, no table clone, no permute pass.
+  A banded call sets up, fills and folds per band, and may add one join
+  (``other_launches``);
 * K1's device µs per section, in section order: the chunked fold plus its
   epilogue, the section epilogue after each section but the last and K2
-  after the last where the call ran it (the mean over the calls).
+  after the last where the call ran it (the mean over the calls); for a
+  banded call per band, with each band's device µs and launches, and the
+  join's.
 
 ``ablation`` (not in the default cells) times K1 as the SpMV runs it
 (``fold_sections``: no epilogue after the last section, whose split tiles
@@ -61,18 +73,63 @@ FOLD_KERNEL = "fold_chunk"
 EPILOGUE_KERNEL = "section_epilogue"
 K2_KERNEL = "unpermute_kernel"
 K3_KERNEL = "permute_chunks_kernel"
-# launches per call besides the port's kernels: the output's zero-fill, and
-# a pattern plan's scale multiply (K3 writes the whole gather table)
-OTHER_LAUNCHES = {False: 1, True: 2}
+
+
+def window_plans(plan) -> list:
+    """The window-ELL plans one call of ``plan`` runs, in launch order
+    (none on the flat path)."""
+    from tpu_spmv_torch import DeviceCSR
+    from tpu_spmv_torch.kernels.reorder import ReorderedPlan
+    from tpu_spmv_torch.kernels.strips import StripPlan
+    from tpu_spmv_torch.kernels.window_ell import BandedPlan, CompositePlan
+    from tpu_spmv_torch.spmv import PatternPlan
+
+    if isinstance(plan, PatternPlan):
+        return window_plans(plan.plan)
+    if isinstance(plan, ReorderedPlan):
+        return window_plans(plan.inner)
+    if isinstance(plan, (BandedPlan, StripPlan, CompositePlan)):
+        return [q for p in plan.plans for q in window_plans(p)]
+    return [] if isinstance(plan, DeviceCSR) else [plan]
+
+
+def other_launches(plan) -> int | None:
+    """Launches per call besides the port's kernels, by plan type: each
+    window-ELL plan's output zero-fill, the join of a banded stack of two
+    bands or more, the add after each strip or level but the first, and a
+    pattern plan's scale multiply (K3 writes the whole gather table).
+    ``None`` where the call runs the flat path (a composite's tail, or the
+    matrix itself): those are PyTorch's own ops, counted but not held to a
+    number."""
+    from tpu_spmv_torch import DeviceCSR
+    from tpu_spmv_torch.kernels.reorder import ReorderedPlan
+    from tpu_spmv_torch.kernels.strips import StripPlan
+    from tpu_spmv_torch.kernels.window_ell import BandedPlan, CompositePlan
+    from tpu_spmv_torch.spmv import PatternPlan
+
+    if isinstance(plan, PatternPlan):
+        return other_launches(plan.plan) + 1
+    if isinstance(plan, ReorderedPlan):
+        return other_launches(plan.inner)
+    if isinstance(plan, BandedPlan):
+        return len(plan.plans) + (len(plan.plans) > 1)
+    if isinstance(plan, CompositePlan) and plan.tail is not None \
+            or isinstance(plan, DeviceCSR):
+        return None
+    if isinstance(plan, (StripPlan, CompositePlan)):
+        return sum(other_launches(p) for p in plan.plans) \
+            + len(plan.plans) - 1
+    return 1
 
 
 def trace(fn, calls: int, tries: int = 3) -> list:
     """Device events of ``calls`` calls of ``fn``, in time order.  A trace
-    that dropped launches (a count that is not a whole number per call) is
-    reported and taken again, up to ``tries`` times in all."""
+    that dropped launches (none at all, or a count that is not a whole
+    number per call) is reported and taken again, up to ``tries`` times in
+    all."""
     for k in range(1, tries + 1):
         kern = trace_once(fn, calls)
-        if len(kern) % calls == 0 or k == tries:
+        if kern and len(kern) % calls == 0 or k == tries:
             return kern
         cs.log(f"  trace {k} of {tries} dropped launches: {len(kern)} over "
                f"{calls} calls; taken again")
@@ -195,6 +252,29 @@ def print_schedule(inner) -> None:
         cs.log(f"  section {k}: " + json.dumps(geo))
 
 
+def split_bands(kern: list, calls: int, n_bands: int):
+    """A banded call's device events cut at its bands: ``(per band, its
+    events over all calls; the join's events)``.  Each band's launches
+    start with its table set-up (K3); the join is a call's last launch.
+    None where the trace dropped launches."""
+    per, rem = divmod(len(kern), calls)
+    if rem:
+        return None
+    bands, join = [[] for _ in range(n_bands)], []
+    for c in range(calls):
+        events = kern[c * per:(c + 1) * per]
+        starts = [i for i, e in enumerate(events) if K3_KERNEL in e.name]
+        if len(starts) != n_bands:
+            return None
+        for k, (a, b) in enumerate(zip(starts, starts[1:] + [per - 1])):
+            bands[k] += events[a:b]
+        join.append(events[-1])
+    return bands, join
+
+
+OURS = (FOLD_KERNEL, EPILOGUE_KERNEL, K2_KERNEL, K3_KERNEL)
+
+
 def profile(label: str, A, x, changes: dict, calls: int, dev) -> None:
     import dataclasses
 
@@ -202,7 +282,8 @@ def profile(label: str, A, x, changes: dict, calls: int, dev) -> None:
 
     from tpu_spmv_torch import spmv_auto_config, spmv_csr
     from tpu_spmv_torch.kernels.reorder import ReorderedPlan
-    from tpu_spmv_torch.spmv import PatternPlan
+    from tpu_spmv_torch.kernels.window_ell import BandedPlan
+    from tpu_spmv_torch.spmv import PatternPlan, launches_per_call
     from tpu_spmv_torch.spmv import _run as run_plan
 
     cfg = dataclasses.replace(spmv_auto_config(A), **changes)
@@ -212,14 +293,19 @@ def profile(label: str, A, x, changes: dict, calls: int, dev) -> None:
     plan = res.plan
     inner = plan.inner if isinstance(plan, ReorderedPlan) \
         else plan.plan if isinstance(plan, PatternPlan) else plan
+    parts = window_plans(plan)
     # the plan is cached on A: calls run it
     kern = trace(lambda: spmv_csr(A, xd, cfg), calls)
     cs.check(len(kern) > 0, f"{label}: the trace holds no device time")
     total = sum(e.time_range.elapsed_us() for e in kern) / calls
-    cs.log(f"== {label}: {type(plan).__name__}, {inner.values} values, sup "
-           f"{inner.sup}, {inner.n_groups} groups, tb {inner.tb}, S "
-           f"{inner.step_groups}; device {total:.2f} us/call over {calls} "
-           f"calls, {len(kern) / calls:g} launches/call")
+    cs.log(f"== {label}: {type(plan).__name__}"
+           + (f" of {len(parts)} window-ELL plans" if len(parts) > 1 else "")
+           + (f", {parts[0].values} values, sup "
+              f"{'/'.join(str(p.sup) for p in parts)}, "
+              f"{sum(p.n_groups for p in parts)} groups, tb {parts[0].tb}, "
+              f"S {parts[0].step_groups}" if parts else ", the flat path")
+           + f"; device {total:.2f} us/call over {calls} calls, "
+           f"{len(kern) / calls:g} launches/call")
     span = device_span(kern, calls)
     if span is not None:
         cs.log(f"  device span per call {span:.2f} us (median): busy "
@@ -228,27 +314,53 @@ def profile(label: str, A, x, changes: dict, calls: int, dev) -> None:
     replay = graph_replay_us(lambda: run_plan(plan, xd))
     cs.log(f"  one call replayed from a CUDA graph: {replay:.2f} us (CUDA "
            f"events, median of {cs.SAMPLES} x {cs.ITERS} replays)")
-    print_schedule(inner)
     print_kernels(kern, calls)
-    ours = (FOLD_KERNEL, EPILOGUE_KERNEL, K2_KERNEL, K3_KERNEL)
-    other = [e.name for e in kern if not any(k in e.name for k in ours)]
-    cs.check(len(other) <= OTHER_LAUNCHES[inner.pat] * calls,
+    other = [e.name for e in kern if not any(k in e.name for k in OURS)]
+    cap = other_launches(plan)
+    cs.check(cap is None or len(other) <= cap * calls,
              f"{label}: {len(other) / calls:g} launches per call besides "
              f"the port's kernels: {sorted(set(other))}")
     setups = [e for e in kern if K3_KERNEL in e.name]
-    cs.check(len(setups) == calls,
+    want = launches_per_call(plan)
+    cs.check(len(setups) == calls * want["permute_chunks"],
              f"{label}: {len(setups)} table set-ups (K3) traced over "
              f"{calls} calls")
-    n_epi, n_k2 = cs.epilogue_launches(inner)
-    n_k2 = n_k2 or int(isinstance(plan, ReorderedPlan))
-    cs.log(f"  launches per call: 1 table set-up, {len(inner.sections)} "
-           f"folds, {n_epi} section epilogues, {n_k2} K2, "
-           f"{len(other) / calls:g} others; the set-up "
+    cs.log(f"  launches per call: {want['permute_chunks']} table set-ups, "
+           f"{want['fold']} folds, {want['section_epilogue']} section "
+           f"epilogues, {want['unpermute']} K2, {len(other) / calls:g} "
+           f"others; the set-ups "
            f"{sum(e.time_range.elapsed_us() for e in setups) / calls:.2f} us")
-    cs.log("  K1 per section, fold + epilogue (K2 after the last), section "
-           "order (us): "
-           + ", ".join(f"{t:.2f}" for t in k1_sections(
-               label, kern, inner, calls, k2=n_k2 == 1)))
+    # K1 per section: of a call of one window-ELL plan, or per band of a
+    # banded call (its pattern form included)
+    banded = isinstance(inner, BandedPlan) \
+        and not isinstance(plan, ReorderedPlan)
+    if not (banded or len(parts) == 1):
+        return
+    bands = inner.plans if banded else parts
+    per_band, join = [kern], []
+    if len(bands) > 1:
+        cut = split_bands(kern, calls, len(bands))
+        cs.check(cut is not None,
+                 f"{label}: the trace's calls cannot be cut into bands")
+        per_band, join = cut
+    for k, (band, events) in enumerate(zip(bands, per_band)):
+        n_k2 = cs.epilogue_launches(band)[1] \
+            or int(isinstance(plan, ReorderedPlan))
+        if len(bands) > 1:
+            cs.log(f"  band {k} ({band.num_rows} rows, {band.n_groups} "
+                   f"groups): "
+                   f"{sum(e.time_range.elapsed_us() for e in events) / calls:.2f}"
+                   f" us/call, {len(events) / calls:g} launches/call")
+        print_schedule(band)
+        cs.log("  K1 per section, fold + epilogue (K2 after the last), "
+               "section order (us): "
+               + ", ".join(f"{t:.2f}" for t in k1_sections(
+                   f"{label} band {k}", events, band, calls,
+                   k2=n_k2 == 1)))
+    if join:
+        cs.log(f"  the join: "
+               f"{sum(e.time_range.elapsed_us() for e in join) / calls:.2f} "
+               f"us/call, 1 launch/call ({join[0].name[:60]})")
 
 
 def ablation(A, calls: int, dev) -> None:
@@ -289,7 +401,8 @@ def ablation(A, calls: int, dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--calls", type=int, default=20)
-    ap.add_argument("--cells", default="headline,mesh,ab,levers,pagerank")
+    ap.add_argument("--cells",
+                    default="headline,mesh,banded,ab,levers,pagerank")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -309,8 +422,11 @@ def main() -> int:
         if "levers" in cells:
             arms += [{"bf16_values": True}, {"pattern": True}]
         runs.append(("power_law_csr", cs.HEADLINE, arms))
-    if "mesh" in cells:
-        runs.append(("scrambled_banded_csr", cs.MESH, [{"reorder": None}]))
+    if "mesh" in cells or "banded" in cells:
+        # banded: the mesh's natural arm, a row-banded stack
+        runs.append(("scrambled_banded_csr", cs.MESH,
+                     [{"reorder": None}] * ("mesh" in cells)
+                     + [{"reorder": False}] * ("banded" in cells)))
     if "ab" in cells:
         runs += [(name, a, [{"reorder": False}, {"reorder": None}])
                  for name, a in cs.AB]
@@ -319,13 +435,30 @@ def main() -> int:
         runs.append(("web_graph_csr", cs.PAGERANK, [
             {"pattern": True, "kernel_type": KernelType.VECTOR_CSR}]
             if "pagerank" in cells else []))
+    if "web" in cells or "pagerank1m" in cells:
+        # the 1M-node web graph, and PageRank's SpMV on it column-normalised
+        runs.append(("web_graph_1m", cs.WEB,
+                     [{}] * ("web" in cells)
+                     + [{"pattern": True,
+                         "kernel_type": KernelType.VECTOR_CSR}]
+                     * ("pagerank1m" in cells)))
+    if "wide" in cells:
+        runs += [("web_graph_csr", cs.WIDE, [{}]),
+                 ("power_law_csr", cs.COMPOSITE, [{}]),
+                 ("web_graph_csr", cs.WEB_1_5M, [{}])]
+    if "floors" in cells:
+        runs.append(("power_law_csr", cs.HEADLINE, [
+            {"kernel_type": KernelType.SCALAR_CSR},
+            {"kernel_type": KernelType.ELL_KERNEL}]))
     for name, a, arms in runs:
         rng = tt.RandomGenerator(42)
         if name == "power_law_csr":
             A = rng.power_law_csr(*a)
-        elif name == "web_graph_csr":
+        elif name == "web_graph_csr" and len(a) == 2:
             A = tt.transition_matrix(tt.web_graph_csr(rng, a[0], a[0],
                                                       avg_nnz=a[1]))
+        elif name in ("web_graph_csr", "web_graph_1m"):
+            A = tt.web_graph_csr(rng, *a[:2], avg_nnz=a[2])
         else:
             A = getattr(tt, name)(rng, *a)
         x = rng.vector(A.num_cols)
@@ -337,6 +470,8 @@ def main() -> int:
                     .astype(np.float32)
                 M = CSRMatrix(A.num_rows, A.num_cols, s[A.col_indices],
                               A.col_indices, A.row_ptrs)
+            elif changes.get("pattern") and name == "web_graph_1m":
+                M = tt.transition_matrix(A)
             profile(f"{name}{a} {changes}", M, x, changes, args.calls, dev)
         if name == "web_graph_csr" and "ablation" in cells:
             ablation(A, args.calls, dev)

@@ -69,7 +69,7 @@ Phases (each raises on failure; nothing is caught and passed over):
    of the path is then compared with, and timed beside, its plain version
    on the inputs the path gives it; the public ``permute_chunks`` of x is
    timed beside ``index_select``.
-8. Natural against reordered at 262,144 rows, on the planted banded and
+8. Natural against reordered at 131,072 rows, on the planted banded and
    clustered matrices: both plans timed (natural, reordered, reordered,
    natural) and checked against the oracle, and each plan's kernels against
    their plain versions.  A comparison, not a claim.
@@ -86,6 +86,36 @@ Phases (each raises on failure; nothing is caught and passed over):
    its own values and not by the bound's floor.  The time per iteration
    is printed over the call.  Then a run at the default tolerance reports
    its iterations.
+
+10. Row-banded plans at full width: the 2^20 mesh of phase 7 with
+    ``reorder=False`` (its natural arm) and the 1M-node web graph
+    (``bench.py:265-272``) through the auto configuration, each served by a
+    ``BandedPlan`` of two bands or more (the v5e guards the planner keeps,
+    ``MAX_GROUPS``, band them), checked against the oracle, measured,
+    counted (per band one table set-up, its folds and epilogues; the join)
+    and held to the physics guard; each band's kernels against their plain
+    versions; the natural mesh timed in turns with the reordered one.
+11. PageRank at 1M nodes: that web graph column-normalised, 30 iterations
+    at tolerance 0 after a warm-up run on the pattern-banded route, held to
+    a float64 power iteration by phase 9's rule, the ms per iteration over
+    CUDA events and wall clock, the launches per iteration, and its SpMV
+    alone over CUDA events; each band's kernels against their plain
+    versions.
+12. Past one gather table: a 1M x 4M web graph on column strips (four, one
+    of them banded), the headline's rows and row-length law with 1.5M
+    columns on a composite plan (its levels, and a flat tail where one is
+    left), each through the auto configuration, checked, measured, counted,
+    and each plan's kernels against their plain versions; and a 1.5M-node
+    web graph, which no composite level packs under the v5e guards the
+    planner keeps, on the flat path, as the JAX dispatch routes it.
+13. The floors on the headline: SCALAR_CSR (its naive plan, no extras, or
+    the flat path where that overflows) and ELL_KERNEL on a CSR (the flat
+    path: gather, multiply, ``segment_reduce``), each against the oracle,
+    bit-identical across two calls, timed; the flat path beside cuSPARSE.
+
+The phases run in the order 1-6, 13, 7, 10, 9, 11, 12, 8, each new matrix
+made once and dropped when its phases end; each phase's seconds are
+printed after it.
 
 Where one PyTorch call computes what a kernel computes, it is timed beside
 it and printed on a ``library:`` line (cuSPARSE through a sparse CSR tensor
@@ -128,9 +158,21 @@ SMOKE = (8192, 2048, 12.0, 1.6)
 # DIMACS10 delaunay_n20), the widest square matrix the single-plan dispatch
 # takes (VMEM_X_MAX_COLS)
 MESH = (1 << 20, 4096, 12.0)
-# natural against reordered at 262,144 rows: (generator, args)
-AB = (("scrambled_banded_csr", (262144, 4096, 12.0)),
-      ("clustered_csr", (262144, 32, 14.0)))
+# natural against reordered at 131,072 rows, a size that keeps the whole
+# script within its time: (generator, args)
+AB = (("scrambled_banded_csr", (131072, 4096, 12.0)),
+      ("clustered_csr", (131072, 32, 14.0)))
+# the stacked routes' matrices, none of them cut: the 1M-node web graph
+# (bench.py:265's secondary metric, and PageRank at 1M nodes); a 1M x 4M
+# web graph (past PACKED_MAX_COLS: column strips); the headline's rows and
+# row-length law with 1.5M columns (x past one gather table: the
+# composite); a 1.5M-node web graph, which no composite level packs under
+# the v5e guards the planner keeps (MAX_GROUPS at sup 1024, inflation at
+# 4096), so both packages serve it on the flat path
+WEB = (1_000_000, 1_000_000, 15.0)
+WIDE = (1 << 20, 1 << 22, 15.0)
+COMPOSITE = (262144, 1_500_000, 40.0, 1.6)
+WEB_1_5M = (1_500_000, 1_500_000, 15.0)
 REL_TOL = 1e-5
 BF16_TOL = 8e-3     # bf16 value rounding (bench.py:337)
 # PageRank: the JAX bench's web graph (bench.py:291) and its iterations
@@ -546,6 +588,140 @@ def kernel_record(name: str, held: dict, launches: int,
                   first["library_ms"], stream_gbs)
 
 
+def describe(plan) -> dict:
+    """A plan's shape for the log: its type, and per band, level or strip
+    the superblock height, groups and sections; a composite's flat tail."""
+    from tpu_spmv_torch import DeviceCSR
+    from tpu_spmv_torch.kernels.reorder import ReorderedPlan
+    from tpu_spmv_torch.kernels.strips import StripPlan
+    from tpu_spmv_torch.kernels.window_ell import BandedPlan, CompositePlan
+    from tpu_spmv_torch.spmv import PatternPlan
+
+    if isinstance(plan, (PatternPlan, ReorderedPlan)):
+        inner = plan.plan if isinstance(plan, PatternPlan) else plan.inner
+        return {"type": type(plan).__name__, "inner": describe(inner)}
+    if isinstance(plan, DeviceCSR):
+        return {"type": "DeviceCSR (flat path)", "nnz": plan.nnz}
+    d = {"type": type(plan).__name__, "groups": plan.n_groups,
+         "occupancy": round(plan.occupancy, 4)}
+    if isinstance(plan, BandedPlan):
+        d["band_rows"] = list(plan.band_rows)
+    if isinstance(plan, StripPlan):
+        d["bounds"] = [list(b) for b in plan.bounds]
+    if isinstance(plan, CompositePlan):
+        d["tail_nnz"] = 0 if plan.tail is None else plan.tail.nnz
+    if isinstance(plan, (BandedPlan, StripPlan, CompositePlan)):
+        d["plans"] = [describe(p) for p in plan.plans]
+    else:
+        d.update(sup=plan.sup, sections=len(plan.sections),
+                 extras=plan.n_extra, leveled=plan.lam is not None,
+                 rows=plan.num_rows)
+    return d
+
+
+def check_launches(counts: dict, plan, calls: int, what: str) -> None:
+    """The launches of ``calls`` calls of ``plan`` are the plan's own
+    (``launches_per_call``: per band, level or strip one table set-up, a
+    fold per section, the epilogues), and one of each kernel of the path at
+    least."""
+    from tpu_spmv_torch.kernels import FOLD_VARIANTS
+    from tpu_spmv_torch.spmv import launches_per_call
+
+    want = launches_per_call(plan)
+    folds = sum(counts[k] for k in FOLD_VARIANTS.values())
+    got = {"fold": folds, **{k: counts[k] for k in (
+        "section_epilogue", "unpermute", "permute_chunks")}}
+    check(got == {k: calls * v for k, v in want.items()},
+          f"{what}: launches {got} over {calls} calls, the plan's "
+          f"{want} a call")
+    check(all(got[k] > 0 for k, v in want.items() if v),
+          f"{what}: a kernel of the path was not launched")
+
+
+def stack_leaves(plan, A, x) -> list:
+    """``(window-ELL plan, matrix, x)`` for each plan of a stacked plan, as
+    its kernels see them: a band's rows of ``A`` (padded to the band's
+    height), a strip's columns of ``A`` and its slice of x, bands inside a
+    strip in turn; a composite's levels each against all of ``A`` (a level
+    holds a subset of its nonzeros, so ``A``'s row bound is the looser
+    one).  A pattern plan's bands keep the column scale."""
+    from tpu_spmv_torch.kernels.plan import _slice_rows
+    from tpu_spmv_torch.kernels.strips import StripPlan, _slice_cols
+    from tpu_spmv_torch.kernels.window_ell import BandedPlan, CompositePlan
+    from tpu_spmv_torch.spmv import PatternPlan
+
+    if isinstance(plan, PatternPlan):
+        return [(PatternPlan(p, plan.scale), M, xs)
+                for p, M, xs in stack_leaves(plan.plan, A, x)]
+    if isinstance(plan, BandedPlan):
+        out, a = [], 0
+        for p, r in zip(plan.plans, plan.band_rows):
+            out.append((p, _slice_rows(A, a, a + r, pad_to=p.num_rows), x))
+            a += r
+        return out
+    if isinstance(plan, StripPlan):
+        return [leaf for p, (lo, hi) in zip(plan.plans, plan.bounds)
+                for leaf in stack_leaves(p, _slice_cols(A, lo, hi),
+                                         x[lo:hi])]
+    if isinstance(plan, CompositePlan):
+        return [(p, A, x) for p in plan.plans]
+    return [(plan, A, x)]
+
+
+def hold_stack(plan, A, x, dev, what: str) -> None:
+    """:func:`hold_kernels` (untimed) on each plan of a stacked plan."""
+    import torch
+
+    for k, (p, M, xs) in enumerate(stack_leaves(plan, A, x)):
+        hold_kernels(p, torch.from_numpy(xs).to(dev), M, xs,
+                     f"{what}, plan {k}", timed=False)
+
+
+def run_cell(what: str, A, x, cfg, dev, stream: float, kind,
+             tol: float = REL_TOL):
+    """One measured ``spmv_csr`` call of a stacked route (counts from 0):
+    the plan must be a ``kind``; its launches the plan's; the output
+    finite, of ``A``'s rows and within ``tol`` of the oracle; the plan's
+    streamed bytes over the time under the physics guard.  Returns
+    ``(result, x on the card)``."""
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch import kernels as tk
+    from tpu_spmv_torch import spmv_csr
+    from tpu_spmv_torch.spmv import MEASURE_WARMUP
+    from tpu_spmv_torch.utils.testing import spmv_matches
+
+    xd = torch.from_numpy(x).to(dev)
+    tk.reset_launch_counts()
+    res = spmv_csr(A, xd, cfg, measure=True, measure_iters=ITERS,
+                   measure_samples=SAMPLES)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    check(res.error_code == 0, f"{what}: error {res.error_code}")
+    check(isinstance(res.plan, kind),
+          f"{what}: served by a {type(res.plan).__name__}, not {kind}")
+    calls = 1 + MEASURE_WARMUP + ITERS * SAMPLES
+    check_launches(counts, res.plan, calls, what)
+    y = res.y.cpu().numpy()
+    check(y.shape == (A.num_rows,) and bool(np.all(np.isfinite(y)))
+          and spmv_matches(y, A, x, rel_tol=tol),
+          f"{what} vs the CPU oracle (rel {tol})")
+    actual = res.plan.stream_bytes / (res.elapsed_ms / 1e3) / 1e9
+    log(f"{what}: OK vs oracle (rel {tol}); {res.elapsed_ms * 1e3:.2f} "
+        f"us/call (median of {SAMPLES} x {ITERS} calls), "
+        f"{res.gflops:.2f} GFLOP/s, byte model {res.bandwidth_gb_s:.1f} "
+        f"GB/s, streamed {actual:.1f} GB/s "
+        f"({res.plan.stream_bytes / 1e6:.2f} MB/call), STREAM "
+        f"{stream:.1f} GB/s; plan_seconds {res.plan_seconds:.2f} s; "
+        f"launches {counts} over {calls} calls")
+    log(f"{what} plan: " + json.dumps(describe(res.plan)))
+    check(actual <= 1.02 * stream,
+          f"physics guard: {what} {actual:.1f} GB/s streamed > 1.02 x "
+          f"STREAM")
+    return res, xd
+
+
 def phase_build() -> None:
     from tpu_spmv_torch import native
     from tpu_spmv_torch.kernels import _build
@@ -877,7 +1053,9 @@ def old_composition(rp, xd):
                              rp.num_rows)
 
 
-def phase_reorder(dev, stream: float) -> dict:
+def phase_reorder(dev, stream: float) -> tuple:
+    """Phase 7.  Returns ``(K3's record, the mesh, x, its reordered
+    plan)``."""
     import numpy as np
     import torch
 
@@ -984,7 +1162,209 @@ def phase_reorder(dev, stream: float) -> dict:
         f"index_select {us[1]:.2f} us (in turns, median of {SAMPLES} x "
         f"{ITERS} calls)")
     return kernel_record("permute_chunks", held, counts["permute_chunks"],
-                         stream)
+                         stream), A, x, rp
+
+
+def phase_banded(dev, stream: float, A, x, rp):
+    """Phase 10: row-banded plans at full width.  The 2^20 mesh of phase 7
+    with ``reorder=False`` (its natural arm), and the 1M-node web graph
+    through its auto configuration (``bench.py:265-272``), each served by a
+    ``BandedPlan`` of two bands or more, measured and counted, each band's
+    kernels held to their plain versions; the natural mesh timed in turns
+    with the reordered one.  Returns the web graph."""
+    import dataclasses
+
+    from tpu_spmv_torch import spmv_auto_config
+    from tpu_spmv_torch.kernels.window_ell import BandedPlan
+    from tpu_spmv_torch.spmv import _run
+    from tpu_spmv_torch.timing import time_turns
+    from tpu_spmv_torch.utils.testing import RandomGenerator, web_graph_csr
+
+    cfg = dataclasses.replace(spmv_auto_config(A), reorder=False)
+    res, xd = run_cell("mesh natural (reorder=False)", A, x, cfg, dev,
+                       stream, BandedPlan)
+    bp = res.plan
+    check(len(bp.plans) >= 2, f"the natural mesh in {len(bp.plans)} band")
+    hold_stack(bp, A, x, dev, "mesh natural")
+    us = [t * 1e6 for t in time_turns([lambda: _run(bp, xd),
+                                       lambda: _run(rp, xd)],
+                                      iters=ITERS, samples=SAMPLES)]
+    log(f"mesh natural against reordered, in turns (median of {SAMPLES} x "
+        f"{ITERS} calls): natural ({len(bp.plans)} bands, {bp.n_groups} "
+        f"groups) {us[0]:.2f} us/call, reordered ({rp.n_groups} groups) "
+        f"{us[1]:.2f} us/call; nvidia-smi: {nvidia_smi()}")
+
+    t0 = time.perf_counter()
+    rows, cols, avg = WEB
+    W = web_graph_csr(RandomGenerator(42), rows, cols, avg_nnz=avg)
+    xw = RandomGenerator(7).vector(cols)
+    log(f"web graph: {rows}x{cols} nnz={W.nnz} (generated in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    res, _ = run_cell("web graph 1M (auto configuration)", W, xw,
+                      spmv_auto_config(W), dev, stream, BandedPlan)
+    check(len(res.plan.plans) >= 2,
+          f"the web graph in {len(res.plan.plans)} band")
+    hold_stack(res.plan, W, xw, dev, "web graph 1M")
+    return W
+
+
+def phase_pagerank_1m(dev, stream: float, W) -> None:
+    """Phase 11: PageRank at 1M nodes, on the web graph of phase 10
+    column-normalised, through the pattern-banded route: 30 iterations at
+    tolerance 0 after a warm-up run, counted, and held to a float64 power
+    iteration by phase 9's rule; each band's kernels held to their plain
+    versions."""
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch import PageRankConfig, pagerank
+    from tpu_spmv_torch import kernels as tk
+    from tpu_spmv_torch.kernels.window_ell import BandedPlan
+    from tpu_spmv_torch.spmv import _run
+    from tpu_spmv_torch.timing import time_cuda
+    from tpu_spmv_torch.utils.testing import transition_matrix
+
+    t0 = time.perf_counter()
+    A = transition_matrix(W)
+    n = A.num_rows
+    cfg = PageRankConfig(max_iterations=PR_ITERS, tolerance=0.0)
+    warm = pagerank(A, cfg)
+    torch.cuda.synchronize()
+    check(warm.error_code == 0, f"PageRank 1M warm-up: {warm.error_code}")
+    log(f"PageRank 1M warm-up (transition matrix, plan build, upload, "
+        f"{warm.iterations} iterations): {time.perf_counter() - t0:.2f} s")
+    tk.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    res = pagerank(A, cfg)
+    stop.record()
+    stop.synchronize()
+    wall = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    check(res.error_code == 0 and res.iterations == PR_ITERS,
+          f"PageRank 1M: error {res.error_code}, {res.iterations} "
+          f"iterations")
+    pp = res.plan
+    check(isinstance(pp.plan, BandedPlan) and len(pp.plan.plans) >= 2
+          and all(p.pat for p in pp.plan.plans),
+          "PageRank 1M was not served by a banded pattern plan")
+    check_launches(counts, pp, PR_ITERS, "PageRank 1M")
+    ranks = res.ranks_host()
+    check(ranks.shape == (n,) and bool(np.all(np.isfinite(ranks))),
+          "PageRank 1M ranks: shape / finiteness")
+    ref = power_iteration(A, PR_ITERS)
+    err = np.abs(ranks - ref)
+    check(bool(np.all(err <= PR_ATOL + PR_RTOL * np.abs(ref)))
+          and bool(np.all(err <= PR_ATOL_TIGHT + PR_RTOL * np.abs(ref))),
+          "PageRank 1M vs the float64 power iteration")
+    check(abs(float(ranks.sum(dtype=np.float64)) - 1.0) < 1e-4, "Σr != 1")
+    ms_iter = start.elapsed_time(stop) / res.iterations
+    per = {k: v // PR_ITERS for k, v in counts.items()}
+    log(f"PageRank 1M: {res.iterations} iterations, OK vs float64 power "
+        f"iteration (max|Δ| {float(err.max()):.3g}, rtol {PR_RTOL}, atol "
+        f"{PR_ATOL} and {PR_ATOL_TIGHT}); {ms_iter:.4f} ms/iteration (CUDA "
+        f"events over the call, set-up included), "
+        f"{wall * 1e3 / res.iterations:.4f} ms/iteration wall; launches "
+        f"per iteration {per}; {pp.plan.stream_bytes / 1e6:.2f} MB streamed "
+        f"per iteration")
+    log("PageRank 1M plan: " + json.dumps(describe(pp)))
+    actual = pp.stream_bytes / (ms_iter / 1e3) / 1e9
+    check(actual <= 1.02 * stream, f"physics guard: PageRank 1M {actual:.1f}")
+    spmv_us = time_cuda(lambda: _run(pp, res.ranks), iters=ITERS,
+                        samples=SAMPLES) * 1e6
+    log(f"PageRank 1M SpMV alone (the pattern-banded plan, its scale "
+        f"multiply and join): {spmv_us:.2f} us/call over CUDA events "
+        f"(median of {SAMPLES} x {ITERS} calls), streamed "
+        f"{pp.stream_bytes / spmv_us / 1e3:.1f} GB/s")
+    hold_stack(pp, A, ranks * np.float32(n), dev, "PageRank 1M")
+
+
+def phase_wide(dev, stream: float) -> None:
+    """Phase 12: past one gather table, each matrix through its auto
+    configuration, measured, counted and held to the oracle: a 1M x 4M web
+    graph (past ``PACKED_MAX_COLS``) on column strips, one of them banded;
+    the headline's law with 1.5M columns (x past ``VMEM_X_MAX_COLS``) on a
+    composite plan; a 1.5M-node web graph, which no composite level packs,
+    on the flat path (the JAX dispatch's route for it too).  Each stacked
+    plan's kernels are held to their plain versions."""
+    from tpu_spmv_torch import DeviceCSR, spmv_auto_config
+    from tpu_spmv_torch.kernels.strips import StripPlan
+    from tpu_spmv_torch.kernels.window_ell import BandedPlan, CompositePlan
+    from tpu_spmv_torch.utils.testing import RandomGenerator, web_graph_csr
+
+    for name, shape, kind in (("strips", WIDE, StripPlan),
+                              ("composite", COMPOSITE, CompositePlan),
+                              ("web graph 1.5M", WEB_1_5M, DeviceCSR)):
+        t0 = time.perf_counter()
+        if kind is CompositePlan:
+            M = RandomGenerator(42).power_law_csr(*shape)
+        else:
+            rows, cols, avg = shape
+            M = web_graph_csr(RandomGenerator(42), rows, cols, avg_nnz=avg)
+        x = RandomGenerator(7).vector(M.num_cols)
+        log(f"{name} matrix: {M.num_rows}x{M.num_cols} nnz={M.nnz} "
+            f"(generated in {time.perf_counter() - t0:.1f} s)")
+        res, _ = run_cell(f"{name} {M.num_rows}x{M.num_cols} (auto "
+                          f"configuration)", M, x, spmv_auto_config(M), dev,
+                          stream, kind)
+        plan = res.plan
+        if kind is StripPlan:
+            check(len(plan.plans) == 4
+                  and any(isinstance(p, BandedPlan) for p in plan.plans),
+                  "the 1M x 4M graph is not 4 strips with a banded one")
+        elif kind is CompositePlan:
+            levels = [(p.sup, p.n_groups, p.n_extra) for p in plan.plans]
+            log(f"composite: {len(plan.plans)} levels (sup, groups, "
+                f"extras: {levels}), flat tail "
+                f"{0 if plan.tail is None else plan.tail.nnz} nnz of "
+                f"{M.nnz}")
+        if kind is not DeviceCSR:
+            hold_stack(plan, M, x, dev, name)
+        del M
+
+
+def phase_floors(dev, stream: float, A, x) -> None:
+    """Phase 13: the floors on the headline.  SCALAR_CSR (its naive plan,
+    or the flat path where that overflows, as the JAX dispatch routes it)
+    and ELL_KERNEL on a CSR (the flat path), each measured, held to the
+    oracle, bit-identical across two calls; the naive plan's kernels held
+    to their plain versions; the flat path timed in turns with cuSPARSE on
+    the same matrix, a yardstick only."""
+    import torch
+
+    from tpu_spmv_torch import DeviceCSR, KernelType, SpMVConfig
+    from tpu_spmv_torch.kernels.window_ell import WindowEllPlan
+    from tpu_spmv_torch.spmv import _run
+    from tpu_spmv_torch.timing import time_turns
+
+    for kt in (KernelType.SCALAR_CSR, KernelType.ELL_KERNEL):
+        what = f"headline {kt.name}"
+        kind = DeviceCSR if kt == KernelType.ELL_KERNEL \
+            else (WindowEllPlan, DeviceCSR)
+        res, xd = run_cell(what, A, x, SpMVConfig(kernel_type=kt), dev,
+                           stream, kind)
+        plan = res.plan
+        again = _run(plan, xd)
+        torch.cuda.synchronize()
+        check(torch.equal(res.y, again),
+              f"{what}: not bit-identical across two calls")
+        flat = isinstance(plan, DeviceCSR)
+        log(f"{what}: served by "
+            + ("the flat path" if flat else
+               f"the naive plan (n_extra {plan.n_extra})")
+            + "; bit-identical across two calls")
+        if not flat:
+            check(plan.n_extra == 0, f"{what}: the naive plan has extras")
+            hold_kernels(plan, xd, A, x, what, timed=False)
+        else:
+            M = cusparse(A, dev)
+            us = [t * 1e6 for t in time_turns(
+                [lambda: _run(plan, xd), lambda: M @ xd], iters=ITERS,
+                samples=SAMPLES)]
+            log(f"{what}: flat path {us[0]:.2f} us/call, cuSPARSE "
+                f"{us[1]:.2f} us/call (in turns; a yardstick only)")
 
 
 def phase_reorder_ab(dev) -> None:
@@ -1248,21 +1628,34 @@ def main() -> int:
         f"CUDA {torch.version.cuda}; {torch.cuda.device_count()} device(s)")
     from tpu_spmv_torch.bandwidth import measured_stream_bandwidth
 
-    phase_build()
+    def run(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[{fn.__name__}: {time.perf_counter() - t0:.1f} s]")
+        return out
+
+    run(phase_build)
     stream = measured_stream_bandwidth(dev)
     log(f"STREAM (256 MB read-reduce): {stream:.1f} GB/s, the bounds' rate")
-    phase_kernels(dev)
-    phase_k3(dev)
-    probe_records = phase_probes(dev, stream)
-    kernels, A, x = phase_main(dev, stream)
-    lever_record = phase_levers(dev, stream, A, x)
+    run(phase_kernels, dev)
+    run(phase_k3, dev)
+    probe_records = run(phase_probes, dev, stream)
+    kernels, A, x = run(phase_main, dev, stream)
+    lever_record = run(phase_levers, dev, stream, A, x)
+    run(phase_floors, dev, stream, A, x)
     del A, x
-    kernels.append(phase_reorder(dev, stream))
+    k3_record, A, x, rp = run(phase_reorder, dev, stream)
+    kernels.append(k3_record)
     kernels += probe_records[:-1]
     kernels.append(lever_record)
-    kernels.append(phase_pagerank(dev, stream))
+    W = run(phase_banded, dev, stream, A, x, rp)
+    del A, x, rp
+    kernels.append(run(phase_pagerank, dev, stream))
     kernels.append(probe_records[-1])
-    phase_reorder_ab(dev)
+    run(phase_pagerank_1m, dev, stream, W)
+    del W
+    run(phase_wide, dev, stream)
+    run(phase_reorder_ab, dev)
     check("jax" not in sys.modules, "JAX was imported")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

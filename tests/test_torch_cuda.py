@@ -31,8 +31,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from tpu_spmv_torch import (  # noqa: E402
-    KernelType, PageRankConfig, SpMVConfig, pagerank, spmv_auto_config,
-    spmv_csr)
+    DeviceCSR, KernelType, PageRankConfig, SpMVConfig, pagerank,
+    spmv_auto_config, spmv_csr)
 from tpu_spmv_torch import kernels as tk  # noqa: E402
 from tpu_spmv_torch.probes import profile_dma_share as p5  # noqa: E402
 from tpu_spmv_torch.probes import profile_kernel as p4  # noqa: E402
@@ -666,3 +666,157 @@ def test_dma_share_unaligned_values_raise(cuda_device):
     buf = torch.zeros(inp.vals.numel() + 1, device=cuda_device)
     with pytest.raises(ValueError, match="aligned"):
         p5.Inputs(**{**vars(inp), "vals": buf[1:].view(inp.vals.shape)})
+
+
+# ---- the stacks of plans and the flat path ----
+
+def stack_case(name: str, monkeypatch):
+    """``(upload, A, x)`` of one stacked route at test scale: ``upload(dev)``
+    makes the plan on ``dev`` from one host build.  A banded plan (3 bands,
+    leveled and split), column strips with a banded strip, a composite of
+    two levels, a composite of one level and a flat tail, and a reordered
+    plan with a banded inner plan.  The group cap is lowered (the v5e guard
+    the planner keeps) where the route needs it at this size."""
+    from tpu_spmv_torch.kernels import strips as ts
+
+    rng = RandomGenerator(42)
+    if name == "banded":
+        A = web_graph_csr(rng, 6000, 2100, avg_nnz=9)
+        host = tplan.build_banded(A, sup=1024, n_bands=3, step_groups=16,
+                                  split_rows=128, permute_rows=True)
+        upload = lambda dev: twe.banded_from_host(host, dev)  # noqa: E731
+    elif name == "strips":
+        A = web_graph_csr(rng, 8192, 8192, avg_nnz=9)
+        hs = ts.build_strips_host(A, strip_cols=4096, step_groups=16)
+        monkeypatch.setattr(tplan, "MAX_GROUPS", hs.plans[0].n_groups - 8)
+        hs = ts.build_strips_host(A, strip_cols=4096, step_groups=16)
+        assert isinstance(hs.plans[0], tplan.HostBanded)
+        upload = lambda dev: ts.strips_from_host(hs, dev)  # noqa: E731
+    elif name.startswith("composite"):
+        A = web_graph_csr(rng, 8192, 8192, avg_nnz=9)
+        hc = tplan.build_composite(A, step_groups=16)
+        if name == "composite-tail":
+            monkeypatch.setattr(tplan, "MAX_GROUPS", hc.plans[0].n_groups)
+            hc = tplan.build_composite(A, step_groups=16)
+            assert hc.tail is not None
+        upload = lambda dev: twe.composite_from_host(hc, dev)  # noqa: E731
+    else:
+        A = scrambled_banded_csr(rng, 16384, 1024, 6.0)
+        order = tr.block_order(A)
+        single, _ = tr.build_reordered_host(A, order, step_groups=16)
+        monkeypatch.setattr(tplan, "MAX_GROUPS", single.n_groups - 8)
+        host, _ = tr.build_reordered_host(A, order, step_groups=16)
+        assert isinstance(host, tplan.HostBanded)
+        upload = lambda dev: tr.reordered_from_host(  # noqa: E731
+            host, order, A.num_rows, A.num_cols, dev)
+    return upload, A, RandomGenerator(7).vector(A.num_cols)
+
+
+STACKS = ["banded", "strips", "composite", "composite-tail",
+          "reordered-banded"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", STACKS)
+def test_stacked_spmv_on_card_matches_plain_route(cuda_device, monkeypatch,
+                                                  name):
+    """A stacked plan's SpMV on the card against the same plan's plain
+    route on the CPU (under the row bound) and the oracle; two calls on the
+    card agree bit for bit; the launches are the plan's
+    (``launches_per_call``)."""
+    from tpu_spmv_torch.spmv import _run, launches_per_call
+
+    upload, A, x = stack_case(name, monkeypatch)
+    plan, cpu_plan = upload(cuda_device), upload("cpu")
+    xd = torch.from_numpy(x).to(cuda_device)
+    tk.reset_launch_counts()
+    y = _run(plan, xd)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    want = launches_per_call(plan)
+    assert counts["window_ell_fold"] == want["fold"] > 0
+    assert {k: counts[k] for k in ("section_epilogue", "unpermute",
+                                   "permute_chunks")} \
+        == {k: want[k] for k in ("section_epilogue", "unpermute",
+                                 "permute_chunks")}
+    again = _run(plan, xd)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    y = y.cpu().numpy()
+    y_plain = _run(cpu_plan, torch.from_numpy(x)).numpy()
+    bound = ROW_TOL * np.maximum(abs_row_scale(A, x), 1.0)
+    assert np.all(np.abs(y - y_plain) <= bound)
+    assert spmv_matches(y, A, x, rel_tol=ROW_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", STACKS)
+def test_launches_per_call_by_plan_type(cuda_device, monkeypatch, name):
+    """The counts ``launches_per_call`` gives for each stack: the bands',
+    levels' or strips' own summed, and two chunk permutes around a
+    reordered banded stack."""
+    from tpu_spmv_torch.spmv import launches_per_call
+
+    plan = stack_case(name, monkeypatch)[0](cuda_device)
+    got = launches_per_call(plan)
+    inner = plan.inner if name == "reordered-banded" else plan
+    parts = [q for p in inner.plans
+             for q in (p.plans if isinstance(p, twe.BandedPlan) else (p,))]
+    assert got["permute_chunks"] == len(parts) \
+        + 2 * (name == "reordered-banded")
+    assert got["fold"] == sum(len(p.sections) for p in parts)
+    assert got["section_epilogue"] == got["fold"] - len(parts)
+
+
+@pytest.mark.cuda
+def test_flat_path_on_card_is_bit_identical(cuda_device):
+    """The flat path (gather, multiply, ``segment_reduce`` over the row
+    pointers) on the card: two calls agree bit for bit, and it matches its
+    own CPU run under the row bound and the oracle; it launches none of the
+    port's kernels."""
+    from tpu_spmv_torch.kernels.scalar import spmv_csr_scalar
+
+    A = RandomGenerator(42).power_law_csr(8192, 2048, 12.0, 1.6)
+    x = RandomGenerator(7).vector(A.num_cols)
+    tk.reset_launch_counts()
+    res = spmv_csr(A, torch.from_numpy(x).to(cuda_device),
+                   SpMVConfig(kernel_type=KernelType.ELL_KERNEL))
+    assert res.error_code == 0 and isinstance(res.plan, DeviceCSR)
+    assert sum(tk.launch_counts().values()) == 0
+    again = spmv_csr_scalar(res.plan, torch.from_numpy(x).to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(res.y, again)
+    y = res.y.cpu().numpy()
+    y_cpu = spmv_csr_scalar(A.to_device("cpu"), torch.from_numpy(x)).numpy()
+    bound = ROW_TOL * np.maximum(abs_row_scale(A, x), 1.0)
+    assert np.all(np.abs(y - y_cpu) <= bound)
+    assert spmv_matches(y, A, x, rel_tol=ROW_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", STACKS)
+def test_stacked_call_is_captured_in_a_cuda_graph(cuda_device, monkeypatch,
+                                                  name):
+    """A stacked call (a banded call's three set-ups, folds, epilogues and
+    join; the strips' and levels' adds; the flat tail; the permutes around
+    a reordered banded stack) captured in a CUDA graph and replayed gives
+    the eager call's output bit for bit: nothing in it syncs with the host
+    or allocates from a size read back from the card."""
+    from tpu_spmv_torch.spmv import _run
+
+    upload, A, x = stack_case(name, monkeypatch)
+    plan = upload(cuda_device)
+    xd = torch.from_numpy(x).to(cuda_device)
+    eager = _run(plan, xd)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _run(plan, xd)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _run(plan, xd)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert spmv_matches(out.cpu().numpy(), A, x, rel_tol=ROW_TOL)

@@ -352,13 +352,46 @@ def test_spmv_reordered_matches_jax_and_oracle(absorb_helper, which):
     assert tt.spmv_matches(y, A, x, rel_tol=ROW_TOL)
 
 
-def test_permuted_banded_build_raises_m7(monkeypatch):
-    """Where the permuted matrix would need a row-banded plan, the port
-    raises ROADMAP M7 instead of building another plan."""
+def test_permuted_banded_build_raises_m7(absorb_helper, monkeypatch):
+    """Where the permuted matrix needs a row-banded plan (the group cap
+    lowered in both planners), the port builds the JAX package's bands and
+    maps, and its reordered SpMV (the chunk permute of x, the banded SpMV,
+    the chunk permute of its rows) matches the JAX one and the oracle.  The
+    route is served; the test keeps its name from before it was."""
     A = port_matrix(BANDED_16K)
-    monkeypatch.setattr(tplan, "MAX_GROUPS", 64)
-    with pytest.raises(NotImplementedError, match="M7"):
-        tr.build_reordered(A, device="cpu")
+    order = tr.block_order(A)
+    single, _ = tr.build_reordered_host(A, order, step_groups=8)
+    assert isinstance(single, tplan.HostPlan)
+    for mod in (tplan, jwe):
+        monkeypatch.setattr(mod, "MAX_GROUPS", single.n_groups - 8)
+    host, host_order = tr.build_reordered_host(A, order, step_groups=8)
+    assert isinstance(host, tplan.HostBanded) and len(host.plans) >= 2
+    fn, jrp = jr.build_reordered(to_jax(A), order=order, step_groups=8)
+    assert isinstance(jrp.inner, jwe.BandedPlan)
+    assert tuple(jrp.inner.band_rows) == host.band_rows
+    for jp, hp in zip(jrp.inner.plans, host.plans, strict=True):
+        for name in tplan.LEAVES:
+            a, b = getattr(jp, name), getattr(hp, name)
+            assert (a is None and b is None) \
+                or np.array_equal(np.asarray(a), b), name
+        assert {k: getattr(jp, k) for k in tplan.AUX} == hp.aux()
+    rp = tr.reordered_from_host(host, host_order, A.num_rows, A.num_cols,
+                                "cpu")
+    assert isinstance(rp.inner, twe.BandedPlan)
+    assert np.array_equal(rp.col_src.numpy(), np.asarray(jrp.col_src))
+    assert np.array_equal(rp.row_src.numpy(), np.asarray(jrp.row_src))
+    x = tt.RandomGenerator(7).vector(A.num_cols)
+    y = tr.spmv_reordered(rp, torch.from_numpy(x)).numpy()
+    y_jax = np.asarray(fn(jrp, jnp.asarray(x)))
+    assert y.shape == y_jax.shape == (A.num_rows,)
+    assert_row_bound(y, y_jax, A, x)
+    assert tt.spmv_matches(y, A, x, rel_tol=ROW_TOL)
+    # the stream bytes: the bands', the table set-ups' and maps', and the
+    # two chunk permutes' own writes and reads
+    nb = len(order)
+    assert rp.stream_bytes == rp.inner.stream_bytes \
+        + twe.setup_bytes(A.num_cols, nb) + 4 * nb \
+        + 4 * (rp.inner.num_cols + rp.inner.num_rows + A.num_rows)
 
 
 def test_reordered_stream_bytes_add_the_setup_and_the_tile_map():

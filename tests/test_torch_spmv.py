@@ -104,24 +104,50 @@ def test_error_codes_match_jax(smoke):
 
 
 def test_unported_routes_raise(smoke, absorb_helper):
+    """The routes that raised before they were ported are served now, by the
+    JAX dispatch's plan types, and match it and the oracle (the test keeps
+    its name): SCALAR_CSR's naive plan, the flat path for ELL_KERNEL and
+    for ``use_vmem_x=False``, the composite past one gather table and the
+    column strips past ``PACKED_MAX_COLS``."""
+    from tpu_spmv_torch import DeviceCSR
+    from tpu_spmv_torch.kernels.strips import StripPlan
+
     A, x = smoke
+    jA = to_jax_csr(A)
+    bound = ROW_TOL * np.maximum(abs_row_scale(A, x), 1.0)
     routes = [
-        (SpMVConfig(kernel_type=KernelType.SCALAR_CSR), "M7"),
-        (SpMVConfig(kernel_type=KernelType.ELL_KERNEL), "M10"),
-        (SpMVConfig(kernel_type=KernelType.MERGE_PATH, use_vmem_x=False),
-         "M10"),
+        (dict(kernel_type=KernelType.SCALAR_CSR), twe.WindowEllPlan),
+        (dict(kernel_type=KernelType.ELL_KERNEL), DeviceCSR),
+        (dict(kernel_type=KernelType.MERGE_PATH, use_vmem_x=False),
+         DeviceCSR),
     ]
-    for cfg, item in routes:
-        with pytest.raises(NotImplementedError, match=item):
-            tpu_spmv_torch.spmv_csr(A, x, cfg, device="cpu")
-    for cols, item in ((1 << 20) + 1, "M7"), ((1 << 21) + 1, "M7"):
+    for kw, kind in routes:
+        res = tpu_spmv_torch.spmv_csr(A, x, SpMVConfig(**kw), device="cpu")
+        jres = tpu_spmv.spmv_csr(jA, x, tpu_spmv.SpMVConfig(**{
+            k: tpu_spmv.KernelType(int(v)) if k == "kernel_type" else v
+            for k, v in kw.items()}))
+        assert res.error_code == 0 == jres.error_code
+        assert isinstance(res.plan, kind), kw
+        assert kind is DeviceCSR or res.plan.n_extra == 0   # naive plan
+        assert np.all(np.abs(res.y_host() - np.asarray(jres.y)) <= bound)
+        assert spmv_matches(res.y_host(), A, x, rel_tol=ROW_TOL)
+    for cols, kind in (((1 << 20) + 1, twe.CompositePlan),
+                       ((1 << 21) + 1, StripPlan)):
         wide = tpu_spmv_torch.CSRMatrix(4, cols, np.ones(2, np.float32),
                                         np.array([0, cols - 1], np.int32),
                                         np.array([0, 1, 2, 2, 2], np.int32))
-        with pytest.raises(NotImplementedError, match=item):
-            tpu_spmv_torch.spmv_csr(
-                wide, np.ones(cols, np.float32),
-                SpMVConfig(kernel_type=KernelType.VECTOR_CSR), device="cpu")
+        xw = RandomGenerator(5).vector(cols)
+        res = tpu_spmv_torch.spmv_csr(
+            wide, xw, SpMVConfig(kernel_type=KernelType.VECTOR_CSR),
+            device="cpu")
+        jres = tpu_spmv.spmv_csr(
+            to_jax_csr(wide), xw,
+            tpu_spmv.SpMVConfig(kernel_type=tpu_spmv.KernelType.VECTOR_CSR))
+        assert res.error_code == 0 == jres.error_code
+        assert isinstance(res.plan, kind)
+        wbound = ROW_TOL * np.maximum(abs_row_scale(wide, xw), 1.0)
+        assert np.all(np.abs(res.y_host() - np.asarray(jres.y)) <= wbound)
+        assert spmv_matches(res.y_host(), wide, xw, rel_tol=ROW_TOL)
     # the pattern fast path and bf16 value streams are served (ROADMAP M7's
     # pattern and bf16 parts are ported): a column-scaled matrix on a pattern
     # plan, the smoke matrix on a bf16 plan, each held against the oracle

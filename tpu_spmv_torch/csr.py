@@ -2,8 +2,9 @@
 
 :class:`CSRMatrix` holds the reference struct's three arrays in NumPy
 (``values`` f32, ``col_indices`` i32, ``row_ptrs`` i32) plus a per-matrix
-plan cache the dispatch fills.  The device form ``DeviceCSR`` serves only the
-flat fallback path and is not ported yet (ROADMAP M2).
+plan cache the dispatch fills.  Its device form :class:`DeviceCSR` (the same
+three arrays as tensors on one device) serves the flat path
+(:mod:`.kernels.scalar`).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import dataclasses
 
 import numpy as np
 
-from .errors import InvalidDimensionError
+from .errors import InvalidDimensionError, InvalidFormatError, guarded_upload
 
 # Minimum padding quantum of the packed layout: one (8, 128) tile.
 LANE_TILE = 1024
@@ -83,6 +84,17 @@ class CSRMatrix:
         return CSRMatrix(rows, cols, dense[rr, cc].astype(np.float32),
                          cc.astype(np.int32), row_ptrs)
 
+    def to_device(self, device="cuda") -> "DeviceCSR":
+        """The matrix on ``device`` (the card unless the caller names
+        another), cached per device in the plan cache (the JAX
+        ``to_device``, ``tpu_spmv/csr.py:239-247``)."""
+        import torch
+
+        key = ("_device", str(torch.device(device)))
+        if key not in self._plan_cache:
+            self._plan_cache[key] = DeviceCSR.from_host(self, device)
+        return self._plan_cache[key]
+
     def compute_stats(self) -> CSRStats:
         """Reference ``csr_compute_stats`` (``csr_matrix.cpp:281-300``)."""
         if self.num_rows == 0:
@@ -96,3 +108,46 @@ class CSRMatrix:
             min_nnz_per_row=mn,
             skewness=float(mx) / float(mn + 1),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceCSR:
+    """A CSR matrix as tensors on one device (the JAX ``DeviceCSR``,
+    ``tpu_spmv/csr.py:266-340``, with its field names).  The arrays are not
+    padded: the JAX package pads them to power-of-two buckets for XLA's
+    static shapes, and the flat path here reduces over ``row_ptrs``
+    directly, so the padding and the per-nonzero ``row_ids`` it needs for a
+    segment sum by ids are left out."""
+
+    values: torch.Tensor       # f32 (nnz,)
+    col_indices: torch.Tensor  # i32 (nnz,)
+    row_ptrs: torch.Tensor     # i32 (num_rows + 1,)
+    num_rows: int
+    num_cols: int
+    nnz: int
+
+    @property
+    def device(self):
+        return self.values.device
+
+    @property
+    def stream_bytes(self) -> float:
+        """Bytes the flat SpMV moves at least: values and column indices,
+        the gathered x, the row pointers and y, 4 B each."""
+        return 4.0 * (3 * self.nnz + 2 * self.num_rows + 1)
+
+    @staticmethod
+    def from_host(mat: CSRMatrix, device="cuda") -> "DeviceCSR":
+        """Upload ``mat`` after checking, on the host, what the flat path
+        indexes with unchecked: row pointers from 0 to ``nnz``, never
+        decreasing, and column indices inside the matrix."""
+        ptr, cols = mat.row_ptrs, mat.col_indices
+        if ptr[0] != 0 or ptr[-1] != mat.nnz or np.any(np.diff(ptr) < 0) \
+                or (mat.nnz and (cols.min() < 0
+                                 or cols.max() >= mat.num_cols)):
+            raise InvalidFormatError("CSR matrix: row pointers or column "
+                                     "indices out of range")
+        put = lambda a: guarded_upload(a, device)  # noqa: E731
+        return DeviceCSR(put(mat.values), put(mat.col_indices),
+                         put(mat.row_ptrs), mat.num_rows, mat.num_cols,
+                         mat.nnz)

@@ -1,14 +1,30 @@
 """The window-ELL planner (:mod:`.plan`, NumPy), its device kernels
 (:mod:`.window_ell`, CUDA through :mod:`._build`: the gather table's
-set-up, which is the chunk permute, the fold and the epilogues), and block
-reordering (:mod:`.reorder`: the probe in NumPy, the reordered plan).
+set-up, which is the chunk permute, the fold and the epilogues) and the
+banded and composite stacks of plans, column strips (:mod:`.strips`), block
+reordering (:mod:`.reorder`: the probe in NumPy, the reordered plan), and
+the flat path (:mod:`.scalar`, plain PyTorch ops).
 
 Each kernel counts its launches in an attribute of a wrapper, ``launches``
 (for K1's fold a dict per value stream); :func:`launch_counts` reads them
 all and :func:`reset_launch_counts` sets them to 0."""
 
-from .window_ell import (FOLD_VARIANTS, permute_chunks, section_epilogue,
-                         unpermute, window_ell_fold)
+from .reorder import ReorderedPlan, build_reordered, spmv_reordered
+from .scalar import spmv_csr_scalar
+from .strips import StripPlan, build_strips, spmv_strips
+from .window_ell import (FOLD_VARIANTS, BandedPlan, CompositePlan,
+                         WindowEllPlan, permute_chunks, section_epilogue,
+                         spmv_banded, spmv_composite, spmv_pattern_banded,
+                         spmv_window_ell, unpermute, window_ell_fold)
+
+__all__ = [
+    "WindowEllPlan", "spmv_window_ell", "BandedPlan", "spmv_banded",
+    "spmv_pattern_banded", "CompositePlan", "spmv_composite", "StripPlan",
+    "build_strips", "spmv_strips", "ReorderedPlan", "build_reordered",
+    "spmv_reordered", "spmv_csr_scalar", "FOLD_VARIANTS", "permute_chunks",
+    "section_epilogue", "unpermute", "window_ell_fold", "launch_counts",
+    "reset_launch_counts",
+]
 
 
 def reset_launch_counts() -> None:

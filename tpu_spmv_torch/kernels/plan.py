@@ -2,9 +2,9 @@
 
 A copy of the planner in ``tpu_spmv/kernels/window_ell.py`` (the layout
 constants, ``_level_rows``, ``WindowEllPlan._build`` and ``build``, the
-superblock choice ``_choose_sup`` with its sampled model and probe, and the
-single-plan part of ``build_auto``), so that a plan can be built where JAX is
-not installed.  The bodies are kept as in the JAX package so the two
+superblock choice ``_choose_sup`` with its sampled model and probe,
+``build_banded``, ``build_auto`` and ``build_composite``), so that a plan
+can be built where JAX is not installed.  The bodies are kept as in the JAX package so the two
 planners give equal plans leaf for leaf; the tests hold them to that.
 
 Differences from the JAX planner:
@@ -21,8 +21,14 @@ Differences from the JAX planner:
   plus ``HostPlan.values_dtype``: NumPy has no bfloat16, so the cast to
   bfloat16 (round to nearest even, as JAX's ``astype``) happens when the
   plan is uploaded (:func:`~.window_ell.plan_from_arrays`).
-* The banded, strip and composite plans are not ported yet and raise
-  ``NotImplementedError`` (ROADMAP M7).
+* :func:`build_auto` returns a :class:`HostPlan` or a :class:`HostBanded`
+  (the band plans and their real rows).  :func:`build_banded` does not
+  halve a band over the inflation guard (fault F7 of the JAX planner, which
+  halves it until its halves slip under the guard's 4M-slot floor, at many
+  times 64 slots a nonzero).
+  :func:`build_composite` returns a :class:`HostComposite`, whose flat
+  tail is a host CSR.  The device plans are made from them
+  (:mod:`.window_ell`).
 
 The layout constants are still the TPU v5e ones (``LANE``, ``CHUNKS``,
 ``WINDOW``, ``SUP_LEVELS``, ``T_SUB``, ``T_BASE``, ``VMEM_BUDGET``,
@@ -34,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -1191,9 +1198,135 @@ def _bands_from_overflow(e: WindowEllOverflow) -> int:
     return n_bands
 
 
-def _banded_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "row-banded plans (BandedPlan) are not ported yet (ROADMAP M7)")
+# ---- row-banded plans (guard-bounded scale) ----
+
+# threads that build one round of bands at once (the port's own; the JAX
+# planner builds them one by one, to the same plans)
+BAND_WORKERS = min(os.cpu_count() or 1, 8)
+
+@dataclasses.dataclass(frozen=True)
+class HostBanded:
+    """A row-banded stack of host plans (the JAX ``BandedPlan``,
+    ``tpu_spmv/kernels/window_ell.py:1724-1795``): each band a complete
+    plan over a slice of rows, padded with empty rows to a common height,
+    and ``band_rows`` its real rows, so the outputs trimmed and joined in
+    band order are ``y``."""
+
+    plans: tuple             # HostPlan per band, in row order
+    num_rows: int
+    num_cols: int
+    band_rows: tuple = ()
+
+    @property
+    def n_groups(self) -> int:
+        return sum(p.n_groups for p in self.plans)
+
+    @property
+    def sup(self) -> int:
+        return max(p.sup for p in self.plans)
+
+
+def _slice_rows(csr: CSRMatrix, a: int, b: int,
+                pad_to: int | None = None) -> CSRMatrix:
+    """The row band ``[a, b)`` as an independent CSR (same cols),
+    optionally padded with trailing EMPTY rows to ``pad_to`` rows."""
+    lo, hi = int(csr.row_ptrs[a]), int(csr.row_ptrs[b])
+    h = b - a
+    n = max(pad_to or h, h)
+    ptr = np.empty(n + 1, np.int32)
+    ptr[:h + 1] = (csr.row_ptrs[a:b + 1].astype(np.int64)
+                   - lo).astype(np.int32)
+    ptr[h + 1:] = ptr[h]
+    return CSRMatrix(n, csr.num_cols, csr.values[lo:hi],
+                     csr.col_indices[lo:hi], ptr)
+
+
+def build_banded(csr: CSRMatrix, sup: int, n_bands: int | None = None,
+                 split_rows: int | None = None,
+                 step_groups: int | None = None,
+                 cap_slack: int | None = None,
+                 spill_beta: float | None = None,
+                 permute_rows: bool = False,
+                 pattern: bool = False,
+                 values_dtype=np.float32) -> HostBanded:
+    """A :class:`HostBanded` at superblock height ``sup`` (port of the JAX
+    ``build_banded``, ``window_ell.py:1828-1908``).
+
+    ``n_bands=None`` sizes the bands adaptively: a first full-matrix
+    attempt either fits (one band) or raises with sizing hints that give
+    the split (:func:`_bands_from_overflow`).  Bands are cut at multiples
+    of ``sup``, padded with empty rows to the tallest band's height (a
+    band that the padding tips over a guard keeps its real height), and a
+    band that still overflows a guard that banding relieves (``MAX_GROUPS``,
+    the output and extras part of ``VMEM_BUDGET``) is halved, recursively.
+    Raises :class:`WindowEllOverflow` when a one-superblock band does not
+    fit, or a band trips the inflation guard (the JAX planner halves that
+    one too, fault F7: its halves slip under the guard's absolute floor)."""
+    kw = dict(split_rows=split_rows, step_groups=step_groups,
+              cap_slack=cap_slack, spill_beta=spill_beta,
+              permute_rows=permute_rows, pattern=pattern,
+              values_dtype=values_dtype)
+
+    def whole():
+        return HostBanded((build(csr, sup=sup, **kw),), csr.num_rows,
+                          csr.num_cols, (csr.num_rows,))
+
+    if n_bands is None:
+        try:
+            return whole()
+        except WindowEllOverflow as e:
+            n_bands = _bands_from_overflow(e)
+            if n_bands < 2:
+                raise
+    n_sups = -(-csr.num_rows // sup)
+    n_bands = max(1, min(n_bands, n_sups))
+    cuts = [min(csr.num_rows, sup * (n_sups * i // n_bands))
+            for i in range(n_bands + 1)]
+    todo = [(cuts[i], cuts[i + 1]) for i in range(n_bands)
+            if cuts[i] < cuts[i + 1]]
+    if not todo:
+        return whole()        # zero rows: one empty band
+    # the common band height (on the TPU, one compiled kernel variant)
+    bh = max(b - a for a, b in todo)
+
+    def attempt(ab):
+        """The band's plan at the common height (at its real height where
+        the padding tips it over a guard), or the overflow."""
+        a, b = ab
+        try:
+            try:
+                return build(_slice_rows(csr, a, b, pad_to=bh), sup=sup, **kw)
+            except WindowEllOverflow:
+                if b - a >= bh:
+                    raise
+                return build(_slice_rows(csr, a, b), sup=sup, **kw)
+        except WindowEllOverflow as e:
+            return e
+
+    # each band's build depends on its rows alone, so the bands of a round
+    # build at once (the planner's NumPy and native passes release the
+    # GIL for most of their time); the plans are those built one by one
+    built = {}
+    with ThreadPoolExecutor(BAND_WORKERS) as pool:
+        while todo:
+            halves = []
+            for (a, b), p in zip(todo, pool.map(attempt, todo)):
+                if not isinstance(p, WindowEllOverflow):
+                    built[a] = (p, b - a)
+                    continue
+                # halve only where banding can help (fault F7 of the JAX
+                # planner, not carried over: it halves on any overflow, so
+                # a band over the inflation guard is halved until its slots
+                # slip under the guard's 4M-slot floor, hundreds of bands
+                # at 64x the nonzeros or more)
+                if b - a <= sup or _bands_from_overflow(p) < 2:
+                    raise p
+                mid = a + sup * (-(-(b - a) // sup) // 2)
+                halves += [(a, mid), (mid, b)]
+            todo = halves
+    plans, band_rows = zip(*(built[a] for a in sorted(built)))
+    assert sum(band_rows) == csr.num_rows
+    return HostBanded(plans, csr.num_rows, csr.num_cols, band_rows)
 
 
 def build_auto(csr: CSRMatrix, split_rows: int | None = None,
@@ -1201,12 +1334,16 @@ def build_auto(csr: CSRMatrix, split_rows: int | None = None,
                choice: tuple | None = None,
                permute_rows: bool | None = None,
                pattern: bool = False,
-               values_dtype=np.float32) -> HostPlan:
-    """The single-plan part of the JAX ``build_auto``
-    (``window_ell.py:1928-2004``): the plan at the cost-model superblock,
-    escalating to wider superblocks on overflow.  Where the JAX package
-    would build a row-banded stack instead, this raises
-    ``NotImplementedError`` (ROADMAP M7) rather than build another plan."""
+               values_dtype=np.float32) -> HostPlan | HostBanded:
+    """The best packed layout for ``csr`` (port of the JAX ``build_auto``,
+    ``window_ell.py:1928-2004``): a single plan where it fits, else a
+    :class:`HostBanded` at the cost-model superblock, before escalating to
+    wider superblocks.  Bands are pre-sized where the sampled model already
+    puts the single plan over ``MAX_GROUPS``, and sized from the overflow's
+    hints otherwise; a one-band result is its single plan.  Raises
+    :class:`WindowEllOverflow` where no height fits.  Where a band trips
+    the inflation guard, :func:`build_banded` does not halve it (fault F7
+    of the JAX planner, which does), so the next height is tried."""
     if permute_rows is None:
         permute_rows = _permute_default()
     start, groups_est = choice if choice is not None \
@@ -1215,21 +1352,127 @@ def build_auto(csr: CSRMatrix, split_rows: int | None = None,
     for s in SUP_LEVELS[SUP_LEVELS.index(start):]:
         narrow = s == SUP_LEVELS[0]
         beta, slack = _auto_caps(s)
-        split = split_rows if narrow else None
+        kw = dict(split_rows=split_rows if narrow else None,
+                  step_groups=step_groups, cap_slack=slack, spill_beta=beta,
+                  permute_rows=permute_rows, pattern=pattern,
+                  values_dtype=values_dtype)
+        nb0 = 0
         if s == start and groups_est > MAX_GROUPS and csr.num_rows > s:
+            # 1.25 margin: over-banding costs one more x read per band, an
+            # under-banded attempt a rebuilt band
             nb0 = -(-int(groups_est * 1.25) // int(MAX_GROUPS * 0.9))
-            if nb0 >= 2:
-                raise _banded_not_ported()
         try:
-            return build(
-                csr, split_rows=split, step_groups=step_groups,
-                cap_slack=slack, sup=s, spill_beta=beta,
-                permute_rows=permute_rows, pattern=pattern,
-                values_dtype=values_dtype)
+            if nb0 >= 2:
+                bp = build_banded(csr, sup=s, n_bands=nb0, **kw)
+                return bp if len(bp.plans) > 1 else bp.plans[0]
+            return build(csr, sup=s, **kw)
         except WindowEllOverflow as e:
             err = e
+            if nb0 >= 2:
+                # the pre-sized bands bottomed out at one superblock: any
+                # other band count fails the same way
+                continue
             nb = _bands_from_overflow(e)
             if csr.num_rows <= s or nb < 2:
                 continue  # banding cannot help at this height
-            raise _banded_not_ported() from e
+            try:
+                return build_banded(csr, sup=s, n_bands=nb, **kw)
+            except WindowEllOverflow as e2:
+                err = e2
     raise err
+
+
+# ---- composite plans: cap-and-respill across levels (wide matrices) ----
+
+@dataclasses.dataclass(frozen=True)
+class HostComposite:
+    """A stack of host plans plus a flat remainder (the JAX
+    ``CompositePlan``, ``window_ell.py:1551-1598``): ``y = sum of the
+    levels' outputs + the tail's flat SpMV``, in that order."""
+
+    plans: tuple             # HostPlan per level
+    tail: CSRMatrix | None   # the remainder, on the flat path
+    num_rows: int
+    num_cols: int
+
+
+def _subset_csr(csr: CSRMatrix, rows_of: np.ndarray,
+                mask: np.ndarray) -> CSRMatrix:
+    """A same-shape CSR holding only the masked nonzeros."""
+    rr = rows_of[mask]
+    ptr = np.zeros(csr.num_rows + 1, np.int32)
+    np.cumsum(np.bincount(rr, minlength=csr.num_rows), out=ptr[1:])
+    return CSRMatrix(csr.num_rows, csr.num_cols, csr.values[mask],
+                     csr.col_indices[mask], ptr)
+
+
+def build_composite(csr: CSRMatrix, step_groups: int | None = None,
+                    max_levels: int = 3, split_rows: int | None = None,
+                    permute_rows: bool | None = None) -> HostComposite:
+    """The multi-level composite layout (port of the JAX
+    ``build_composite``, ``window_ell.py:1611-1702``).  Each level's
+    superblock comes from the probe-free ranking on what is left; a narrow
+    level keeps each cell's layers up to its bucket's margin cap, a wide one
+    the first layer of every cell, and the rest goes on to the next level.
+    The final level (the last allowed, a narrow level after the first, or
+    under 65,536 nonzeros) takes the rest with the full split and spill
+    machinery; what no level takes is the flat tail.  The levels keep f32
+    values."""
+    if permute_rows is None:
+        permute_rows = _permute_default()
+    plans = []
+    nr, nc = csr.num_rows, csr.num_cols
+    n_windows = _bucket(max(nc, 1)) // WINDOW
+
+    def coords_csr(r, c32, v):
+        ptr = np.zeros(nr + 1, np.int64)
+        np.cumsum(np.bincount(r, minlength=nr), out=ptr[1:])
+        return CSRMatrix(nr, nc, v, c32, ptr)
+
+    r = np.repeat(np.arange(nr, dtype=np.int64),
+                  np.diff(csr.row_ptrs).astype(np.int64))
+    c64 = csr.col_indices.astype(np.int64)
+    c32, v = csr.col_indices, csr.values
+    done = False
+    for lvl in range(max_levels):
+        s = _rank_sups(r, c64, nr, nc)[0][0]
+        narrow = s == SUP_LEVELS[0]
+        if lvl == max_levels - 1 or (narrow and lvl > 0) \
+                or len(r) < (1 << 16):
+            try:
+                plans.append(build(coords_csr(r, c32, v),
+                                   split_rows=split_rows,
+                                   step_groups=step_groups,
+                                   permute_rows=permute_rows))
+                done = True
+            except WindowEllOverflow:
+                pass                  # the remainder goes to the flat tail
+            break
+        cell = (((r // s) * n_windows + c64 // WINDOW) * (CHUNKS * LANE)
+                + ((c64 // LANE) % CHUNKS) * LANE + r % LANE)
+        layer = _cumcount(cell)
+        if narrow:
+            _, binv, bcnt = _unique_ic(cell // (CHUNKS * LANE))
+            cap = np.maximum(
+                -(-(bcnt + (bcnt * 0.3).astype(np.int64))
+                  // (CHUNKS * LANE)),
+                -(-bcnt // (CHUNKS * LANE)))
+            keep = layer < cap[binv]
+        else:
+            keep = layer < 1
+        try:
+            plans.append(build(coords_csr(r[keep], c32[keep], v[keep]),
+                               split_rows=None, step_groups=step_groups,
+                               sup=s, cap_slack=8 if narrow else 2,
+                               permute_rows=permute_rows))
+        except WindowEllOverflow:
+            break                     # the whole remainder to the flat tail
+        spill = ~keep
+        if not spill.any():
+            done = True
+            break
+        r, c64, c32, v = r[spill], c64[spill], c32[spill], v[spill]
+    if not plans:
+        raise WindowEllOverflow("no composite level packs this structure")
+    tail = None if done or not len(r) else coords_csr(r, c32, v)
+    return HostComposite(tuple(plans), tail, nr, nc)

@@ -22,10 +22,13 @@ Device part:
 * :func:`permute_chunks` (K3, ``csrc/permute.cu``, defined beside the
   gather table's set-up in :mod:`.window_ell`) gathers 128-element chunks;
   beside it, its plain version :func:`permute_chunks_plain`;
-* :class:`ReorderedPlan` is the inner window-ELL plan plus the two gather
-  maps; :func:`spmv_reordered` runs it as the inner plan's SpMV with the
-  x permute fused into the gather table's set-up (K3) and the row permute
-  composed into K2's tile map, so each vector is written once;
+* :class:`ReorderedPlan` is the inner window-ELL plan (or row-banded
+  stack) plus the two gather maps; :func:`spmv_reordered` runs a single
+  inner plan as its SpMV with the x permute fused into the gather table's
+  set-up (K3) and the row permute composed into K2's tile map, so each
+  vector is written once, and a banded inner plan as the JAX package does:
+  ``permute_chunks`` of x, the banded SpMV, ``permute_chunks`` of its rows
+  (K2's tile map maps one plan's tiles, not several bands');
 * :func:`build_reordered` (through :func:`build_reordered_host`, the host
   half the dispatch caches) and :func:`reordered_from_arrays` make one,
   from a host CSR or from a JAX ``ReorderedPlan``'s arrays.
@@ -41,11 +44,12 @@ import torch
 
 from ..csr import CSRMatrix
 from ..errors import InvalidFormatError, guarded_upload
-from .plan import (LANE, SUP_LEVELS, HostPlan, _choose_sup,
+from .plan import (LANE, SUP_LEVELS, HostBanded, HostPlan, _choose_sup,
                    _sampled_sup_costs, build_auto)
 from .window_ell import permute_chunks, permute_chunks_plain  # noqa: F401
-from .window_ell import (WindowEllPlan, gather_table, plan_from_arrays,
-                         setup_bytes, spmv_on_table)
+from .window_ell import (BandedPlan, WindowEllPlan, banded_from_host,
+                         gather_table, plan_from_arrays, setup_bytes,
+                         spmv_banded, spmv_on_table)
 
 BLOCK = LANE            # permutation granularity: one 128-element chunk
 # top-K quotient-graph pruning: each block keeps its K heaviest neighbours,
@@ -225,11 +229,12 @@ def maybe_reorder(csr: CSRMatrix, choice: tuple | None = None,
 
 @dataclasses.dataclass(frozen=True)
 class ReorderedPlan:
-    """A window-ELL plan built on the block-permuted matrix, plus the two
-    gather maps that make it serve the original order (the JAX
-    ``ReorderedPlan``, ``tpu_spmv/kernels/reorder.py:277-306``)."""
+    """A window-ELL plan (or row-banded stack) built on the block-permuted
+    matrix, plus the two gather maps that make it serve the original order
+    (the JAX ``ReorderedPlan``, ``tpu_spmv/kernels/reorder.py:277-306``)."""
 
-    inner: WindowEllPlan     # in the permuted space, dims padded to blocks
+    inner: WindowEllPlan | BandedPlan  # in the permuted space, dims padded
+    #                                    to blocks
     col_src: torch.Tensor    # i32 (nb,) new chunk j reads x chunk col_src[j]
     row_src: torch.Tensor    # i32 (nb,) output chunk b reads inner's
     #                          chunk row_src[b]
@@ -248,19 +253,31 @@ class ReorderedPlan:
     def stream_bytes(self) -> float:
         """Bytes one SpMV moves: the inner plan's, x and ``col_src`` read
         by the gather table's set-up (:func:`~.window_ell.setup_bytes`),
-        and ``row_src`` read by K2, 4 B an output tile."""
-        return self.inner.stream_bytes \
+        and ``row_src`` read by K2, 4 B an output tile.  A banded inner
+        plan reads the permuted x instead, so the x permute also writes it,
+        and the row permute reads the bands' rows and writes ``y``."""
+        b = self.inner.stream_bytes \
             + setup_bytes(self.num_cols, len(self.col_src)) \
             + 4 * -(-self.num_rows // LANE)
+        if isinstance(self.inner, BandedPlan):
+            b += 4 * (self.inner.num_cols + self.inner.num_rows
+                      + self.num_rows)
+        return b
 
 
 def spmv_reordered(rp: ReorderedPlan, x: torch.Tensor) -> torch.Tensor:
     """``y = A @ x`` through a reordered plan
     (``tpu_spmv/kernels/reorder.py:320-328``: gather x into the plan's
-    block order, run the inner plan, gather the rows back), with neither
-    gather a pass of its own: the gather table's set-up (K3) reads x's
-    chunks in ``col_src`` order, and K2 writes the output tile ``b`` from
-    the inner plan's tile ``row_src[b]``, trimmed to ``num_rows``."""
+    block order, run the inner plan, gather the rows back).  On a single
+    inner plan neither gather is a pass of its own: the gather table's
+    set-up (K3) reads x's chunks in ``col_src`` order, and K2 writes the
+    output tile ``b`` from the inner plan's tile ``row_src[b]``, trimmed
+    to ``num_rows``.  On a banded inner plan each gather is a
+    :func:`permute_chunks` (K3) around :func:`~.window_ell.spmv_banded`."""
+    if isinstance(rp.inner, BandedPlan):
+        xp = permute_chunks(x, rp.col_src, rp.inner.num_cols)
+        return permute_chunks(spmv_banded(rp.inner, xp), rp.row_src,
+                              rp.num_rows)
     table = gather_table(rp.inner, x, rp.col_src)
     return spmv_on_table(rp.inner, table, rp.row_src, rp.num_rows)
 
@@ -302,12 +319,23 @@ def reordered_from_arrays(inner_leaves: dict, inner_aux: dict,
                          guarded_upload(row_src, device), num_rows, num_cols)
 
 
-def reordered_from_host(inner: HostPlan, order: np.ndarray, num_rows: int,
-                        num_cols: int, device="cuda") -> ReorderedPlan:
-    """The device plan of a port-built inner plan and its block order."""
-    return reordered_from_arrays(inner.leaves(), inner.aux(), order,
-                                 _inverse(order), num_rows, num_cols, device,
-                                 inner.occupancy, inner.values_dtype)
+def reordered_from_host(inner: HostPlan | HostBanded, order: np.ndarray,
+                        num_rows: int, num_cols: int,
+                        device="cuda") -> ReorderedPlan:
+    """The device plan of a port-built inner plan (or banded stack) and its
+    block order."""
+    if isinstance(inner, HostPlan):
+        return reordered_from_arrays(inner.leaves(), inner.aux(), order,
+                                     _inverse(order), num_rows, num_cols,
+                                     device, inner.occupancy,
+                                     inner.values_dtype)
+    col_src = np.ascontiguousarray(order, np.int32)
+    row_src = _inverse(order).astype(np.int32)
+    _check_maps(col_src, row_src, num_rows, num_cols, inner.num_rows,
+                inner.num_cols)
+    return ReorderedPlan(banded_from_host(inner, device),
+                         guarded_upload(col_src, device),
+                         guarded_upload(row_src, device), num_rows, num_cols)
 
 
 def build_reordered_host(csr: CSRMatrix, order: np.ndarray | None = None,
@@ -315,14 +343,13 @@ def build_reordered_host(csr: CSRMatrix, order: np.ndarray | None = None,
                          step_groups: int | None = None,
                          permute_rows: bool | None = None,
                          values_dtype=np.float32
-                         ) -> tuple[HostPlan, np.ndarray]:
+                         ) -> tuple[HostPlan | HostBanded, np.ndarray]:
     """The host half of :func:`build_reordered`: ``(inner plan, order)``,
-    the inner plan :func:`~.plan.build_auto` of the matrix permuted by
-    ``order`` (default: the RCM block order), with a ``values_dtype``
-    (float32 or bfloat16) value stream.  Raises
-    :class:`~.plan.WindowEllOverflow` where every packed layout rejects it,
-    and ``NotImplementedError`` (ROADMAP M7) where the JAX planner would
-    build a row-banded plan."""
+    the inner plan (a single plan or a banded stack)
+    :func:`~.plan.build_auto` of the matrix permuted by ``order`` (default:
+    the RCM block order), with a ``values_dtype`` (float32 or bfloat16)
+    value stream.  Raises :class:`~.plan.WindowEllOverflow` where every
+    packed layout rejects it."""
     if order is None:
         order = block_order(csr)
     inner = build_auto(permute_csr(csr, order), split_rows=split_rows,

@@ -32,7 +32,12 @@ Port of the device half of ``tpu_spmv/kernels/window_ell.py``:
   section by section, unpermute through ``lam``, trim to ``num_rows``;
   :func:`spmv_on_table` is the part after the set-up, which a reordered
   plan shares; :func:`spmv_pattern` runs a pattern plan of a column-scaled
-  matrix.
+  matrix;
+* :class:`BandedPlan` (row bands, each a complete plan, outputs trimmed and
+  joined) and :class:`CompositePlan` (levels of plans and a flat tail,
+  outputs added) stack plans; :func:`spmv_banded`,
+  :func:`spmv_pattern_banded` and :func:`spmv_composite` run them through
+  the same kernels, each band or level with its own gather table.
 
 Pattern plans stream no values: every stored nonzero is 1.0, and pad slots
 carry a sentinel sub-block that no output row matches (:func:`sentinel`).
@@ -47,9 +52,12 @@ import struct
 import numpy as np
 import torch
 
+from ..csr import DeviceCSR
 from ..errors import DeviceException, InvalidFormatError, guarded_upload
 from ._build import kernels
-from .plan import AUX, CHUNKS, LANE, LEAVES, WINDOW, HostPlan
+from .plan import (AUX, CHUNKS, LANE, LEAVES, WINDOW, HostBanded,
+                   HostComposite, HostPlan)
+from .scalar import spmv_csr_scalar
 
 _TB_LEGAL = (2, 4, 8)
 _NTB_LEGAL = (8, 32, 128)
@@ -1013,3 +1021,148 @@ def spmv_pattern(plan: WindowEllPlan, scale: torch.Tensor,
     if not plan.pat:
         raise ValueError("spmv_pattern takes a pattern plan")
     return spmv_window_ell(plan, scale * x)
+
+
+# ---- banded plans: row bands as independent plans ----
+
+@dataclasses.dataclass(frozen=True)
+class BandedPlan:
+    """A row-banded stack of window-ELL plans on one device (the JAX
+    ``BandedPlan``, ``tpu_spmv/kernels/window_ell.py:1724-1795``, without
+    save and load).  Each band is a complete plan over a slice of rows
+    (its splits, spills and extras confined to it), padded with empty rows
+    to a common height; ``band_rows`` are its real rows.  The bands come
+    from the v5e guards the planner keeps (``MAX_GROUPS``, ``VMEM_BUDGET``),
+    so the plans equal the reference's.  ``y`` is the bands' outputs, each
+    trimmed to its real rows, joined in band order; ``x`` is shared, each
+    band reading it into a gather table of its own."""
+
+    plans: tuple             # WindowEllPlan per band, in row order
+    num_rows: int
+    num_cols: int
+    band_rows: tuple = ()
+
+    @property
+    def n_groups(self) -> int:
+        return sum(p.n_groups for p in self.plans)
+
+    @property
+    def sup(self) -> int:
+        return max(p.sup for p in self.plans)
+
+    @property
+    def occupancy(self) -> float:
+        tot = sum(p.n_groups for p in self.plans)
+        return sum(p.occupancy * p.n_groups for p in self.plans) / tot \
+            if tot else 0.0
+
+    @property
+    def sbn(self) -> bool:
+        return all(p.sbn for p in self.plans)
+
+    @property
+    def stream_bytes(self) -> float:
+        """The bands' bytes, each band counting its own gather table (x is
+        read once per band), and the join of two bands or more (their rows
+        read, ``y`` written)."""
+        join = 8.0 * self.num_rows if len(self.plans) > 1 else 0.0
+        return sum(p.stream_bytes for p in self.plans) + join
+
+
+def banded_from_host(hb: HostBanded, device="cuda") -> BandedPlan:
+    """The device plan of a port-built :class:`~.plan.HostBanded` (on the
+    card unless the caller names another device)."""
+    return BandedPlan(tuple(plan_from_host(p, device) for p in hb.plans),
+                      hb.num_rows, hb.num_cols, tuple(hb.band_rows))
+
+
+def spmv_banded(bp: BandedPlan, x: torch.Tensor) -> torch.Tensor:
+    """``y = A @ x`` over a banded plan (``spmv_banded``,
+    ``window_ell.py:1911-1925``): each band's SpMV on its own gather table,
+    its rows trimmed to the band's real height where the SpMV ends (K2
+    writes only those), then one join.  Raises
+    :class:`~tpu_spmv_torch.errors.InvalidFormatError` where ``band_rows``
+    do not partition ``num_rows`` over the bands (a stack whose pad rows
+    would land in ``y``)."""
+    rows = bp.band_rows or tuple(p.num_rows for p in bp.plans)
+    if len(rows) != len(bp.plans) or sum(rows) != bp.num_rows:
+        raise InvalidFormatError(
+            f"BandedPlan band_rows {tuple(rows)} do not partition "
+            f"num_rows={bp.num_rows} across {len(bp.plans)} bands")
+    ys = [spmv_on_table(p, gather_table(p, x), num_rows=r)
+          for p, r in zip(bp.plans, rows)]
+    return ys[0] if len(ys) == 1 else torch.cat(ys)
+
+
+def spmv_pattern_banded(bp: BandedPlan, scale: torch.Tensor,
+                        x: torch.Tensor) -> torch.Tensor:
+    """Banded form of :func:`spmv_pattern` (``window_ell.py:1543-1546``):
+    the column scale folded into x once, for every band."""
+    if not all(p.pat for p in bp.plans):
+        raise ValueError("spmv_pattern_banded takes pattern plans")
+    return spmv_banded(bp, scale * x)
+
+
+# ---- composite plans: levels of plans plus a flat tail ----
+
+@dataclasses.dataclass(frozen=True)
+class CompositePlan:
+    """A stack of window-ELL plans plus a flat remainder on one device (the
+    JAX ``CompositePlan``, ``window_ell.py:1551-1598``, without save and
+    load): ``y = level_0(x) + level_1(x) + ... + flat(tail, x)``, added in
+    that order.  Every level covers all rows and columns."""
+
+    plans: tuple             # WindowEllPlan per level
+    tail: DeviceCSR | None   # the flat path's remainder, or None
+    num_rows: int
+    num_cols: int
+
+    @property
+    def n_groups(self) -> int:
+        return sum(p.n_groups for p in self.plans)
+
+    @property
+    def occupancy(self) -> float:
+        tot = sum(p.n_groups for p in self.plans)
+        return sum(p.occupancy * p.n_groups for p in self.plans) / tot \
+            if tot else 0.0
+
+    @property
+    def stream_bytes(self) -> float:
+        """The levels' bytes, the tail's (:attr:`DeviceCSR.stream_bytes`),
+        and each add after the first level (y read twice, written once)."""
+        tail = 0.0 if self.tail is None else self.tail.stream_bytes
+        adds = len(self.plans) - 1 + (self.tail is not None)
+        return sum(p.stream_bytes for p in self.plans) + tail \
+            + 12.0 * self.num_rows * adds
+
+
+def composite_from_host(hc: HostComposite, device="cuda") -> CompositePlan:
+    """The device plan of a port-built :class:`~.plan.HostComposite`."""
+    return CompositePlan(
+        tuple(plan_from_host(p, device) for p in hc.plans),
+        None if hc.tail is None else DeviceCSR.from_host(hc.tail, device),
+        hc.num_rows, hc.num_cols)
+
+
+def upload(host: HostPlan | HostBanded | HostComposite,
+           device="cuda") -> WindowEllPlan | BandedPlan | CompositePlan:
+    """The device plan of a port-built host plan of any of these types (on
+    the card unless the caller names another device)."""
+    if isinstance(host, HostBanded):
+        return banded_from_host(host, device)
+    if isinstance(host, HostComposite):
+        return composite_from_host(host, device)
+    return plan_from_host(host, device)
+
+
+def spmv_composite(cp: CompositePlan, x: torch.Tensor) -> torch.Tensor:
+    """``y = A @ x`` over a composite plan (``spmv_composite``,
+    ``window_ell.py:1705-1719``): the levels' SpMVs added in level order,
+    then the tail's flat SpMV."""
+    y = spmv_window_ell(cp.plans[0], x)
+    for p in cp.plans[1:]:
+        y = y + spmv_window_ell(p, x)
+    if cp.tail is not None:
+        y = y + spmv_csr_scalar(cp.tail, x)
+    return y

@@ -7,7 +7,8 @@ Each iteration is
 
 with the SpMV through :func:`~tpu_spmv_torch.spmv.spmv_csr`'s dispatch and
 the dangling dot, the update and the L2 residual as torch ops on the same
-device; only the residual (one scalar per iteration, for the stop test) and
+device (the SpMV through any plan the dispatch serves: a single, banded or
+composite plan, its pattern form, or the flat path); only the residual (one scalar per iteration, for the stop test) and
 the final ranks come back.  Column-normalised transition matrices factor as
 ``B·diag(1/outdeg)``, so the dispatch runs them on the pattern fast path
 (``SpMVConfig(pattern=True)``: a pattern plan over pre-scaled ranks, no value
@@ -33,6 +34,7 @@ import torch
 
 from .csr import CSRMatrix
 from .errors import SpMVError, SpMVException, guarded_upload
+from .kernels.plan import WindowEllOverflow
 from .spmv import KernelType, SpMVConfig, _resolve_csr_kernel, _run
 
 
@@ -132,9 +134,9 @@ def pagerank(adj_matrix: CSRMatrix | None,
     ``DEVICE_ALLOC``.  A non-square matrix gives ``INVALID_DIMENSION``,
     ``None`` an empty result.  The SpMV route is the dispatch's for
     ``SpMVConfig(pattern=True)`` and ``config.kernel_type``: a pattern plan
-    for column-scaled values, else the f32 plan.  Where the packed layout
-    rejects the matrix (the JAX package falls back to SCALAR_CSR), it raises
-    ``NotImplementedError`` naming ROADMAP M7."""
+    (or banded stack) for column-scaled values, else the f32 plan, banded
+    stack or composite; where the packed layout rejects the matrix,
+    SCALAR_CSR's (``tpu_spmv/pagerank.py:163-169``)."""
     result = PageRankResult()
     if adj_matrix is None:
         return result
@@ -153,9 +155,13 @@ def pagerank(adj_matrix: CSRMatrix | None,
         result.ranks = torch.zeros(0, dtype=torch.float32, device=device)
         return result
     try:
-        plan = _resolve_csr_kernel(
-            adj_matrix, KernelType(config.kernel_type),
-            SpMVConfig(pattern=True), device)
+        try:
+            plan = _resolve_csr_kernel(
+                adj_matrix, KernelType(config.kernel_type),
+                SpMVConfig(pattern=True), device)
+        except WindowEllOverflow:
+            plan = _resolve_csr_kernel(adj_matrix, KernelType.SCALAR_CSR,
+                                       SpMVConfig(), device)
         mask = guarded_upload(find_dangling_mask(adj_matrix)[:n], device)
         if initial_ranks is not None:
             r0 = initial_ranks if isinstance(initial_ranks, torch.Tensor) \

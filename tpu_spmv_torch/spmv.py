@@ -2,19 +2,27 @@
 ``tpu_spmv/spmv.py``).
 
 ``spmv_csr`` validates its arguments before any device work, resolves the
-packed window-ELL plan for VECTOR_CSR and MERGE_PATH (block-reordered where
-the reorder probe applies, ``SpMVConfig.reorder``; a pattern plan of the
-0/1 structure where ``SpMVConfig.pattern`` is set and the values are
-column-scaled; a bf16 value stream where ``SpMVConfig.bf16_values`` is
-set), runs it on the card unless the caller names another device, and
-reports errors through ``SpMVResult.error_code`` with the JAX package's
-codes (the reference's no-throw contract).
+plan the JAX dispatch would (``tpu_spmv/spmv.py:137-206``, ``:285-455``),
+runs it on the card unless the caller names another device, and reports
+errors through ``SpMVResult.error_code`` with the JAX package's codes (the
+reference's no-throw contract).  The routes, in the JAX order:
 
-Only the packed single-plan route, its reordered form and its pattern and
-bf16 forms are ported.  Every other route the JAX dispatch can take raises
-``NotImplementedError`` naming its ROADMAP item, so no call is quietly
-served by another route than the JAX package's: SCALAR_CSR's naive plan,
-banded, strip and composite plans (M7); the flat and ELL fallbacks (M10).
+* VECTOR_CSR and MERGE_PATH: the pattern plan of the 0/1 structure where
+  ``SpMVConfig.pattern`` is set and the values are column-scaled (a single
+  plan or a row-banded stack); else, up to ``VMEM_X_MAX_COLS`` columns,
+  the block-reordered plan where the reorder probe applies, else
+  ``build_auto``'s single plan or row-banded stack (with an f32 or bf16
+  value stream); past that width, or where ``build_auto`` overflows, the
+  composite plan (f32 levels and a flat tail); past ``PACKED_MAX_COLS``,
+  column strips;
+* SCALAR_CSR: the naive plan (no row splits, no spill), where it fits;
+* the flat path (:mod:`.kernels.scalar`) for ELL_KERNEL on a CSR, for
+  ``use_vmem_x=False``, and for a structure every packed layout rejects.
+
+A call whose packed route overflows is served as SCALAR_CSR, as the JAX
+dispatch does.  The JAX dispatch's retry on a kernel's execution error
+(``tpu_spmv/spmv.py:246-282``) is not ported: a kernel that fails to build
+or launch raises.
 """
 
 from __future__ import annotations
@@ -28,14 +36,21 @@ import numpy as np
 import torch
 
 from .bandwidth import BandwidthMetrics, compute_bandwidth_csr
-from .csr import CSRMatrix
+from .csr import CSRMatrix, DeviceCSR
 from .errors import SpMVError, SpMVException, guarded_upload
-from .kernels.plan import HostPlan, WindowEllOverflow, _choose_sup, build_auto
+from .kernels.plan import (WindowEllOverflow, _choose_sup, build,
+                           build_auto, build_composite)
 from .kernels.reorder import (ReorderedPlan, build_reordered_host,
                               maybe_reorder, reordered_from_host,
                               spmv_reordered)
-from .kernels.window_ell import (WindowEllPlan, plan_from_host, spmv_pattern,
-                                 spmv_window_ell)
+from .kernels.scalar import spmv_csr_scalar
+from .kernels.strips import (STRIP_MAX_COLS, HostStrips, StripPlan,
+                             build_strips_host, spmv_strips,
+                             strips_from_host)
+from .kernels.window_ell import (BandedPlan, CompositePlan, WindowEllPlan,
+                                 spmv_banded, spmv_composite, spmv_pattern,
+                                 spmv_pattern_banded, spmv_window_ell,
+                                 upload)
 
 # the JAX package's column caps (TPU VMEM limits), kept so both packages
 # route the same matrices the same way; ROADMAP M13 revisits them
@@ -81,11 +96,12 @@ class SpMVConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PatternPlan:
-    """The pattern fast path's plan: a pattern plan of the 0/1 structure B
-    of ``A = B·diag(scale)`` and the column scale, both on one device (the
-    JAX dispatch's ``(spmv_pattern, (plan, scale))``)."""
+    """The pattern fast path's plan: a pattern plan (or row-banded stack of
+    them) of the 0/1 structure B of ``A = B·diag(scale)`` and the column
+    scale, both on one device (the JAX dispatch's ``(spmv_pattern, (plan,
+    scale))`` or ``(spmv_pattern_banded, ...)``)."""
 
-    plan: WindowEllPlan
+    plan: WindowEllPlan | BandedPlan
     scale: torch.Tensor       # f32 (num_cols,)
 
     @property
@@ -93,6 +109,12 @@ class PatternPlan:
         """The pattern plan's bytes, as the JAX bench counts them (the
         scale multiply, 12 B per column, left out)."""
         return self.plan.stream_bytes
+
+
+# what serves an SpMV: a packed plan or stack of them, or the matrix itself
+# on the flat path
+Plan = (WindowEllPlan | BandedPlan | CompositePlan | StripPlan | ReorderedPlan
+        | PatternPlan | DeviceCSR)
 
 
 @dataclasses.dataclass
@@ -105,8 +127,7 @@ class SpMVResult:
     bandwidth_gb_s: float = 0.0
     error_code: int = 0
     bandwidth: BandwidthMetrics | None = None
-    plan: WindowEllPlan | ReorderedPlan | PatternPlan | None = None  # the
-    #                                                   plan that served it
+    plan: Plan | None = None    # the plan that served it
     plan_seconds: float = 0.0   # plan resolution in this call (build +
     #                             upload; a cache hit takes microseconds)
 
@@ -119,65 +140,84 @@ def spmv_validate_dimensions(num_cols: int, vec_size: int) -> bool:
     return num_cols == vec_size
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+def _split(kernel_type: KernelType) -> int | None:
+    return MERGE_SPLIT_ROWS if kernel_type == KernelType.MERGE_PATH \
+        else None
 
 
-def _host_plan(A: CSRMatrix, split: int | None,
-               config: SpMVConfig) -> tuple[HostPlan, np.ndarray | None]:
-    """The host plan for ``A`` in the order of ``tpu_spmv/spmv.py:159-198``:
-    the reorder probe (once per ``split``), the reordered build where the
-    probe applies and the permuted matrix packs, else the natural plan.
-    Returns ``(plan, block order)``: the order is ``None`` for a natural
-    plan, and the plan then is ``A``'s own."""
-    skey = ("_sup", split)
-    if skey not in A._plan_cache:   # O(nnz) sampled model — cache
-        A._plan_cache[skey] = _choose_sup(A, with_groups=True,
-                                          split_rows=split)
+def _upload(host, device: torch.device):
+    """The device plan of a host plan of any type."""
+    return strips_from_host(host, device) if isinstance(host, HostStrips) \
+        else upload(host, device)
+
+
+def _cached(A: CSRMatrix, key: tuple, device: torch.device, make):
+    """The device plan cached on ``A`` under ``(key, device)``, made from
+    the host plan cached under ``key`` (``make()`` on a miss; ``None``
+    remembers a rejection and gives ``None``)."""
+    dkey = (key, str(device))
+    if dkey not in A._plan_cache:
+        if key not in A._plan_cache:
+            A._plan_cache[key] = make()
+        host = A._plan_cache[key]
+        A._plan_cache[dkey] = None if host is None else _upload(host, device)
+    return A._plan_cache[dkey]
+
+
+def _host_plan(A: CSRMatrix, split: int | None, config: SpMVConfig):
+    """The host plan for ``A`` in the order of ``tpu_spmv/spmv.py:156-205``:
+    up to ``VMEM_X_MAX_COLS`` columns the reorder probe (once per
+    ``split``), the reordered build where the probe applies and the
+    permuted matrix packs, else ``build_auto``'s plan or banded stack; past
+    that width, or where that overflows, the composite plan (its levels f32,
+    as in the JAX package).  Returns ``(plan, block order)``: the order is
+    ``None`` for a plan of ``A``'s own rows."""
     vdt = "bfloat16" if config.bf16_values else "float32"
-    if config.reorder is not False:
-        # the verdict depends on the split-dependent superblock choice
-        rkey = ("_reorder", bool(config.reorder), split)
-        if rkey not in A._plan_cache:   # O(nnz) probe — cache
-            A._plan_cache[rkey] = maybe_reorder(
-                A, choice=A._plan_cache[skey],
-                force=config.reorder is True, split_rows=split)
-        order = A._plan_cache[rkey]
-        if order is not None:
-            try:
-                return build_reordered_host(A, order, split,
-                                            config.step_groups,
-                                            values_dtype=vdt)
-            except WindowEllOverflow:
-                pass   # the permuted matrix packs in no layout: natural plan
-    try:
-        return build_auto(A, step_groups=config.step_groups,
-                          split_rows=split, choice=A._plan_cache[skey],
-                          values_dtype=vdt), None
-    except WindowEllOverflow as e:
-        raise _not_ported("composite plans (single plan overflows)",
-                          "M7") from e
+    if A.num_cols <= VMEM_X_MAX_COLS:
+        skey = ("_sup", split)
+        if skey not in A._plan_cache:   # O(nnz) sampled model — cache
+            A._plan_cache[skey] = _choose_sup(A, with_groups=True,
+                                              split_rows=split)
+        if config.reorder is not False:
+            # the verdict depends on the split-dependent superblock choice
+            rkey = ("_reorder", bool(config.reorder), split)
+            if rkey not in A._plan_cache:   # O(nnz) probe — cache
+                A._plan_cache[rkey] = maybe_reorder(
+                    A, choice=A._plan_cache[skey],
+                    force=config.reorder is True, split_rows=split)
+            order = A._plan_cache[rkey]
+            if order is not None:
+                try:
+                    return build_reordered_host(A, order, split,
+                                                config.step_groups,
+                                                values_dtype=vdt)
+                except WindowEllOverflow:
+                    pass   # the permuted matrix packs in no layout
+        try:
+            return build_auto(A, step_groups=config.step_groups,
+                              split_rows=split, choice=A._plan_cache[skey],
+                              values_dtype=vdt), None
+        except WindowEllOverflow:
+            pass
+    return build_composite(A, step_groups=config.step_groups,
+                           split_rows=split), None
 
 
 def _plan_for(A: CSRMatrix, kernel_type: KernelType, config: SpMVConfig,
-              device: torch.device) -> WindowEllPlan | ReorderedPlan:
-    """The packed single plan for ``A`` on ``device`` (the single-plan part
-    of ``tpu_spmv/spmv.py:_plan_for``), with an f32 or bf16 value stream,
+              device: torch.device):
+    """The packed plan for ``A`` on ``device`` (``tpu_spmv/spmv.py:137-206``),
     cached on the matrix under the JAX package's key (kernel type, step
-    width, bf16 flag, reorder flag)."""
-    if A.num_cols > VMEM_X_MAX_COLS:
-        raise _not_ported("composite plans (x wider than one block)", "M7")
-    split = MERGE_SPLIT_ROWS if kernel_type == KernelType.MERGE_PATH \
-        else None
+    width, bf16 flag, reorder flag).  Raises :class:`WindowEllOverflow`
+    where no composite level packs the matrix."""
     hkey = ("host", int(kernel_type), config.step_groups,
             bool(config.bf16_values), config.reorder)
     dkey = (hkey, str(device))
     if dkey in A._plan_cache:
         return A._plan_cache[dkey]
     if hkey not in A._plan_cache:
-        A._plan_cache[hkey] = _host_plan(A, split, config)
+        A._plan_cache[hkey] = _host_plan(A, _split(kernel_type), config)
     host, order = A._plan_cache[hkey]
-    plan = plan_from_host(host, device) if order is None \
+    plan = _upload(host, device) if order is None \
         else reordered_from_host(host, order, A.num_rows, A.num_cols, device)
     A._plan_cache[dkey] = plan
     return plan
@@ -187,12 +227,14 @@ def _resolve_pattern(A: CSRMatrix, kernel_type: KernelType,
                      config: SpMVConfig,
                      device: torch.device) -> PatternPlan | None:
     """The pattern fast path (``tpu_spmv/spmv.py:423-455``): a pattern plan
-    of the 0/1 structure plus the factored-out column scale.  Returns
-    ``None`` (the f32 packed path serves) when the values are not
-    column-scaled, the pattern plan overflows, or ``TPU_SPMV_NO_PATTERN`` is
-    set.  The scale is cached under ``"_cscale"``, the host plan (or
-    ``None`` for a rejection) under ``("pat", kernel type, step width)``,
-    the device plan under that key and the device."""
+    (or banded stack) of the 0/1 structure plus the factored-out column
+    scale.  Returns ``None`` (the f32 packed path serves) when the values
+    are not column-scaled, the pattern plan overflows, or
+    ``TPU_SPMV_NO_PATTERN`` is set.  The scale is cached under
+    ``"_cscale"``, the host plan (or ``None`` for a rejection) under
+    ``("pat", kernel type, step width)``, the device plan under that key and
+    the device, and the :class:`PatternPlan` under ``"_pattern"``, that key
+    and the device."""
     from .pagerank import column_scale_factor
 
     if os.environ.get("TPU_SPMV_NO_PATTERN"):
@@ -202,53 +244,133 @@ def _resolve_pattern(A: CSRMatrix, kernel_type: KernelType,
     scale = A._plan_cache["_cscale"]
     if scale is None or A.num_cols > VMEM_X_MAX_COLS:
         return None
-    key = ("pat", int(kernel_type), config.step_groups)
-    if key not in A._plan_cache:
-        split = MERGE_SPLIT_ROWS if kernel_type == KernelType.MERGE_PATH \
-            else None
+
+    def make():
         try:
-            A._plan_cache[key] = build_auto(
-                A, step_groups=config.step_groups, split_rows=split,
-                pattern=True)
+            return build_auto(A, step_groups=config.step_groups,
+                              split_rows=_split(kernel_type), pattern=True)
         except WindowEllOverflow:
-            A._plan_cache[key] = None   # remember the rejection
-    if A._plan_cache[key] is None:
-        return None
-    dkey = (key, str(device))
-    if dkey not in A._plan_cache:
-        A._plan_cache[dkey] = PatternPlan(
-            plan_from_host(A._plan_cache[key], device),
-            guarded_upload(scale, device))
-    return A._plan_cache[dkey]
+            return None
+
+    key = ("pat", int(kernel_type), config.step_groups)
+    pkey = ("_pattern", key, str(device))
+    if pkey not in A._plan_cache:
+        plan = _cached(A, key, device, make)
+        A._plan_cache[pkey] = None if plan is None \
+            else PatternPlan(plan, guarded_upload(scale, device))
+    return A._plan_cache[pkey]
 
 
-def _run(plan: WindowEllPlan | ReorderedPlan | PatternPlan,
-         x: torch.Tensor) -> torch.Tensor:
-    """``y = A @ x`` through the resolved plan."""
+def _resolve_strips(A: CSRMatrix, kernel_type: KernelType,
+                    config: SpMVConfig,
+                    device: torch.device) -> StripPlan | None:
+    """Column strips (``tpu_spmv/spmv.py:399-420``), or ``None`` where a
+    strip rejects every packed layout; the rejection is cached too."""
+    def make():
+        try:
+            return build_strips_host(A, STRIP_MAX_COLS, config.step_groups,
+                                     _split(kernel_type))
+        except WindowEllOverflow:
+            return None
+
+    return _cached(A, ("strips", int(kernel_type), config.step_groups, None),
+                   device, make)
+
+
+def _resolve_naive(A: CSRMatrix, config: SpMVConfig,
+                   device: torch.device) -> WindowEllPlan | None:
+    """SCALAR_CSR's naive plan (``tpu_spmv/spmv.py:373-393``): the
+    lane-per-row layout with no row splits, no spill (margin caps opened
+    wide) and no leveling, or ``None`` where it overflows; cached under
+    ``("naive", step width)``."""
+    def make():
+        try:
+            return build(A, split_rows=None, step_groups=config.step_groups,
+                         spill_beta=0.0, cap_margin=1e9, permute_rows=False)
+        except WindowEllOverflow:
+            return None
+
+    return _cached(A, ("naive", config.step_groups), device, make)
+
+
+def _run(plan: Plan, x: torch.Tensor) -> torch.Tensor:
+    """``y = A @ x`` through the resolved plan, by its type."""
     if isinstance(plan, ReorderedPlan):
         return spmv_reordered(plan, x)
     if isinstance(plan, PatternPlan):
+        if isinstance(plan.plan, BandedPlan):
+            return spmv_pattern_banded(plan.plan, plan.scale, x)
         return spmv_pattern(plan.plan, plan.scale, x)
+    if isinstance(plan, BandedPlan):
+        return spmv_banded(plan, x)
+    if isinstance(plan, CompositePlan):
+        return spmv_composite(plan, x)
+    if isinstance(plan, StripPlan):
+        return spmv_strips(plan, x)
+    if isinstance(plan, DeviceCSR):
+        return spmv_csr_scalar(plan, x)
     return spmv_window_ell(plan, x)
 
 
+def launches_per_call(plan: Plan) -> dict:
+    """The port's kernel launches one :func:`_run` of ``plan`` makes, as
+    ``{"fold", "section_epilogue", "unpermute", "permute_chunks"}`` (K1's
+    fold in whichever value stream the plan has): per window-ELL plan one
+    table set-up (K3), one fold per section, a section epilogue after each
+    but the last, and K2 where the plan is leveled, its last section split
+    a superblock, or a reordered plan maps its tiles; summed over the
+    bands, levels or strips of a stack, with two public chunk permutes
+    around a reordered banded stack; none on the flat path."""
+    counts = dict.fromkeys(("fold", "section_epilogue", "unpermute",
+                            "permute_chunks"), 0)
+
+    def add(p, mapped=False):
+        if isinstance(p, (BandedPlan, CompositePlan, StripPlan)):
+            for q in p.plans:
+                add(q)
+            return
+        counts["permute_chunks"] += 1
+        counts["fold"] += len(p.sections)
+        counts["section_epilogue"] += max(len(p.sections) - 1, 0)
+        counts["unpermute"] += int(
+            mapped or p.lam is not None
+            or bool(p.sections and p.sections[-1].n_split))
+
+    if isinstance(plan, ReorderedPlan):
+        banded = isinstance(plan.inner, BandedPlan)
+        add(plan.inner, mapped=not banded)
+        counts["permute_chunks"] += 2 * banded
+    elif isinstance(plan, PatternPlan):
+        add(plan.plan)
+    elif not isinstance(plan, DeviceCSR):
+        add(plan)
+    return counts
+
+
 def _resolve_csr_kernel(A: CSRMatrix, kernel_type: KernelType,
-                        config: SpMVConfig, device: torch.device
-                        ) -> WindowEllPlan | ReorderedPlan | PatternPlan:
-    """The plan that serves ``A`` (``tpu_spmv/spmv.py:353-396``)."""
+                        config: SpMVConfig, device: torch.device) -> Plan:
+    """The plan that serves ``A`` (``tpu_spmv/spmv.py:353-396``).  Raises
+    :class:`WindowEllOverflow` where the packed route's composite plan
+    finds no level that packs."""
     if kernel_type in (KernelType.VECTOR_CSR, KernelType.MERGE_PATH) \
             and config.use_vmem_x:
-        if A.num_cols > PACKED_MAX_COLS:
-            raise _not_ported("column-strip plans", "M7")
-        if config.pattern:
-            resolved = _resolve_pattern(A, kernel_type, config, device)
-            if resolved is not None:
-                return resolved
-        return _plan_for(A, kernel_type, config, device)
+        if A.num_cols <= PACKED_MAX_COLS:
+            if config.pattern:
+                resolved = _resolve_pattern(A, kernel_type, config, device)
+                if resolved is not None:
+                    return resolved
+            return _plan_for(A, kernel_type, config, device)
+        resolved = _resolve_strips(A, kernel_type, config, device)
+        if resolved is not None:
+            return resolved
     if kernel_type == KernelType.SCALAR_CSR and config.use_vmem_x \
             and A.num_cols <= VMEM_X_MAX_COLS:
-        raise _not_ported("the naive SCALAR_CSR plan", "M7")
-    raise _not_ported("the flat gather/segment-sum path", "M10")
+        resolved = _resolve_naive(A, config, device)
+        if resolved is not None:
+            return resolved
+    # ELL_KERNEL on a CSR, use_vmem_x=False, or a structure every packed
+    # layout rejected
+    return A.to_device(device)
 
 
 def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
@@ -296,7 +418,12 @@ def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
     try:
         x = guarded_upload(x, device).float()
         t0 = time.perf_counter()
-        plan = _resolve_csr_kernel(A, kernel_type, config, device)
+        try:
+            plan = _resolve_csr_kernel(A, kernel_type, config, device)
+        except WindowEllOverflow:
+            # structure too adversarial for the packed layout: SCALAR_CSR
+            plan = _resolve_csr_kernel(A, KernelType.SCALAR_CSR, config,
+                                       device)
         result.plan_seconds = time.perf_counter() - t0
         result.y = _run(plan, x)
     except SpMVException as e:

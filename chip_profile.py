@@ -2,7 +2,7 @@
 
     python3 chip_profile.py [--calls 20]
                             [--cells headline,mesh,banded,ab,levers,pagerank]
-                            [--cells web,pagerank1m,wide,floors,ablation]
+                            [--cells web,pagerank1m,wide,floors,ablation,ell]
 
 For ``chip_smoke.py``'s matrices (``headline``: the merge-path power-law
 matrix; ``mesh``: the scrambled 2^20 mesh, served reordered; ``banded``:
@@ -17,9 +17,12 @@ PageRank's SpMV on it column-normalised, a banded pattern stack; ``wide``:
 the 1M x 4M web graph on column strips, the headline's law with 1.5M
 columns on a composite plan, the 1.5M-node web graph on the flat path;
 ``floors``: the headline as SCALAR_CSR, its naive plan, and as
-ELL_KERNEL, the flat path), each plan is resolved through
-``spmv_csr`` (auto configuration, with the cell's changes) and warmed up,
-then ``--calls`` calls are traced with ``torch.profiler``.
+ELL_KERNEL, the flat path; ``ell``: the 5-point stencils of
+``chip_smoke.py``'s phase 14 as ELL matrices, one per ELL route, and the
+1024 stencil column-scaled on the pattern route), each plan is resolved
+through ``spmv_csr`` (``spmv_ell`` for ``ell``; the auto configuration,
+with the cell's changes) and warmed up, then ``--calls`` calls are traced
+with ``torch.profiler``.
 Per plan it prints:
 
 * the fold schedule of each section (in launch order) before and after
@@ -78,7 +81,7 @@ K3_KERNEL = "permute_chunks_kernel"
 def window_plans(plan) -> list:
     """The window-ELL plans one call of ``plan`` runs, in launch order
     (none on the flat path)."""
-    from tpu_spmv_torch import DeviceCSR
+    from tpu_spmv_torch import DeviceCSR, DeviceELL
     from tpu_spmv_torch.kernels.reorder import ReorderedPlan
     from tpu_spmv_torch.kernels.strips import StripPlan
     from tpu_spmv_torch.kernels.window_ell import BandedPlan, CompositePlan
@@ -90,7 +93,7 @@ def window_plans(plan) -> list:
         return window_plans(plan.inner)
     if isinstance(plan, (BandedPlan, StripPlan, CompositePlan)):
         return [q for p in plan.plans for q in window_plans(p)]
-    return [] if isinstance(plan, DeviceCSR) else [plan]
+    return [] if isinstance(plan, (DeviceCSR, DeviceELL)) else [plan]
 
 
 def other_launches(plan) -> int | None:
@@ -98,10 +101,10 @@ def other_launches(plan) -> int | None:
     window-ELL plan's output zero-fill, the join of a banded stack of two
     bands or more, the add after each strip or level but the first, and a
     pattern plan's scale multiply (K3 writes the whole gather table).
-    ``None`` where the call runs the flat path (a composite's tail, or the
-    matrix itself): those are PyTorch's own ops, counted but not held to a
-    number."""
-    from tpu_spmv_torch import DeviceCSR
+    ``None`` where the call runs a flat path (a composite's tail, or the
+    matrix itself, CSR or ELL): those are PyTorch's own ops, counted but not
+    held to a number."""
+    from tpu_spmv_torch import DeviceCSR, DeviceELL
     from tpu_spmv_torch.kernels.reorder import ReorderedPlan
     from tpu_spmv_torch.kernels.strips import StripPlan
     from tpu_spmv_torch.kernels.window_ell import BandedPlan, CompositePlan
@@ -114,7 +117,7 @@ def other_launches(plan) -> int | None:
     if isinstance(plan, BandedPlan):
         return len(plan.plans) + (len(plan.plans) > 1)
     if isinstance(plan, CompositePlan) and plan.tail is not None \
-            or isinstance(plan, DeviceCSR):
+            or isinstance(plan, (DeviceCSR, DeviceELL)):
         return None
     if isinstance(plan, (StripPlan, CompositePlan)):
         return sum(other_launches(p) for p in plan.plans) \
@@ -275,12 +278,16 @@ def split_bands(kern: list, calls: int, n_bands: int):
 OURS = (FOLD_KERNEL, EPILOGUE_KERNEL, K2_KERNEL, K3_KERNEL)
 
 
-def profile(label: str, A, x, changes: dict, calls: int, dev) -> None:
+def profile(label: str, A, x, changes: dict, calls: int, dev,
+            ell: bool = False) -> None:
+    """Trace ``A``'s plan; with ``ell``, ``A`` as an ELL matrix through
+    ``spmv_ell``."""
     import dataclasses
 
     import torch
 
-    from tpu_spmv_torch import spmv_auto_config, spmv_csr
+    from tpu_spmv_torch import (ELLMatrix, spmv_auto_config, spmv_csr,
+                                spmv_ell)
     from tpu_spmv_torch.kernels.reorder import ReorderedPlan
     from tpu_spmv_torch.kernels.window_ell import BandedPlan
     from tpu_spmv_torch.spmv import PatternPlan, launches_per_call
@@ -288,14 +295,19 @@ def profile(label: str, A, x, changes: dict, calls: int, dev) -> None:
 
     cfg = dataclasses.replace(spmv_auto_config(A), **changes)
     xd = torch.from_numpy(x).to(dev)
-    res = spmv_csr(A, xd, cfg)
+    if ell:
+        E = ELLMatrix.from_csr(A)
+        call = lambda: spmv_ell(E, xd, cfg)  # noqa: E731
+    else:
+        call = lambda: spmv_csr(A, xd, cfg)  # noqa: E731
+    res = call()
     cs.check(res.error_code == 0, f"{label}: error {res.error_code}")
     plan = res.plan
     inner = plan.inner if isinstance(plan, ReorderedPlan) \
         else plan.plan if isinstance(plan, PatternPlan) else plan
     parts = window_plans(plan)
     # the plan is cached on A: calls run it
-    kern = trace(lambda: spmv_csr(A, xd, cfg), calls)
+    kern = trace(call, calls)
     cs.check(len(kern) > 0, f"{label}: the trace holds no device time")
     total = sum(e.time_range.elapsed_us() for e in kern) / calls
     cs.log(f"== {label}: {type(plan).__name__}"
@@ -446,6 +458,9 @@ def main() -> int:
         runs += [("web_graph_csr", cs.WIDE, [{}]),
                  ("power_law_csr", cs.COMPOSITE, [{}]),
                  ("web_graph_csr", cs.WEB_1_5M, [{}])]
+    if "ell" in cells:
+        runs += [("stencil_csr", (g,), [{}] + [{"pattern": True}]
+                  * (g == cs.PATTERN_STENCIL)) for g in cs.STENCILS]
     if "floors" in cells:
         runs.append(("power_law_csr", cs.HEADLINE, [
             {"kernel_type": KernelType.SCALAR_CSR},
@@ -457,6 +472,8 @@ def main() -> int:
         elif name == "web_graph_csr" and len(a) == 2:
             A = tt.transition_matrix(tt.web_graph_csr(rng, a[0], a[0],
                                                       avg_nnz=a[1]))
+        elif name == "stencil_csr":
+            A = tt.stencil_csr(*a)
         elif name in ("web_graph_csr", "web_graph_1m"):
             A = tt.web_graph_csr(rng, *a[:2], avg_nnz=a[2])
         else:
@@ -464,7 +481,8 @@ def main() -> int:
         x = rng.vector(A.num_cols)
         for changes in arms:
             M = A
-            if changes.get("pattern") and name == "power_law_csr":
+            if changes.get("pattern") and name in ("power_law_csr",
+                                                   "stencil_csr"):
                 # a column-scaled matrix of the headline's structure
                 s = tt.RandomGenerator(7).rng.uniform(0.5, 2.0, A.num_cols) \
                     .astype(np.float32)
@@ -472,7 +490,8 @@ def main() -> int:
                               A.col_indices, A.row_ptrs)
             elif changes.get("pattern") and name == "web_graph_1m":
                 M = tt.transition_matrix(A)
-            profile(f"{name}{a} {changes}", M, x, changes, args.calls, dev)
+            profile(f"{name}{a} {changes}", M, x, changes, args.calls, dev,
+                    ell=name == "stencil_csr")
         if name == "web_graph_csr" and "ablation" in cells:
             ablation(A, args.calls, dev)
     return 0

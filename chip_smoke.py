@@ -113,9 +113,27 @@ Phases (each raises on failure; nothing is caught and passed over):
     path: gather, multiply, ``segment_reduce``), each against the oracle,
     bit-identical across two calls, timed; the flat path beside cuSPARSE.
 
-The phases run in the order 1-6, 13, 7, 10, 9, 11, 12, 8, each new matrix
-made once and dropped when its phases end; each phase's seconds are
-printed after it.
+14. The ELL path, plan files, autotune, the harness and the demo: the
+    JAX bench's 5-point stencil (``bench.py:226-245``) through ``spmv_ell``
+    at grid sides 512 and 1024 (one window-ELL plan each), 1448 (column
+    strips) and 2048 (the slot-major flat ELL path), the JAX rule's four
+    routes, and the 1024 stencil column-scaled (``RandomGenerator(7)``,
+    uniform in [0.5, 2)) on the pattern route; each measured, counted,
+    held to ``spmv_cpu_ell`` at the row bound and to the physics guard,
+    bit-identical across two calls, timed in turns with cuSPARSE on the
+    same CSR, and each window-ELL plan's kernels held to their plain
+    versions.  Then the headline's plan and the mesh's reordered plan saved
+    with ``save_plan`` and loaded onto the card with ``load_plan``, output
+    bit-identical, the save and load seconds beside the build's; autotune
+    on the headline at step widths 128 and 384; ``benchmark_csr`` and
+    ``compare_gpu_cpu_csr`` on the headline and ``benchmark_ell`` on the
+    1024 stencil, each ``correct``, their reference JSON printed; and
+    ``python -m tpu_spmv_torch.cli --json`` as a subprocess, which must
+    exit 0 with every ``correct`` true.
+
+The phases run in the order 1-6, 13, 14, 7, 14's mesh plan file, 10, 9,
+11, 12, 8, each new matrix made once and dropped when its phases end;
+each phase's seconds are printed after it.
 
 Where one PyTorch call computes what a kernel computes, it is timed beside
 it and printed on a ``library:`` line (cuSPARSE through a sparse CSR tensor
@@ -174,6 +192,16 @@ WIDE = (1 << 20, 1 << 22, 15.0)
 COMPOSITE = (262144, 1_500_000, 40.0, 1.6)
 WEB_1_5M = (1_500_000, 1_500_000, 15.0)
 REL_TOL = 1e-5
+# phase 14: the 5-point stencil's grid sides (bench.py:226-245), one per ELL
+# route of the JAX rule: one window-ELL plan (512, the JAX bench's own cell,
+# and 1024, at VMEM_X_MAX_COLS rows and columns), column strips (1448: past
+# one gather table, within PACKED_MAX_COLS), the flat ELL path (2048: past
+# PACKED_MAX_COLS); the pattern stencil at 1024
+STENCILS = (512, 1024, 1448, 2048)
+PATTERN_STENCIL = 1024
+# the plans' build seconds (host planner and upload) as the main path
+# resolved them, beside phase 14's save and load seconds
+BUILD_SECONDS = {}
 BF16_TOL = 8e-3     # bf16 value rounding (bench.py:337)
 # PageRank: the JAX bench's web graph (bench.py:291) and its iterations
 PAGERANK = (262144, 15.0)
@@ -591,7 +619,7 @@ def kernel_record(name: str, held: dict, launches: int,
 def describe(plan) -> dict:
     """A plan's shape for the log: its type, and per band, level or strip
     the superblock height, groups and sections; a composite's flat tail."""
-    from tpu_spmv_torch import DeviceCSR
+    from tpu_spmv_torch import DeviceCSR, DeviceELL
     from tpu_spmv_torch.kernels.reorder import ReorderedPlan
     from tpu_spmv_torch.kernels.strips import StripPlan
     from tpu_spmv_torch.kernels.window_ell import BandedPlan, CompositePlan
@@ -602,6 +630,10 @@ def describe(plan) -> dict:
         return {"type": type(plan).__name__, "inner": describe(inner)}
     if isinstance(plan, DeviceCSR):
         return {"type": "DeviceCSR (flat path)", "nnz": plan.nnz}
+    if isinstance(plan, DeviceELL):
+        return {"type": "DeviceELL (flat ELL path)",
+                "slots": int(plan.values.shape[0]),
+                "rows_pad": plan.rows_pad}
     d = {"type": type(plan).__name__, "groups": plan.n_groups,
          "occupancy": round(plan.occupancy, 4)}
     if isinstance(plan, BandedPlan):
@@ -678,24 +710,29 @@ def hold_stack(plan, A, x, dev, what: str) -> None:
 
 
 def run_cell(what: str, A, x, cfg, dev, stream: float, kind,
-             tol: float = REL_TOL):
-    """One measured ``spmv_csr`` call of a stacked route (counts from 0):
-    the plan must be a ``kind``; its launches the plan's; the output
-    finite, of ``A``'s rows and within ``tol`` of the oracle; the plan's
-    streamed bytes over the time under the physics guard.  Returns
-    ``(result, x on the card)``."""
+             tol: float = REL_TOL, ell=None):
+    """One measured ``spmv_csr`` call of a stacked route (counts from 0),
+    or of ``spmv_ell`` on ``ell``, the ELL form of ``A``: the plan must be
+    a ``kind``; its launches the plan's; the output finite, of ``A``'s
+    rows and within ``tol`` of the oracle (for ELL, of ``spmv_cpu_ell`` at
+    the row bound); the plan's streamed bytes over the time under the
+    physics guard.  Returns ``(result, x on the card)``."""
     import numpy as np
     import torch
 
     from tpu_spmv_torch import kernels as tk
-    from tpu_spmv_torch import spmv_csr
+    from tpu_spmv_torch import spmv_cpu_ell, spmv_csr, spmv_ell
     from tpu_spmv_torch.spmv import MEASURE_WARMUP
     from tpu_spmv_torch.utils.testing import spmv_matches
 
     xd = torch.from_numpy(x).to(dev)
     tk.reset_launch_counts()
-    res = spmv_csr(A, xd, cfg, measure=True, measure_iters=ITERS,
-                   measure_samples=SAMPLES)
+    if ell is None:
+        res = spmv_csr(A, xd, cfg, measure=True, measure_iters=ITERS,
+                       measure_samples=SAMPLES)
+    else:
+        res = spmv_ell(ell, xd, cfg, measure=True, measure_iters=ITERS,
+                       measure_samples=SAMPLES)
     torch.cuda.synchronize()
     counts = tk.launch_counts()
     check(res.error_code == 0, f"{what}: error {res.error_code}")
@@ -704,13 +741,16 @@ def run_cell(what: str, A, x, cfg, dev, stream: float, kind,
     calls = 1 + MEASURE_WARMUP + ITERS * SAMPLES
     check_launches(counts, res.plan, calls, what)
     y = res.y.cpu().numpy()
-    check(y.shape == (A.num_rows,) and bool(np.all(np.isfinite(y)))
-          and spmv_matches(y, A, x, rel_tol=tol),
-          f"{what} vs the CPU oracle (rel {tol})")
+    ok = spmv_matches(y, A, x, rel_tol=tol) if ell is None \
+        else max_row_excess(y, spmv_cpu_ell(ell, x), A, x) <= 0
+    oracle = "the CPU oracle" if ell is None else "spmv_cpu_ell"
+    check(y.shape == (A.num_rows,) and bool(np.all(np.isfinite(y))) and ok,
+          f"{what} vs {oracle} (rel {tol})")
     actual = res.plan.stream_bytes / (res.elapsed_ms / 1e3) / 1e9
-    log(f"{what}: OK vs oracle (rel {tol}); {res.elapsed_ms * 1e3:.2f} "
+    log(f"{what}: OK vs {oracle} (rel {tol}); {res.elapsed_ms * 1e3:.2f} "
         f"us/call (median of {SAMPLES} x {ITERS} calls), "
-        f"{res.gflops:.2f} GFLOP/s, byte model {res.bandwidth_gb_s:.1f} "
+        f"{res.gflops:.2f} GFLOP/s, "
+        f"{'' if ell is None else 'ELL '}byte model {res.bandwidth_gb_s:.1f} "
         f"GB/s, streamed {actual:.1f} GB/s "
         f"({res.plan.stream_bytes / 1e6:.2f} MB/call), STREAM "
         f"{stream:.1f} GB/s; plan_seconds {res.plan_seconds:.2f} s; "
@@ -720,6 +760,32 @@ def run_cell(what: str, A, x, cfg, dev, stream: float, kind,
           f"physics guard: {what} {actual:.1f} GB/s streamed > 1.02 x "
           f"STREAM")
     return res, xd
+
+
+def repeat_and_yardstick(what: str, res, xd, A, dev,
+                         cusparse_turns: bool = True) -> None:
+    """The served plan bit-identical across two calls; with
+    ``cusparse_turns``, timed in turns with cuSPARSE on the same CSR (a
+    yardstick only)."""
+    import torch
+
+    from tpu_spmv_torch.spmv import _run
+    from tpu_spmv_torch.timing import time_turns
+
+    plan = res.plan
+    again = _run(plan, xd)
+    torch.cuda.synchronize()
+    check(torch.equal(res.y, again),
+          f"{what}: not bit-identical across two calls")
+    if not cusparse_turns:
+        log(f"{what}: bit-identical across two calls")
+        return
+    M = cusparse(A, dev)
+    us = [t * 1e6 for t in time_turns(
+        [lambda: _run(plan, xd), lambda: M @ xd], iters=ITERS,
+        samples=SAMPLES)]
+    log(f"{what}: bit-identical across two calls; in turns {us[0]:.2f} "
+        f"us/call, cuSPARSE {us[1]:.2f} us/call (a yardstick only)")
 
 
 def phase_build() -> None:
@@ -1000,6 +1066,7 @@ def phase_main(dev, stream: float) -> tuple:
     log("fold schedule: " + json.dumps(fold_geometry(plan)))
     log(f"plan build + upload: {res.plan_seconds:.2f} s (host planner, "
         f"no JAX)")
+    BUILD_SECONDS["headline"] = res.plan_seconds
 
     secs = res.elapsed_ms / 1e3
     peak = get_gpu_peak_bandwidth(dev.index or 0)
@@ -1131,6 +1198,7 @@ def phase_reorder(dev, stream: float) -> tuple:
     log("fold schedule: " + json.dumps(fold_geometry(inner)))
     log(f"host: probe {probe_s:.2f} s (run alone); plan resolution "
         f"{res.plan_seconds:.2f} s (probe, permuted build, upload)")
+    BUILD_SECONDS["mesh"] = res.plan_seconds
 
     secs = res.elapsed_ms / 1e3
     actual = rp.stream_bytes / secs / 1e9
@@ -1332,12 +1400,8 @@ def phase_floors(dev, stream: float, A, x) -> None:
     oracle, bit-identical across two calls; the naive plan's kernels held
     to their plain versions; the flat path timed in turns with cuSPARSE on
     the same matrix, a yardstick only."""
-    import torch
-
     from tpu_spmv_torch import DeviceCSR, KernelType, SpMVConfig
     from tpu_spmv_torch.kernels.window_ell import WindowEllPlan
-    from tpu_spmv_torch.spmv import _run
-    from tpu_spmv_torch.timing import time_turns
 
     for kt in (KernelType.SCALAR_CSR, KernelType.ELL_KERNEL):
         what = f"headline {kt.name}"
@@ -1346,25 +1410,174 @@ def phase_floors(dev, stream: float, A, x) -> None:
         res, xd = run_cell(what, A, x, SpMVConfig(kernel_type=kt), dev,
                            stream, kind)
         plan = res.plan
-        again = _run(plan, xd)
-        torch.cuda.synchronize()
-        check(torch.equal(res.y, again),
-              f"{what}: not bit-identical across two calls")
         flat = isinstance(plan, DeviceCSR)
         log(f"{what}: served by "
             + ("the flat path" if flat else
-               f"the naive plan (n_extra {plan.n_extra})")
-            + "; bit-identical across two calls")
+               f"the naive plan (n_extra {plan.n_extra})"))
+        repeat_and_yardstick(what, res, xd, A, dev, cusparse_turns=flat)
         if not flat:
             check(plan.n_extra == 0, f"{what}: the naive plan has extras")
             hold_kernels(plan, xd, A, x, what, timed=False)
-        else:
-            M = cusparse(A, dev)
-            us = [t * 1e6 for t in time_turns(
-                [lambda: _run(plan, xd), lambda: M @ xd], iters=ITERS,
-                samples=SAMPLES)]
-            log(f"{what}: flat path {us[0]:.2f} us/call, cuSPARSE "
-                f"{us[1]:.2f} us/call (in turns; a yardstick only)")
+
+
+def ell_cell(what: str, E, A, x, cfg, dev, stream: float, kind) -> None:
+    """One ELL cell of phase 14: ``run_cell`` through ``spmv_ell`` on
+    ``E`` (the ELL form of ``A``), the output bit-identical across two
+    calls and timed in turns with cuSPARSE on ``A``, and each window-ELL
+    plan's kernels held to their plain versions."""
+    from tpu_spmv_torch import DeviceELL
+
+    res, xd = run_cell(what, A, x, cfg, dev, stream, kind, ell=E)
+    repeat_and_yardstick(what, res, xd, A, dev)
+    if not isinstance(res.plan, DeviceELL):
+        hold_stack(res.plan, A, x, dev, what)
+
+
+def phase_ell(dev, stream: float, A, x) -> None:
+    """Phase 14: the ELL path at full width, plan files, autotune, the
+    harness and the demo.  The 5-point stencil (``bench.py:226-245``) at
+    the grid sides of :data:`STENCILS` through ``spmv_ell``, one per route
+    of the JAX rule (``ell_cell``), and the 1024 stencil column-scaled on
+    the pattern route; the headline's plan (phase 6's, cached on ``A``)
+    saved and loaded back onto the card, bit-identical; autotune on the
+    headline at step widths 128 and 384; ``benchmark_csr`` and
+    ``compare_gpu_cpu_csr`` on the headline, ``benchmark_ell`` on the
+    1024 stencil, each ``correct``; and ``python -m tpu_spmv_torch.cli
+    --json``, which must exit 0 with every ``correct`` true."""
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch import (BenchmarkConfig, CSRMatrix, DeviceELL,
+                                ELLMatrix, SpMVConfig, benchmark_csr,
+                                benchmark_ell, benchmark_to_json,
+                                compare_gpu_cpu_csr, comparison_to_json,
+                                spmv_auto_config, spmv_csr)
+    from tpu_spmv_torch.kernels.strips import StripPlan
+    from tpu_spmv_torch.kernels.window_ell import WindowEllPlan
+    from tpu_spmv_torch.spmv import PatternPlan, _run
+    from tpu_spmv_torch.utils.testing import (RandomGenerator,
+                                              spmv_matches, stencil_csr)
+
+    kinds = (WindowEllPlan, WindowEllPlan, StripPlan, DeviceELL)
+    E1024 = None
+    for g, kind in zip(STENCILS, kinds):
+        t0 = time.perf_counter()
+        S = stencil_csr(g)
+        E = ELLMatrix.from_csr(S)
+        xs = RandomGenerator(42).vector(S.num_cols)
+        log(f"stencil {g}^2: {S.num_rows} rows, nnz {S.nnz}, "
+            f"max_nnz_per_row {E.max_nnz_per_row} (generated in "
+            f"{time.perf_counter() - t0:.1f} s)")
+        ell_cell(f"ELL stencil {g}^2", E, S, xs, SpMVConfig(), dev, stream,
+                 kind)
+        if g == PATTERN_STENCIL:
+            E1024, S1024, x1024 = E, S, xs
+            scale = RandomGenerator(7).rng.uniform(0.5, 2.0, S.num_cols) \
+                .astype(np.float32)
+            P = CSRMatrix(S.num_rows, S.num_cols, scale[S.col_indices],
+                          S.col_indices, S.row_ptrs)
+            ell_cell(f"ELL stencil {g}^2 pattern", ELLMatrix.from_csr(P), P,
+                     xs, SpMVConfig(pattern=True), dev, stream, PatternPlan)
+        del S, E
+
+    # the headline's plan, saved and loaded back onto the card
+    cfg = spmv_auto_config(A)
+    xd = torch.from_numpy(x).to(dev)
+    plan = spmv_csr(A, xd, cfg).plan
+    with tempfile.TemporaryDirectory() as tmp:
+        plan_file_round_trip("headline", plan, xd, tmp)
+
+    # autotune on the headline
+    report = {}
+    t0 = time.perf_counter()
+    best = WindowEllPlan.autotune(A, x, split_rows=128, widths=(128, 384),
+                                  device=dev, report=report)
+    tune_s = time.perf_counter() - t0
+    y = _run(best, xd).cpu().numpy()
+    check(spmv_matches(y, A, x, rel_tol=REL_TOL),
+          "autotune's winner vs the CPU oracle")
+    log("autotune (headline, split_rows=128): "
+        + ", ".join(f"S={w} {t * 1e6:.2f} us/call" for w, t in
+                    report.items())
+        + f"; winner S={best.step_groups}, OK vs oracle; {tune_s:.1f} s "
+        f"(two builds and the timing)")
+
+    # the harness
+    bc = BenchmarkConfig()
+    for what, r in (
+            ("benchmark_csr (headline, auto configuration)",
+             benchmark_csr(A, x, cfg, bc, name="headline")),
+            (f"benchmark_ell (stencil {PATTERN_STENCIL}^2)",
+             benchmark_ell(E1024, x1024, None, bc, name="ell_stencil"))):
+        log(f"{what}:\n" + benchmark_to_json(r))
+        check(r.correct, f"{what}: correct is false")
+    comp = compare_gpu_cpu_csr(A, x, cfg, bc)
+    log("compare_gpu_cpu_csr (headline):\n" + comparison_to_json(comp))
+    check(comp.device_result.correct and comp.cpu_result.correct,
+          "compare_gpu_cpu_csr: correct is false")
+    del E1024, S1024, x1024
+
+    # the demo, as a user runs it
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "tpu_spmv_torch.cli",
+                           "--json"], cwd=here, env=env,
+                          capture_output=True, text=True, timeout=600)
+    flags = re.findall(r'"correct": (true|false)', proc.stdout)
+    log(f"python -m tpu_spmv_torch.cli --json: exit {proc.returncode}, "
+        f"{len(flags)} correct flags, {time.perf_counter() - t0:.1f} s; "
+        "its lines:\n" + "\n".join(
+            line for line in proc.stdout.splitlines()
+            if not line.strip().startswith(('"', "{", "}", "[", "]"))))
+    check(proc.returncode == 0, f"the demo exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    check(len(flags) >= 5 and all(f == "true" for f in flags),
+          "the demo's JSON has a correct that is not true")
+
+
+def plan_file_round_trip(what: str, plan, xd, tmp: str) -> None:
+    """``plan`` saved with ``save_plan`` and loaded back onto the card with
+    ``load_plan``: the same type, and its output bit-identical to the
+    saved plan's; the seconds printed beside the plan's build seconds."""
+    import torch
+
+    from tpu_spmv_torch import load_plan, save_plan
+    from tpu_spmv_torch.spmv import _run
+
+    path = os.path.join(tmp, what + ".npz")
+    t0 = time.perf_counter()
+    save_plan(plan, path)
+    t1 = time.perf_counter()
+    loaded = load_plan(path)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(type(loaded) is type(plan) and loaded is not plan,
+          f"{what}: load_plan gave a {type(loaded).__name__}")
+    y, y_loaded = _run(plan, xd), _run(loaded, xd)
+    torch.cuda.synchronize()
+    check(y_loaded.device == xd.device and torch.equal(y, y_loaded),
+          f"{what}: the loaded plan's output differs from the saved plan's")
+    log(f"plan file ({what}, {type(plan).__name__}): "
+        f"{os.path.getsize(path) / 1e6:.1f} MB, save {t1 - t0:.2f} s, load "
+        f"onto the card {t2 - t1:.2f} s, against a build of "
+        f"{BUILD_SECONDS.get(what, float('nan')):.2f} s; output "
+        f"bit-identical to the saved plan's")
+
+
+def phase_plan_file_mesh(dev, rp, x) -> None:
+    """Phase 14, continued: the mesh's reordered plan (phase 7's) saved and
+    loaded back onto the card, bit-identical."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        plan_file_round_trip("mesh", rp, torch.from_numpy(x).to(dev), tmp)
 
 
 def phase_reorder_ab(dev) -> None:
@@ -1643,8 +1856,10 @@ def main() -> int:
     kernels, A, x = run(phase_main, dev, stream)
     lever_record = run(phase_levers, dev, stream, A, x)
     run(phase_floors, dev, stream, A, x)
+    run(phase_ell, dev, stream, A, x)
     del A, x
     k3_record, A, x, rp = run(phase_reorder, dev, stream)
+    run(phase_plan_file_mesh, dev, rp, x)
     kernels.append(k3_record)
     kernels += probe_records[:-1]
     kernels.append(lever_record)

@@ -820,3 +820,170 @@ def test_stacked_call_is_captured_in_a_cuda_graph(cuda_device, monkeypatch,
     torch.cuda.synchronize()
     assert torch.equal(out, eager)
     assert spmv_matches(out.cpu().numpy(), A, x, rel_tol=ROW_TOL)
+
+
+# ---- the ELL dispatch, plan files and the harness on the card ----
+
+def ell_route_case(route):
+    """``(ELL matrix, its CSR form, x, SpMVConfig)`` of each ELL route:
+    one window-ELL plan, the pattern plan of a column-scaled stencil,
+    column strips (columns past one gather table), the flat ELL path
+    (columns past the packed cap)."""
+    from tpu_spmv_torch import CSRMatrix, ELLMatrix
+    from tpu_spmv_torch.spmv import PACKED_MAX_COLS, VMEM_X_MAX_COLS
+    from tpu_spmv_torch.utils.testing import stencil_csr
+
+    rng = RandomGenerator(42)
+    if route == "plan":
+        A = rng.power_law_csr(8192, 2048, 12.0, 1.6)
+    elif route == "pattern":
+        S = stencil_csr(96)
+        scale = rng.rng.uniform(0.5, 2.0, S.num_cols).astype(np.float32)
+        A = CSRMatrix(S.num_rows, S.num_cols, scale[S.col_indices],
+                      S.col_indices, S.row_ptrs)
+    else:
+        cols = VMEM_X_MAX_COLS + (1 << 19) if route == "strips" \
+            else PACKED_MAX_COLS + 4096
+        rows, k = 2048, 6
+        ca = np.stack([np.sort(rng.rng.choice(cols, k, replace=False))
+                       for _ in range(rows)]).astype(np.int32)
+        va = rng.rng.uniform(-2, 2, (rows, k)).astype(np.float32)
+        A = CSRMatrix(rows, cols, va.reshape(-1), ca.reshape(-1),
+                      np.arange(rows + 1, dtype=np.int32) * k)
+    x = np.zeros(A.num_cols, np.float32)
+    x[A.col_indices] = RandomGenerator(7).vector(A.nnz)
+    return ELLMatrix.from_csr(A), A, x, SpMVConfig(pattern=route == "pattern")
+
+
+ELL_ROUTES = {"plan": twe.WindowEllPlan, "pattern": PatternPlan,
+              "strips": None, "flat": None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(ELL_ROUTES))
+def test_spmv_ell_on_card_matches_the_cpu_route(cuda_device, route):
+    """``spmv_ell`` on the card against its ``device="cpu"`` result (the
+    kernels' plain versions) under the row bound and the oracle, on each
+    route; two calls agree bit for bit; the launches are the plan's."""
+    from tpu_spmv_torch import DeviceELL, spmv_ell
+    from tpu_spmv_torch.kernels.strips import StripPlan
+    from tpu_spmv_torch.spmv import launches_per_call
+
+    E, A, x, cfg = ell_route_case(route)
+    kind = {"strips": StripPlan, "flat": DeviceELL}.get(route,
+                                                        ELL_ROUTES[route])
+    tk.reset_launch_counts()
+    res = spmv_ell(E, torch.from_numpy(x).to(cuda_device), cfg)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    assert res.error_code == 0 and isinstance(res.plan, kind)
+    want = launches_per_call(res.plan)
+    folds = sum(counts[k] for k in tk.FOLD_VARIANTS.values())
+    assert folds == want["fold"] and all(
+        counts[k] == want[k] for k in ("section_epilogue", "unpermute",
+                                       "permute_chunks"))
+    assert (folds > 0) == (route != "flat")
+    again = spmv_ell(E, torch.from_numpy(x).to(cuda_device), cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(res.y, again.y)
+    y = res.y.cpu().numpy()
+    y_cpu = spmv_ell(E, x, cfg, device="cpu").y_host()
+    bound = ROW_TOL * np.maximum(abs_row_scale(A, x), 1.0)
+    assert np.all(np.abs(y - y_cpu) <= bound)
+    assert spmv_matches(y, A, x, rel_tol=ROW_TOL)
+
+
+@pytest.mark.cuda
+def test_flat_ell_path_on_card_is_deterministic_and_graph_captured(
+        cuda_device):
+    """The flat ELL path on the card: the same bits call after call, the
+    same bits replayed from a CUDA graph (nothing reads the card back),
+    and its CPU run within the row bound."""
+    from tpu_spmv_torch.kernels.ell_kernel import spmv_ell_device
+    from tpu_spmv_torch.utils.testing import stencil_csr
+    from tpu_spmv_torch import ELLMatrix
+
+    A = stencil_csr(512)
+    E = ELLMatrix.from_csr(A)
+    x = RandomGenerator(7).vector(A.num_cols)
+    dev = E.to_device(cuda_device)
+    xd = torch.from_numpy(x).to(cuda_device)
+    eager = spmv_ell_device(dev, xd)
+    assert torch.equal(eager, spmv_ell_device(dev, xd))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        spmv_ell_device(dev, xd)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = spmv_ell_device(dev, xd)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    y_cpu = spmv_ell_device(E.to_device("cpu"), torch.from_numpy(x))
+    bound = ROW_TOL * np.maximum(abs_row_scale(A, x), 1.0)
+    assert np.all(np.abs(eager.cpu().numpy() - y_cpu.numpy()) <= bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "pattern", "banded",
+                                  "strips", "reordered"])
+def test_plan_saved_and_loaded_on_card_is_bit_identical(cuda_device,
+                                                        monkeypatch,
+                                                        tmp_path, kind):
+    """A plan saved on the card and loaded back onto it (the fold schedule
+    and tile maps derived again from the stored arrays) gives the saved
+    plan's output bit for bit."""
+    from tpu_spmv_torch import load_plan, save_plan
+    from tpu_spmv_torch.spmv import _run
+
+    if kind in ("banded", "strips"):
+        upload, A, x = stack_case(kind, monkeypatch)
+        plan = upload(cuda_device)
+    elif kind == "reordered":
+        A = scrambled_banded_csr(RandomGenerator(42), 16384, 1024, 6.0)
+        x = RandomGenerator(7).vector(A.num_cols)
+        plan = tr.build_reordered(A, device=cuda_device)
+    else:
+        A = RandomGenerator(42).power_law_csr(8192, 2048, 12.0, 1.6)
+        x = RandomGenerator(7).vector(A.num_cols)
+        plan = twe.plan_from_host(tplan.build(
+            A, split_rows=128, permute_rows=True, pattern=kind == "pattern",
+            values_dtype="bfloat16" if kind == "bf16" else "float32"),
+            cuda_device)
+    path = str(tmp_path / "plan.npz")
+    save_plan(plan, path)
+    loaded = load_plan(path)
+    assert type(loaded) is type(plan)
+    xd = torch.from_numpy(x).to(cuda_device)
+    y, y_loaded = _run(plan, xd), _run(loaded, xd)
+    torch.cuda.synchronize()
+    assert y_loaded.device.type == "cuda" and torch.equal(y, y_loaded)
+
+
+@pytest.mark.cuda
+def test_harness_and_autotune_on_card(cuda_device):
+    """The harness on the card (CUDA events), ``correct`` true, and
+    autotune's winner, the fastest of its report, against the oracle."""
+    from tpu_spmv_torch import (BenchmarkConfig, ELLMatrix, benchmark_csr,
+                                benchmark_ell, compare_gpu_cpu_csr)
+    from tpu_spmv_torch.utils.testing import stencil_csr
+
+    A = RandomGenerator(42).power_law_csr(8192, 2048, 12.0, 1.6)
+    x = RandomGenerator(7).vector(A.num_cols)
+    bc = BenchmarkConfig(num_runs=3)
+    r = benchmark_csr(A, x, spmv_auto_config(A), bc)
+    assert r.correct and 0 < r.min_time_ms <= r.max_time_ms
+    S = stencil_csr(256)
+    e = benchmark_ell(ELLMatrix.from_csr(S),
+                      RandomGenerator(7).vector(S.num_cols), bench_config=bc)
+    assert e.correct and e.bandwidth_gb_s > 0
+    comp = compare_gpu_cpu_csr(A, x, bench_config=bc)
+    assert comp.device_result.correct and comp.speedup > 0
+    report = {}
+    plan = twe.WindowEllPlan.autotune(A, x, iters=20, device=cuda_device,
+                                      report=report)
+    assert plan.step_groups == min(report, key=report.get)
+    y = twe.spmv_window_ell(plan, torch.from_numpy(x).to(cuda_device))
+    assert spmv_matches(y.cpu().numpy(), A, x, rel_tol=ROW_TOL)

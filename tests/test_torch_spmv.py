@@ -288,7 +288,10 @@ def test_entry_points_default_to_the_card(smoke, monkeypatch, x_kind):
 
 def test_import_does_not_load_jax():
     code = ("import sys, tpu_spmv_torch, tpu_spmv_torch.kernels.window_ell, "
-            "tpu_spmv_torch.pagerank, tpu_spmv_torch.probes.proto_v2; "
+            "tpu_spmv_torch.pagerank, tpu_spmv_torch.probes.proto_v2, "
+            "tpu_spmv_torch.cli, tpu_spmv_torch.plan_io, tpu_spmv_torch.ell, "
+            "tpu_spmv_torch.benchmark, tpu_spmv_torch.io.matrix_market, "
+            "tpu_spmv_torch.kernels.ell_kernel; "
             "bad = [m for m in sys.modules if m in ('jax', 'tpu_spmv') or "
             "m.startswith(('jax.', 'tpu_spmv.'))]; "
             "assert not bad, bad")
@@ -312,6 +315,35 @@ def test_no_port_source_names_jax():
                          re.M)
     bad = [f for f in files if pattern.search(open(f).read())]
     assert len(files) > 20 and not bad, bad
+
+
+def test_builds_compile_only_the_ports_own_sources(monkeypatch, tmp_path):
+    """Every source the port's two builds compile (the planner library and
+    the CUDA kernels) lies under ``tpu_spmv_torch/``: the commands are
+    captured, not run."""
+    from tpu_spmv_torch.kernels import _build
+    from tpu_spmv_torch.native import build as nbuild
+
+    cmds = []
+
+    def capture(name, sources, command, compiles=None):
+        out = str(tmp_path / name)
+        cmds.extend((compiles(out) if compiles else []) + [command(out)])
+        cmds.append(list(sources))
+        return out
+
+    monkeypatch.setattr(_build, "build_library", capture)
+    monkeypatch.setattr(nbuild, "build_library", capture)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    nbuild.build()
+    _build.build_kernels()
+    pkg = os.path.join(ROOT, "tpu_spmv_torch") + os.sep
+    sources = [a for c in cmds for a in c
+               if a.endswith((".cc", ".cu", ".cuh"))]
+    assert any(a.endswith("native.cc") for a in sources)
+    assert any(a.endswith("window_ell.cu") for a in sources)
+    assert sources and all(os.path.abspath(a).startswith(pkg)
+                           for a in sources), sources
 
 
 def test_chip_smoke_refuses_without_gpu():

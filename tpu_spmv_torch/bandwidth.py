@@ -1,7 +1,9 @@
 """Bandwidth metrics (port of ``tpu_spmv/bandwidth.py``).
 
 * The CSR byte model is the reference's (``bandwidth.cpp:34-42``): read
-  ``nnz*(4+4) + (rows+1)*4 + cols*4``, write ``rows*4``.
+  ``nnz*(4+4) + (rows+1)*4 + cols*4``, write ``rows*4``; the ELL one
+  (``bandwidth.cpp:66-75``) reads ``rows*max_nnz*(4+4) + cols*4`` and
+  writes ``rows*4``.
 * The peak comes from the device's own attributes, memory clock × bus width
   × 2, as the CUDA reference's ``get_gpu_peak_bandwidth`` computes it
   (``bandwidth.cpp:7-20``), read with ``cudaDeviceGetAttribute`` through
@@ -93,5 +95,25 @@ def compute_bandwidth_csr(num_rows: int, num_cols: int, nnz: int,
     if elapsed_ms <= 0.0:
         return BandwidthMetrics(peak_gb_s, 0.0, 0.0)
     achieved = _csr_bytes(num_rows, num_cols, nnz) / (elapsed_ms * 1e-3) / 1e9
+    eff = min(achieved / peak_gb_s, 1.0) if peak_gb_s > 0 else 0.0
+    return BandwidthMetrics(peak_gb_s, achieved, eff)
+
+
+def _ell_bytes(num_rows: int, num_cols: int, max_nnz_per_row: int) -> int:
+    """ELL byte model (``bandwidth.cpp:66-75``)."""
+    read = num_rows * max_nnz_per_row * (4 + 4) + num_cols * 4
+    write = num_rows * 4
+    return read + write
+
+
+def compute_bandwidth_ell(num_rows: int, num_cols: int, max_nnz_per_row: int,
+                          elapsed_ms: float,
+                          peak_gb_s: float) -> BandwidthMetrics:
+    """Reference ``compute_bandwidth_ell`` (``bandwidth.cpp:58-88``), with
+    the peak passed in (see :func:`get_gpu_peak_bandwidth`)."""
+    if elapsed_ms <= 0.0:
+        return BandwidthMetrics(peak_gb_s, 0.0, 0.0)
+    achieved = _ell_bytes(num_rows, num_cols, max_nnz_per_row) \
+        / (elapsed_ms * 1e-3) / 1e9
     eff = min(achieved / peak_gb_s, 1.0) if peak_gb_s > 0 else 0.0
     return BandwidthMetrics(peak_gb_s, achieved, eff)

@@ -123,3 +123,16 @@ def guarded_upload(array, device):
         if "CUDA" not in str(e) and "cuda" not in str(e):
             raise
         raise DeviceTransferError(str(e)) from e
+
+
+def target_device(device, what: str):
+    """``device`` as a ``torch.device``: the card unless the caller names
+    another; :class:`DeviceAllocError` (the code the reference's first
+    device allocation gives without a card) where it is a CUDA device and
+    none is present."""
+    import torch
+
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise DeviceAllocError(f"{what}: no CUDA device is available")
+    return device

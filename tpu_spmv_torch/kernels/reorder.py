@@ -47,7 +47,7 @@ from ..errors import InvalidFormatError, guarded_upload
 from .plan import (LANE, SUP_LEVELS, HostBanded, HostPlan, _choose_sup,
                    _sampled_sup_costs, build_auto)
 from .window_ell import permute_chunks, permute_chunks_plain  # noqa: F401
-from .window_ell import (BandedPlan, WindowEllPlan, banded_from_host,
+from .window_ell import (BandedPlan, PlanFile, WindowEllPlan, banded_from_host,
                          gather_table, plan_from_arrays, setup_bytes,
                          spmv_banded, spmv_on_table)
 
@@ -228,7 +228,7 @@ def maybe_reorder(csr: CSRMatrix, choice: tuple | None = None,
 # ---- the reordered plan ----
 
 @dataclasses.dataclass(frozen=True)
-class ReorderedPlan:
+class ReorderedPlan(PlanFile):
     """A window-ELL plan (or row-banded stack) built on the block-permuted
     matrix, plus the two gather maps that make it serve the original order
     (the JAX ``ReorderedPlan``, ``tpu_spmv/kernels/reorder.py:277-306``)."""

@@ -18,7 +18,8 @@ import torch
 
 from ..csr import CSRMatrix
 from .plan import build_auto
-from .window_ell import BandedPlan, spmv_banded, spmv_window_ell, upload
+from .window_ell import (BandedPlan, PlanFile, spmv_banded, spmv_window_ell,
+                         upload)
 
 # widest strip: one gather table of the JAX package's VMEM-resident x
 # (spmv.VMEM_X_MAX_COLS; a test holds the two equal)
@@ -37,10 +38,9 @@ class HostStrips:
 
 
 @dataclasses.dataclass(frozen=True)
-class StripPlan:
+class StripPlan(PlanFile):
     """A stack of packed plans over disjoint column ranges on one device
-    (the JAX ``StripPlan``, ``tpu_spmv/kernels/strips.py:53-93``, without
-    save and load)."""
+    (the JAX ``StripPlan``, ``tpu_spmv/kernels/strips.py:53-93``)."""
 
     plans: tuple              # WindowEllPlan | BandedPlan per strip
     num_rows: int

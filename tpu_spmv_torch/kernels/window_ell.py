@@ -156,8 +156,28 @@ class FoldSection:
             self.split_of_tile.numel())
 
 
+class PlanFile:
+    """``save`` and ``load`` of a device plan in the JAX package's plan
+    format (:mod:`tpu_spmv_torch.plan_io`; the JAX plans' methods,
+    ``window_ell.py:404-415``): ``load`` gives the plan on ``device``, the
+    card unless the caller names another, and raises
+    :class:`~tpu_spmv_torch.errors.InvalidFormatError` where the file holds
+    another kind of plan."""
+
+    def save(self, path: str) -> None:
+        from ..plan_io import save_plan
+
+        save_plan(self, path)
+
+    @classmethod
+    def load(cls, path: str, device=None):
+        from ..plan_io import load_as
+
+        return load_as(cls, path, device)
+
+
 @dataclasses.dataclass(frozen=True)
-class WindowEllPlan:
+class WindowEllPlan(PlanFile):
     """A window-ELL plan as tensors on one device (the fields of the JAX
     ``WindowEllPlan``, ``tpu_spmv/kernels/window_ell.py:311-352``)."""
 
@@ -213,6 +233,45 @@ class WindowEllPlan:
         if self.lam is not None:
             b += int(self.lam.numel()) * 12  # read y+lam, write y
         return b
+
+    @staticmethod
+    def autotune(csr, x=None, split_rows: int | None = 128,
+                 widths: tuple = (128, 384), iters: int = 200,
+                 permute_rows: bool = False, device="cuda",
+                 report: dict | None = None) -> "WindowEllPlan":
+        """Build a candidate plan at each step width of ``widths``, time
+        each on ``device`` (the card unless the caller names another) and
+        return the fastest (``WindowEllPlan.autotune``,
+        ``tpu_spmv/kernels/window_ell.py:421-451``).  Each candidate is
+        :func:`~.plan.build` at that width, uploaded; its time is the
+        median of 3 runs of ``iters`` SpMVs
+        (:func:`~tpu_spmv_torch.timing.time_runs`: CUDA events on the card,
+        the host clock only on a CPU device the caller names).  ``x``
+        defaults to zeros; ``report``, where given, receives the seconds
+        per call of each width."""
+        import statistics
+
+        from .. import timing
+        from ..errors import target_device
+        from .plan import build
+
+        device = target_device(device, "autotune")
+        xd = torch.zeros(csr.num_cols, dtype=torch.float32) if x is None \
+            else torch.as_tensor(np.asarray(x, np.float32))
+        xd = guarded_upload(xd, device)
+        best = None
+        for S in widths:
+            plan = plan_from_host(build(csr, split_rows=split_rows,
+                                        step_groups=S,
+                                        permute_rows=permute_rows), device)
+            secs = statistics.median(timing.time_runs(
+                lambda: spmv_window_ell(plan, xd), device, num_runs=3,
+                iters_per_run=iters))
+            if report is not None:
+                report[S] = secs
+            if best is None or secs < best[0]:
+                best = (secs, plan)
+        return best[1]
 
 
 def _unpack_sb(sb: np.ndarray | torch.Tensor, sbn: bool):
@@ -408,13 +467,15 @@ def _validate(leaves: dict, aux: dict) -> None:
 def _values_tensor(vals: np.ndarray | None,
                    values_dtype: str) -> torch.Tensor | None:
     """The value stream as a CPU tensor of its device type.  A JAX plan's
-    bf16 leaf (an ``ml_dtypes`` array, which this package does not import)
-    is taken bit for bit through an int16 view; f32 values are cast to
-    bfloat16 when ``values_dtype`` says so (round to nearest even, as JAX's
-    ``astype``)."""
+    bf16 leaf (an ``ml_dtypes`` array, which this package does not import),
+    or its bits as ``uint16`` (a plan file's form) where ``values_dtype``
+    is bfloat16, is taken bit for bit through an int16 view; f32 values are
+    cast to bfloat16 when ``values_dtype`` says so (round to nearest even,
+    as JAX's ``astype``)."""
     if vals is None:
         return None
-    if str(vals.dtype) == "bfloat16":
+    if str(vals.dtype) == "bfloat16" or (vals.dtype == np.uint16
+                                         and values_dtype == "bfloat16"):
         return torch.from_numpy(vals.view(np.int16).copy()).view(
             torch.bfloat16)
     if vals.dtype != np.float32:
@@ -1026,16 +1087,16 @@ def spmv_pattern(plan: WindowEllPlan, scale: torch.Tensor,
 # ---- banded plans: row bands as independent plans ----
 
 @dataclasses.dataclass(frozen=True)
-class BandedPlan:
+class BandedPlan(PlanFile):
     """A row-banded stack of window-ELL plans on one device (the JAX
-    ``BandedPlan``, ``tpu_spmv/kernels/window_ell.py:1724-1795``, without
-    save and load).  Each band is a complete plan over a slice of rows
-    (its splits, spills and extras confined to it), padded with empty rows
-    to a common height; ``band_rows`` are its real rows.  The bands come
-    from the v5e guards the planner keeps (``MAX_GROUPS``, ``VMEM_BUDGET``),
-    so the plans equal the reference's.  ``y`` is the bands' outputs, each
-    trimmed to its real rows, joined in band order; ``x`` is shared, each
-    band reading it into a gather table of its own."""
+    ``BandedPlan``, ``tpu_spmv/kernels/window_ell.py:1724-1795``). Each
+    band is a complete plan over a slice of rows (its splits, spills and
+    extras confined to it), padded with empty rows to a common height;
+    ``band_rows`` are its real rows. The bands come from the v5e guards the
+    planner keeps (``MAX_GROUPS``, ``VMEM_BUDGET``), so the plans equal the
+    reference's. ``y`` is the bands' outputs, each trimmed to its real
+    rows, joined in band order; ``x`` is shared, each band reading it into
+    a gather table of its own."""
 
     plans: tuple             # WindowEllPlan per band, in row order
     num_rows: int
@@ -1106,11 +1167,11 @@ def spmv_pattern_banded(bp: BandedPlan, scale: torch.Tensor,
 # ---- composite plans: levels of plans plus a flat tail ----
 
 @dataclasses.dataclass(frozen=True)
-class CompositePlan:
-    """A stack of window-ELL plans plus a flat remainder on one device (the
-    JAX ``CompositePlan``, ``window_ell.py:1551-1598``, without save and
-    load): ``y = level_0(x) + level_1(x) + ... + flat(tail, x)``, added in
-    that order.  Every level covers all rows and columns."""
+class CompositePlan(PlanFile):
+    """A stack of window-ELL plans plus a flat remainder on one device (the JAX
+    ``CompositePlan``, ``window_ell.py:1551-1598``): ``y = level_0(x) +
+    level_1(x) + ... + flat(tail, x)``, added in that order. Every level
+    covers all rows and columns."""
 
     plans: tuple             # WindowEllPlan per level
     tail: DeviceCSR | None   # the flat path's remainder, or None

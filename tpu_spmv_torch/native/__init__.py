@@ -1,7 +1,8 @@
 """ctypes bindings for the host planner library (port of
 ``tpu_spmv/native/__init__.py``, the entry points the planner uses).
 
-The library is compiled from the JAX package's ``native.cc`` on first use
+The library is compiled from the port's copy of the JAX package's
+``native.cc`` (``tpu_spmv_torch/native/native.cc``) on first use
 (:mod:`.build`), never at import.  Every entry point keeps the JAX package's
 NumPy fallback, taken when the library cannot be built or
 ``TPU_SPMV_NO_NATIVE`` is set; the balancing passes then return ``None`` and
@@ -42,6 +43,12 @@ _SIGNATURES = {
                                   _I64, _I64, _P64], None),
     "balance_row_tiles_i64": ([_I64, _P64, _P64, _P64, _I64, _I64, _P64],
                               None),
+    "coo_to_csr_f32": ([ctypes.c_int32, _I64, _P32, _P32, _PF, _P32, _P32,
+                        _PF], None),
+    "mtx_open": ([ctypes.c_char_p, _P32, _P32, _P64, _P32],
+                 ctypes.c_void_p),
+    "mtx_fetch": ([ctypes.c_void_p, _P32, _P32, _PF], None),
+    "mtx_close": ([ctypes.c_void_p], None),
 }
 
 
@@ -151,6 +158,98 @@ def spmv_cpu_csr_native(num_rows: int, row_ptrs: np.ndarray,
         _p(np.ascontiguousarray(x, np.float32), ctypes.c_float),
         _p(y, ctypes.c_float))
     return True
+
+
+def coo_to_csr(num_rows: int, coo_rows: np.ndarray, coo_cols: np.ndarray,
+               coo_vals: np.ndarray):
+    """Stable COO→CSR (a counting sort by row); returns ``(row_ptrs,
+    col_indices, values)``."""
+    nnz = len(coo_rows)
+    row_ptrs = np.zeros(num_rows + 1, np.int32)
+    out_cols = np.empty(nnz, np.int32)
+    out_vals = np.empty(nnz, np.float32)
+    lib = _library()
+    if lib is not None:
+        lib.coo_to_csr_f32(
+            num_rows, nnz,
+            _p(np.ascontiguousarray(coo_rows, np.int32), ctypes.c_int32),
+            _p(np.ascontiguousarray(coo_cols, np.int32), ctypes.c_int32),
+            _p(np.ascontiguousarray(coo_vals, np.float32), ctypes.c_float),
+            _p(row_ptrs, ctypes.c_int32), _p(out_cols, ctypes.c_int32),
+            _p(out_vals, ctypes.c_float))
+        return row_ptrs, out_cols, out_vals
+    order = np.argsort(np.asarray(coo_rows, np.int64), kind="stable")
+    rr = np.asarray(coo_rows, np.int64)[order]
+    out_cols[:] = np.asarray(coo_cols, np.int32)[order]
+    out_vals[:] = np.asarray(coo_vals, np.float32)[order]
+    row_ptrs[1:] = np.cumsum(np.bincount(rr, minlength=num_rows))
+    return row_ptrs, out_cols, out_vals
+
+
+def mtx_read(path: str):
+    """Matrix Market file → ``(num_rows, num_cols, coo_rows, coo_cols,
+    coo_vals)``: the native parser when the library is loaded, else a
+    Python one.  Raises :class:`~tpu_spmv_torch.errors.FileIOError` for a
+    file that cannot be read,
+    :class:`~tpu_spmv_torch.errors.InvalidFormatError` for one that is not a
+    coordinate Matrix Market file."""
+    lib = _library()
+    if lib is None:
+        return _mtx_read_py(path)
+    from ..errors import FileIOError, InvalidFormatError
+
+    nr, nc = ctypes.c_int32(), ctypes.c_int32()
+    nnz, err = ctypes.c_int64(), ctypes.c_int32()
+    handle = lib.mtx_open(os.fsencode(path), ctypes.byref(nr),
+                          ctypes.byref(nc), ctypes.byref(nnz),
+                          ctypes.byref(err))
+    if not handle:
+        raise (InvalidFormatError if err.value == -5 else FileIOError)(
+            f"mtx_read({path}): error {err.value}")
+    rows = np.empty(nnz.value, np.int32)
+    cols = np.empty(nnz.value, np.int32)
+    vals = np.empty(nnz.value, np.float32)
+    try:
+        lib.mtx_fetch(handle, _p(rows, ctypes.c_int32),
+                      _p(cols, ctypes.c_int32), _p(vals, ctypes.c_float))
+    finally:
+        lib.mtx_close(handle)
+    return int(nr.value), int(nc.value), rows, cols, vals
+
+
+def _mtx_read_py(path: str):
+    from ..errors import FileIOError, InvalidFormatError
+
+    try:
+        f = open(path, "r")
+    except OSError as e:
+        raise FileIOError(str(e)) from e
+    with f:
+        header = f.readline()
+        if not header.startswith("%%MatrixMarket"):
+            raise InvalidFormatError("not a MatrixMarket file")
+        if "coordinate" not in header or "complex" in header:
+            raise InvalidFormatError("unsupported MatrixMarket variant")
+        pattern = "pattern" in header
+        symmetric = "symmetric" in header
+        line = f.readline()
+        while line.startswith("%"):
+            line = f.readline()
+        nr, nc, n = (int(v) for v in line.split()[:3])
+        rows, cols, vals = [], [], []
+        for _ in range(n):
+            parts = f.readline().split()
+            r, c = int(parts[0]) - 1, int(parts[1]) - 1
+            v = 1.0 if pattern else float(parts[2])
+            rows.append(r)
+            cols.append(c)
+            vals.append(v)
+            if symmetric and r != c:
+                rows.append(c)
+                cols.append(r)
+                vals.append(v)
+        return nr, nc, np.asarray(rows, np.int32), \
+            np.asarray(cols, np.int32), np.asarray(vals, np.float32)
 
 
 def balance_extra_lanes(ext_ptr: np.ndarray, ext_wc: np.ndarray,

@@ -1,10 +1,10 @@
 """Build the host planner library: ``python -m tpu_spmv_torch.native.build``.
 
-Compiles the JAX package's own ``tpu_spmv/native/native.cc`` (the same
-source, so both packages' planners run the same balancing passes) with g++
-and the flags of ``tpu_spmv/native/build.py`` into
-``tpu_spmv_torch/_build/libtpu_spmv_native.so``.  Reading the source file
-imports nothing of the JAX package.
+Compiles ``tpu_spmv_torch/native/native.cc``, the port's own copy of the
+JAX package's ``tpu_spmv/native/native.cc`` (so both packages' planners run
+the same balancing passes, and the port builds where the JAX package is
+absent), with g++ and the flags of ``tpu_spmv/native/build.py`` into
+``tpu_spmv_torch/_build/libtpu_spmv_native.so``.
 """
 
 from __future__ import annotations
@@ -13,8 +13,7 @@ import os
 
 from ..kernels._build import build_library
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "tpu_spmv", "native", "native.cc")
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native.cc")
 LIB_NAME = "libtpu_spmv_native.so"
 
 

@@ -1,3 +1,3 @@
-from .cpu_reference import spmv_cpu_csr
+from .cpu_reference import spmv_cpu_csr, spmv_cpu_ell
 
-__all__ = ["spmv_cpu_csr"]
+__all__ = ["spmv_cpu_csr", "spmv_cpu_ell"]

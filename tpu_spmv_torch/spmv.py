@@ -1,11 +1,12 @@
 """SpMV dispatch, configuration and result types (port of
 ``tpu_spmv/spmv.py``).
 
-``spmv_csr`` validates its arguments before any device work, resolves the
-plan the JAX dispatch would (``tpu_spmv/spmv.py:137-206``, ``:285-455``),
-runs it on the card unless the caller names another device, and reports
-errors through ``SpMVResult.error_code`` with the JAX package's codes (the
-reference's no-throw contract).  The routes, in the JAX order:
+``spmv_csr`` (and ``spmv_ell``, below) validates its arguments before any
+device work, resolves the plan the JAX dispatch would
+(``tpu_spmv/spmv.py:137-206``, ``:285-455``), runs it on the card unless the
+caller names another device, and reports errors through
+``SpMVResult.error_code`` with the JAX package's codes (the reference's
+no-throw contract). The routes, in the JAX order:
 
 * VECTOR_CSR and MERGE_PATH: the pattern plan of the 0/1 structure where
   ``SpMVConfig.pattern`` is set and the values are column-scaled (a single
@@ -23,6 +24,15 @@ A call whose packed route overflows is served as SCALAR_CSR, as the JAX
 dispatch does.  The JAX dispatch's retry on a kernel's execution error
 (``tpu_spmv/spmv.py:246-282``) is not ported: a kernel that fails to build
 or launch raises.
+
+``spmv_ell`` routes an :class:`~tpu_spmv_torch.ell.ELLMatrix` as the JAX
+``_resolve_ell_kernel`` does (``tpu_spmv/spmv.py:557-591``): up to
+``VMEM_X_MAX_COLS`` columns the pattern route of its CSR form where
+``SpMVConfig.pattern`` is set and the values are column-scaled, else one
+window-ELL plan of its CSR form at the planner's defaults; up to
+``PACKED_MAX_COLS``, column strips of its CSR form; else, or where the
+single plan overflows or a strip rejects every packed layout, the
+slot-major flat ELL path (:mod:`.kernels.ell_kernel`).
 """
 
 from __future__ import annotations
@@ -35,11 +45,14 @@ import time
 import numpy as np
 import torch
 
-from .bandwidth import BandwidthMetrics, compute_bandwidth_csr
+from .bandwidth import (BandwidthMetrics, compute_bandwidth_csr,
+                        compute_bandwidth_ell)
 from .csr import CSRMatrix, DeviceCSR
+from .ell import DeviceELL, ELLMatrix
 from .errors import SpMVError, SpMVException, guarded_upload
 from .kernels.plan import (WindowEllOverflow, _choose_sup, build,
                            build_auto, build_composite)
+from .kernels.ell_kernel import spmv_ell_device
 from .kernels.reorder import (ReorderedPlan, build_reordered_host,
                               maybe_reorder, reordered_from_host,
                               spmv_reordered)
@@ -112,9 +125,9 @@ class PatternPlan:
 
 
 # what serves an SpMV: a packed plan or stack of them, or the matrix itself
-# on the flat path
+# on a flat path
 Plan = (WindowEllPlan | BandedPlan | CompositePlan | StripPlan | ReorderedPlan
-        | PatternPlan | DeviceCSR)
+        | PatternPlan | DeviceCSR | DeviceELL)
 
 
 @dataclasses.dataclass
@@ -261,20 +274,24 @@ def _resolve_pattern(A: CSRMatrix, kernel_type: KernelType,
     return A._plan_cache[pkey]
 
 
+def _strips_host(A: CSRMatrix, kernel_type: KernelType,
+                 config: SpMVConfig) -> HostStrips | None:
+    """The host strips of ``A``, or ``None`` where a strip rejects every
+    packed layout."""
+    try:
+        return build_strips_host(A, STRIP_MAX_COLS, config.step_groups,
+                                 _split(kernel_type))
+    except WindowEllOverflow:
+        return None
+
+
 def _resolve_strips(A: CSRMatrix, kernel_type: KernelType,
                     config: SpMVConfig,
                     device: torch.device) -> StripPlan | None:
     """Column strips (``tpu_spmv/spmv.py:399-420``), or ``None`` where a
     strip rejects every packed layout; the rejection is cached too."""
-    def make():
-        try:
-            return build_strips_host(A, STRIP_MAX_COLS, config.step_groups,
-                                     _split(kernel_type))
-        except WindowEllOverflow:
-            return None
-
     return _cached(A, ("strips", int(kernel_type), config.step_groups, None),
-                   device, make)
+                   device, lambda: _strips_host(A, kernel_type, config))
 
 
 def _resolve_naive(A: CSRMatrix, config: SpMVConfig,
@@ -309,6 +326,8 @@ def _run(plan: Plan, x: torch.Tensor) -> torch.Tensor:
         return spmv_strips(plan, x)
     if isinstance(plan, DeviceCSR):
         return spmv_csr_scalar(plan, x)
+    if isinstance(plan, DeviceELL):
+        return spmv_ell_device(plan, x)
     return spmv_window_ell(plan, x)
 
 
@@ -320,7 +339,7 @@ def launches_per_call(plan: Plan) -> dict:
     but the last, and K2 where the plan is leveled, its last section split
     a superblock, or a reordered plan maps its tiles; summed over the
     bands, levels or strips of a stack, with two public chunk permutes
-    around a reordered banded stack; none on the flat path."""
+    around a reordered banded stack; none on a flat path (CSR or ELL)."""
     counts = dict.fromkeys(("fold", "section_epilogue", "unpermute",
                             "permute_chunks"), 0)
 
@@ -342,7 +361,7 @@ def launches_per_call(plan: Plan) -> dict:
         counts["permute_chunks"] += 2 * banded
     elif isinstance(plan, PatternPlan):
         add(plan.plan)
-    elif not isinstance(plan, DeviceCSR):
+    elif not isinstance(plan, (DeviceCSR, DeviceELL)):
         add(plan)
     return counts
 
@@ -391,30 +410,12 @@ def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
     other device: ``MEASURE_WARMUP`` warm-up calls, then the median of
     ``measure_samples`` runs of ``measure_iters`` calls of the plan that
     served the call) and fills the time, GFLOP/s and byte-model GB/s."""
-    result = SpMVResult()
-    if A is None or x is None:
-        result.error_code = int(SpMVError.INVALID_ARGUMENT)
-        return result
-    device = torch.device("cuda" if device is None else device)
-    if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-    n = int(x.shape[0]) if x.ndim == 1 else -1
-    if vec_size is None or vec_size < 0:
-        vec_size = n
-    if x.ndim != 1 or not spmv_validate_dimensions(A.num_cols, vec_size) \
-            or vec_size != n:
-        result.error_code = int(SpMVError.INVALID_DIMENSION)
+    result, x, device = _begin(A, x, vec_size, device)
+    if result.error_code or result.y is not None:
         return result
     if config is None:
         config = SpMVConfig()
     kernel_type = KernelType(config.kernel_type)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        result.error_code = int(SpMVError.DEVICE_ALLOC)
-        return result
-    if A.num_rows == 0:
-        result.y = torch.zeros(0, dtype=torch.float32, device=device)
-        return result
-
     try:
         x = guarded_upload(x, device).float()
         t0 = time.perf_counter()
@@ -430,20 +431,138 @@ def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
         result.error_code = int(e.code)
         return result
     result.plan = plan
-
     if measure:
-        from .bandwidth import get_gpu_peak_bandwidth
-        from .timing import time_cuda
+        _measure(result, x, device, measure_iters, measure_samples, A.nnz,
+                 lambda ms, peak: compute_bandwidth_csr(
+                     A.num_rows, A.num_cols, A.nnz, ms, peak))
+    return result
 
-        secs = time_cuda(lambda: _run(plan, x),
-                         iters=measure_iters, samples=measure_samples,
-                         warmup=MEASURE_WARMUP, device=device)
-        result.elapsed_ms = secs * 1e3
-        result.gflops = 2.0 * A.nnz / secs / 1e9 if secs > 0 else 0.0
-        index = device.index if device.index is not None \
-            else torch.cuda.current_device()
-        result.bandwidth = compute_bandwidth_csr(
-            A.num_rows, A.num_cols, A.nnz, result.elapsed_ms,
-            get_gpu_peak_bandwidth(index))
-        result.bandwidth_gb_s = result.bandwidth.achieved_gb_s
+
+def _begin(A, x, vec_size: int | None, device) -> tuple:
+    """The checks both entry points make before any device work
+    (``spmv_kernels.cu:219-232``): ``(result, x as a 1-D tensor, device)``,
+    the result carrying an error code, or the empty output of a matrix
+    with no rows, where the call ends there.  ``device`` is the card
+    unless the caller names another; with no CUDA device and none named
+    the code is ``DEVICE_ALLOC``."""
+    result = SpMVResult()
+    if A is None or x is None:
+        result.error_code = int(SpMVError.INVALID_ARGUMENT)
+        return result, x, device
+    device = torch.device("cuda" if device is None else device)
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    n = int(x.shape[0]) if x.ndim == 1 else -1
+    if vec_size is None or vec_size < 0:
+        vec_size = n
+    if x.ndim != 1 or not spmv_validate_dimensions(A.num_cols, vec_size) \
+            or vec_size != n:
+        result.error_code = int(SpMVError.INVALID_DIMENSION)
+    elif device.type == "cuda" and not torch.cuda.is_available():
+        result.error_code = int(SpMVError.DEVICE_ALLOC)
+    elif A.num_rows == 0:
+        result.y = torch.zeros(0, dtype=torch.float32, device=device)
+    return result, x, device
+
+
+def _measure(result: SpMVResult, x: torch.Tensor, device: torch.device,
+             iters: int, samples: int, nnz: int, model) -> None:
+    """Fill ``result``'s time, GFLOP/s (2·``nnz`` a call) and byte-model
+    GB/s (``model(ms, peak)``) from CUDA-event timing of the plan that
+    served it (:func:`~tpu_spmv_torch.timing.time_cuda`, which raises for
+    any other device: ``MEASURE_WARMUP`` warm-up calls, then the median of
+    ``samples`` runs of ``iters`` calls)."""
+    from .bandwidth import get_gpu_peak_bandwidth
+    from .timing import time_cuda
+
+    plan = result.plan
+    secs = time_cuda(lambda: _run(plan, x), iters=iters, samples=samples,
+                     warmup=MEASURE_WARMUP, device=device)
+    result.elapsed_ms = secs * 1e3
+    result.gflops = 2.0 * nnz / secs / 1e9 if secs > 0 else 0.0
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    result.bandwidth = model(result.elapsed_ms,
+                             get_gpu_peak_bandwidth(index))
+    result.bandwidth_gb_s = result.bandwidth.achieved_gb_s
+
+
+# ---- ELL ----
+
+def _ell_csr(A: ELLMatrix) -> CSRMatrix:
+    """``A``'s CSR form, which the packed routes plan (cached under
+    ``"_csr"``, the JAX key)."""
+    if "_csr" not in A._plan_cache:
+        A._plan_cache["_csr"] = A.to_csr()
+    return A._plan_cache["_csr"]
+
+
+def _resolve_ell_kernel(A: ELLMatrix, config: SpMVConfig | None,
+                        device: torch.device) -> Plan:
+    """The plan that serves ``A`` (``tpu_spmv/spmv.py:557-591``), shared by
+    :func:`spmv_ell` and the benchmark harness so that both run the same
+    plan.  Cached on ``A`` under the JAX keys and the device: the host
+    plan of the single-plan route under ``"plan"`` (``None`` for a
+    rejected build), its device plan under ``("plan", device)``; the
+    strips under ``("strips", step width)`` and the device (the host
+    strips, or ``None``, under that key alone).  The pattern route's plan
+    is cached on the CSR form (``"_csr"``), as the CSR dispatch caches
+    it.  The route takes no bf16 value stream and ignores
+    ``kernel_type``, as the JAX route does."""
+    cfg = config or SpMVConfig()
+    if A.num_cols <= VMEM_X_MAX_COLS:
+        if cfg.pattern:
+            resolved = _resolve_pattern(_ell_csr(A), KernelType.VECTOR_CSR,
+                                        cfg, device)
+            if resolved is not None:
+                return resolved
+
+        def make():
+            try:
+                return build(_ell_csr(A))
+            except WindowEllOverflow:
+                return None
+
+        plan = _cached(A, "plan", device, make)
+        if plan is not None:
+            return plan
+    elif A.num_cols <= PACKED_MAX_COLS:
+        plan = _cached(A, ("strips", cfg.step_groups), device,
+                       lambda: _strips_host(_ell_csr(A),
+                                            KernelType.VECTOR_CSR, cfg))
+        if plan is not None:
+            return plan
+    return A.to_device(device)
+
+
+def spmv_ell(A: ELLMatrix | None, x, config: SpMVConfig | None = None,
+             vec_size: int | None = None, measure: bool = False,
+             measure_iters: int = 100, measure_samples: int = 5,
+             device=None) -> SpMVResult:
+    """``y = A @ x`` for ELL (reference ``spmv_ell``,
+    ``spmv_kernels.cu:328-420``), with :func:`spmv_csr`'s validation,
+    error codes, devices and ``measure``: on the card unless the caller
+    names another device, ``DEVICE_ALLOC`` with no CUDA device and none
+    named.  ``measure=True`` fills the time, the GFLOP/s of the stored
+    nonzeros (the reference's host recount, ``spmv_kernels.cu:399-405``)
+    and the ELL byte model's GB/s.  The JAX route's retry on a kernel's
+    execution error (``tpu_spmv/spmv.py:511-531``) is not ported: a kernel
+    that fails to build or launch raises."""
+    result, x, device = _begin(A, x, vec_size, device)
+    if result.error_code or result.y is not None:
+        return result
+    try:
+        x = guarded_upload(x, device).float()
+        t0 = time.perf_counter()
+        plan = _resolve_ell_kernel(A, config, device)
+        result.plan_seconds = time.perf_counter() - t0
+        result.y = _run(plan, x)
+    except SpMVException as e:
+        result.error_code = int(e.code)
+        return result
+    result.plan = plan
+    if measure:
+        _measure(result, x, device, measure_iters, measure_samples, A.nnz,
+                 lambda ms, peak: compute_bandwidth_ell(
+                     A.num_rows, A.num_cols, A.max_nnz_per_row, ms, peak))
     return result

@@ -5,7 +5,7 @@ package's, so one seed gives the identical matrix in both packages.
 :func:`clustered_csr` and :func:`scrambled_banded_csr` plant the block-coarse
 locality that block reordering (:mod:`tpu_spmv_torch.kernels.reorder`)
 recovers; :func:`web_graph_csr` and :func:`transition_matrix` make the
-JAX bench's PageRank matrix.
+JAX bench's PageRank matrix, :func:`stencil_csr` its 5-point stencil.
 """
 
 from __future__ import annotations
@@ -169,6 +169,32 @@ def scrambled_banded_csr(rng: RandomGenerator, n: int, bandwidth: int = 4096,
     np.cumsum(np.bincount(rr2, minlength=n), out=row_ptrs[1:])
     vals = gen.uniform(0.1, 1.0, len(key)).astype(np.float32)
     return CSRMatrix(int(n), int(n), vals, cc2, row_ptrs)
+
+
+def stencil_csr(g: int):
+    """The 5-point Laplacian stencil on a ``g x g`` grid (4 on the
+    diagonal, -1 at each of the four neighbours), rows sorted by column:
+    the JAX bench's ELL matrix (``bench.py:226-245``)."""
+    from ..csr import CSRMatrix
+
+    N = g * g
+    ii = np.arange(N)
+    rl, cl, vl = [], [], []
+    for (dr, dc, v) in [(0, 0, 4.0), (-1, 0, -1.0), (1, 0, -1.0),
+                        (0, -1, -1.0), (0, 1, -1.0)]:
+        r, c = ii // g, ii % g
+        rr2, cc2 = r + dr, c + dc
+        m = (rr2 >= 0) & (rr2 < g) & (cc2 >= 0) & (cc2 < g)
+        rl.append(ii[m])
+        cl.append((rr2 * g + cc2)[m])
+        vl.append(np.full(int(m.sum()), v, np.float32))
+    ra = np.concatenate(rl)
+    ca = np.concatenate(cl)
+    va = np.concatenate(vl)
+    o = np.lexsort((ca, ra))
+    rp = np.zeros(N + 1, np.int32)
+    np.cumsum(np.bincount(ra, minlength=N), out=rp[1:])
+    return CSRMatrix(N, N, va[o], ca[o].astype(np.int32), rp)
 
 
 def abs_row_scale(csr, x) -> np.ndarray:

@@ -3,6 +3,7 @@
     python3 chip_profile.py [--calls 20]
                             [--cells headline,mesh,banded,ab,levers,pagerank]
                             [--cells web,pagerank1m,wide,floors,ablation,ell]
+                            [--cells sharded]
 
 For ``chip_smoke.py``'s matrices (``headline``: the merge-path power-law
 matrix; ``mesh``: the scrambled 2^20 mesh, served reordered; ``banded``:
@@ -46,6 +47,14 @@ Per plan it prints:
   after the last where the call ran it (the mean over the calls); for a
   banded call per band, with each band's device µs and launches, and the
   join's.
+
+``sharded`` (not in the default cells) traces ``chip_smoke.py``'s phase
+15 cells, 4 shards all on the one card: the single plan of the matrix,
+the flat sharded path, packed shards in f32, bf16, pattern and leveled,
+and the ring on the local structure.  Per cell it prints the device µs
+per call, the span and idle share, the time by kernel name, and holds the
+traced launches of each of the port's kernels to the shard plans'
+``launches_per_call``.
 
 ``ablation`` (not in the default cells) times K1 as the SpMV runs it
 (``fold_sections``: no epilogue after the last section, whose split tiles
@@ -375,6 +384,74 @@ def profile(label: str, A, x, changes: dict, calls: int, dev,
                f"us/call, 1 launch/call ({join[0].name[:60]})")
 
 
+def held_launches(label: str, kern: list, calls: int, want: dict) -> None:
+    """Fails unless the trace holds ``want`` launches per call of each of
+    the port's kernels (``launches_per_call``'s keys)."""
+    for key, name in (("fold", FOLD_KERNEL),
+                      ("section_epilogue", EPILOGUE_KERNEL),
+                      ("unpermute", K2_KERNEL),
+                      ("permute_chunks", K3_KERNEL)):
+        got = sum(name in e.name for e in kern)
+        cs.check(got == want[key] * calls,
+                 f"{label}: {got} {name} launches traced, "
+                 f"{want[key] * calls} expected")
+
+
+def sharded(calls: int, dev) -> None:
+    """The sharded cells (module docstring): per cell, device µs per call,
+    the span and idle share, by kernel name, the launches held."""
+    import torch
+
+    from tpu_spmv_torch import KernelType, SpMVConfig, spmv_csr
+    from tpu_spmv_torch.kernels import FOLD_VARIANTS
+    from tpu_spmv_torch.parallel import (make_row_mesh, shard_csr,
+                                         shard_csr_packed, shard_csr_ring,
+                                         spmv_csr_ring, spmv_csr_sharded,
+                                         spmv_csr_sharded_packed)
+    from tpu_spmv_torch.spmv import _run as run_plan
+    from tpu_spmv_torch.spmv import launches_per_call
+
+    A, x, twin, L, xl = cs.sharded_matrices()
+    xd, xld = (torch.from_numpy(v).to(dev) for v in (x, xl))
+    mesh = make_row_mesh(cs.SHARDS, devices=[str(dev)] * cs.SHARDS)
+    res = spmv_csr(A, xd, SpMVConfig(kernel_type=KernelType.MERGE_PATH),
+                   device=dev)
+    cs.check(res.error_code == 0, f"sharded: error {res.error_code}")
+    cells = [("single plan", lambda: run_plan(res.plan, xd),
+              launches_per_call(res.plan))]
+    packed = {"f32": (A, {}), "bf16": (A, {"values_dtype": "bfloat16"}),
+              "pattern": (twin, {"pattern": True}),
+              "leveled": (A, {"permute_rows": True})}
+    for what, make, run, xs in (
+            [("flat", lambda: shard_csr(A, mesh), spmv_csr_sharded, xd)]
+            + [(f"packed {k}", lambda M=M, kw=kw: shard_csr_packed(
+                M, mesh, **kw), spmv_csr_sharded_packed, xd)
+               for k, (M, kw) in packed.items()]
+            + [("ring, local structure", lambda: shard_csr_ring(L, mesh),
+                spmv_csr_ring, xld)]):
+        sh = make()
+        per = cs.sharded_launches(sh)
+        want = {k: per[k] for k in ("section_epilogue", "unpermute",
+                                    "permute_chunks")}
+        want["fold"] = sum(per[v] for v in FOLD_VARIANTS.values())
+        cells.append((what, lambda sh=sh, run=run, xs=xs: run(sh, xs),
+                      want))
+    for what, fn, want in cells:
+        fn()
+        kern = trace(fn, calls)
+        label = f"sharded {what}"
+        cs.check(len(kern) > 0, f"{label}: the trace holds no device time")
+        held_launches(label, kern, calls, want)
+        busy = sum(e.time_range.elapsed_us() for e in kern) / calls
+        span = device_span(kern, calls)
+        idle = "not measured (dropped launches)" if span is None else \
+            f"span {span:.2f} us, idle {100 * (1 - busy / span):.1f}%"
+        cs.log(f"== {label}: device {busy:.2f} us/call over {calls} calls, "
+               f"{len(kern) / calls:g} launches/call; {idle}; the port's "
+               f"kernels a call {want}")
+        print_kernels(kern, calls)
+
+
 def ablation(A, calls: int, dev) -> None:
     """K1 as the SpMV runs it on the PageRank plan's gather table (x the
     uniform ranks, scaled as ``spmv_pattern`` feeds it) at R = 1, the
@@ -461,6 +538,8 @@ def main() -> int:
     if "ell" in cells:
         runs += [("stencil_csr", (g,), [{}] + [{"pattern": True}]
                   * (g == cs.PATTERN_STENCIL)) for g in cs.STENCILS]
+    if "sharded" in cells:
+        sharded(args.calls, dev)
     if "floors" in cells:
         runs.append(("power_law_csr", cs.HEADLINE, [
             {"kernel_type": KernelType.SCALAR_CSR},

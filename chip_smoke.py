@@ -131,8 +131,30 @@ Phases (each raises on failure; nothing is caught and passed over):
     ``python -m tpu_spmv_torch.cli --json`` as a subprocess, which must
     exit 0 with every ``correct`` true.
 
+15. The multi-device layer (``tpu_spmv_torch.parallel``) on 4 shards, all
+    on the one card (``make_row_mesh(4, devices=["cuda:0"] * 4)``), at its
+    own benchmark's size (``benchmarks/scaling.py:27-29``: 262,144 rows,
+    4,096 columns, power-law rows averaging 16 nonzeros): the flat sharded
+    path, replicated-packed shards in f32, bf16, on the pattern path (the
+    matrix's column-scaled twin, ``scaling.py:148-152``) and leveled
+    (``permute_rows=True``), and the ring on ``--structure local``'s banded
+    row locality, its ``ring_traffic_report`` printed.  Each is held to the
+    CPU oracle on the unpartitioned matrix, bit-identical across two
+    calls, its launches counted from 0 (each shard plan's
+    ``launches_per_call``), and timed over CUDA events (flat and f32 in
+    turns with the single plan the dispatch serves for the matrix), with
+    its plan seconds (``chip_profile.py --cells sharded`` traces the
+    device time and idle share of the same cells); shard 0's kernels against their plain versions (f32 and
+    pattern).  The packed SpMV through a process group of world size 1 on
+    NCCL must equal the local one-shard mesh's bit for bit.
+    ``pagerank_sharded`` over packed and pattern shards of phase 9's web
+    graph runs 30 iterations at tolerance 0, held to phase 9's float64
+    check, and ``pagerank_step_sharded`` on the flat form to a float64
+    step.  Four shards on one card measure the cost of sharding, not the
+    exchange between cards nor scaling.
+
 The phases run in the order 1-6, 13, 14, 7, 14's mesh plan file, 10, 9,
-11, 12, 8, each new matrix made once and dropped when its phases end;
+11, 12, 8, 15, each new matrix made once and dropped when its phases end;
 each phase's seconds are printed after it.
 
 Where one PyTorch call computes what a kernel computes, it is timed beside
@@ -210,6 +232,13 @@ PR_RTOL, PR_ATOL = 1e-4, 1e-7
 # the same check at an absolute tolerance a bf16-rounded table fails (the
 # ranks are about 1/n = 3.8e-6)
 PR_ATOL_TIGHT = 1e-9
+# phase 15: the multi-device layer at its own benchmark's size
+# (benchmarks/scaling.py:27-29, 84: power-law rows averaging 16 nonzeros,
+# alpha 1.6, min(rows, 4096) columns), 4 shards, all on the one card; the
+# timing of a sharded call beside the single plan's
+SHARDED = (262144, 4096, 16.0, 1.6)
+SHARDS = 4
+SHARD_ITERS = 50
 # the fp32 peak outside the tensor cores (NVIDIA's H100 SXM data sheet), the
 # operations side of a kernel's bound
 FP32_PEAK_FLOPS = 67e12
@@ -1826,6 +1855,285 @@ def phase_pagerank(dev, stream: float) -> dict:
                          counts["window_ell_fold_pattern"], stream)
 
 
+def local_structure(rows: int, cols: int, avg: float, rng):
+    """``benchmarks/scaling.py``'s ``--structure local`` matrix
+    (``:62-82``): each row's columns within 2% of the diagonal's (the
+    partition-friendly class, meshes and road networks, where the ring's
+    packed footprint beats replicating x)."""
+    import numpy as np
+
+    from tpu_spmv_torch import CSRMatrix
+
+    half = max(64, int(cols * 0.02))
+    k = max(1, int(avg))
+    base_r = np.repeat(np.arange(rows, dtype=np.int64), k)
+    off = rng.rng.integers(-half, half + 1, size=len(base_r))
+    cc = np.clip((base_r * cols) // rows + off, 0, cols - 1)
+    order = np.lexsort((cc, base_r))
+    rp = np.zeros(rows + 1, np.int32)
+    np.cumsum(np.bincount(base_r, minlength=rows), out=rp[1:])
+    return CSRMatrix(rows, cols, rng.vector(len(base_r)).astype(np.float32),
+                     cc[order].astype(np.int32), rp)
+
+
+def sharded_matrices() -> tuple:
+    """Phase 15's matrices: ``(A, x, twin, L, xl)``, the power-law matrix
+    of ``SHARDED`` and its operand, its column-scaled twin for the pattern
+    cell (``benchmarks/scaling.py:148-152``), and the local structure of
+    the same size with its operand, for the ring."""
+    import numpy as np
+
+    from tpu_spmv_torch import CSRMatrix
+    from tpu_spmv_torch.utils.testing import RandomGenerator
+
+    rows, cols, avg, alpha = SHARDED
+    rng = RandomGenerator(42)
+    A = rng.power_law_csr(rows, cols, avg_nnz=avg, alpha=alpha)
+    x = rng.vector(cols)
+    s_col = np.abs(rng.vector(cols)) + 0.5
+    twin = CSRMatrix(rows, cols, s_col[A.col_indices], A.col_indices,
+                     A.row_ptrs)
+    L = local_structure(rows, cols, avg, RandomGenerator(42))
+    return A, x, twin, L, RandomGenerator(7).vector(cols)
+
+
+def shard_plans(sh) -> list:
+    """The window-ELL plans one call of a sharded matrix runs (none on the
+    flat sharded path)."""
+    from tpu_spmv_torch.parallel import RingShardedCSR, ShardedWindowEll
+
+    if isinstance(sh, ShardedWindowEll):
+        return list(sh.plans)
+    if isinstance(sh, RingShardedCSR):
+        return [p for d, ring in zip(sh.diag_plans, sh.ring_plans)
+                for p in (d, *ring)]
+    return []
+
+
+def sharded_launches(sh) -> dict:
+    """The kernel launches of one call of a sharded matrix: each shard
+    plan's ``launches_per_call`` (K1's fold in the plans' value stream)."""
+    from tpu_spmv_torch.kernels import FOLD_VARIANTS
+    from tpu_spmv_torch.spmv import launches_per_call
+
+    want = dict.fromkeys(("section_epilogue", "unpermute", "permute_chunks",
+                          *FOLD_VARIANTS.values()), 0)
+    for p in shard_plans(sh):
+        per = launches_per_call(p)
+        want[FOLD_VARIANTS[p.values]] += per.pop("fold")
+        for k, v in per.items():
+            want[k] += v
+    return want
+
+
+def sharded_cell(what: str, sh, run, A, x, xd, single=None,
+                 tol: float = REL_TOL) -> None:
+    """One sharded path on the card: the launch counts from 0 around one
+    call, each shard plan's own; the output against the CPU oracle on the
+    unpartitioned matrix, bit-identical across two calls; then its ms per
+    call over CUDA events (in turns with ``single``, the single plan's call
+    of the same matrix, where given)."""
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch import kernels as tk
+    from tpu_spmv_torch.timing import time_turns
+    from tpu_spmv_torch.utils.testing import spmv_matches
+
+    tk.reset_launch_counts()
+    y = run(sh, xd)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    want = sharded_launches(sh)
+    check(counts == want, f"sharded {what}: launches {counts}, the shard "
+          f"plans' {want}")
+    check(all(counts[k] > 0 for k, v in want.items() if v),
+          f"sharded {what}: a kernel of the path was not launched")
+    yh = y.cpu().numpy()
+    check(yh.shape == (A.num_rows,) and bool(np.all(np.isfinite(yh)))
+          and spmv_matches(yh, A, x, rel_tol=tol),
+          f"sharded {what} vs the CPU oracle (rel {tol})")
+    check(torch.equal(y, run(sh, xd)),
+          f"sharded {what}: not bit-identical across two calls")
+    fns = [lambda: run(sh, xd)] + ([single] if single else [])
+    ms = [t * 1e3 for t in time_turns(fns, iters=SHARD_ITERS,
+                                      samples=SAMPLES, warmup=3)]
+    beside = f"; the single plan in turns {ms[1]:.4f} ms" if single else ""
+    log(f"sharded {what}: OK vs the CPU oracle (rel {tol}), bit-identical "
+        f"across two calls; {ms[0]:.4f} ms/call over CUDA events (median "
+        f"of {SAMPLES} x {SHARD_ITERS}){beside}; launches a call {counts}; "
+        f"shards' nnz "
+        f"{list(sh.shard_nnz)}, imbalance {sh.nnz_imbalance:.4f}")
+
+
+def built(what: str, make):
+    """``make()``, its seconds logged as the plan seconds of ``what``."""
+    t0 = time.perf_counter()
+    out = make()
+    log(f"sharded {what}: plan {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def phase_sharded(dev) -> None:
+    """Phase 15: the multi-device layer on one card, 4 shards on it."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpu_spmv_torch import (KernelType, PageRankConfig, SpMVConfig,
+                                spmv_csr)
+    from tpu_spmv_torch import kernels as tk
+    from tpu_spmv_torch.kernels.plan import _slice_rows
+    from tpu_spmv_torch.pagerank import find_dangling_mask
+    from tpu_spmv_torch.parallel import (init_distributed, make_row_mesh,
+                                         pagerank_sharded,
+                                         pagerank_step_sharded,
+                                         ring_traffic_report, shard_csr,
+                                         shard_csr_packed, shard_csr_ring,
+                                         spmv_csr_ring, spmv_csr_sharded,
+                                         spmv_csr_sharded_packed)
+    from tpu_spmv_torch.spmv import PatternPlan, _run
+    from tpu_spmv_torch.utils.testing import (RandomGenerator,
+                                              transition_matrix,
+                                              web_graph_csr)
+
+    mesh = make_row_mesh(SHARDS, devices=[str(dev)] * SHARDS)
+    t0 = time.perf_counter()
+    A, x, twin, L, xl = sharded_matrices()
+    log(f"sharded matrices: power law {A.num_rows} x {A.num_cols}, {A.nnz} "
+        f"nnz; the local structure {L.nnz} nnz (generated in "
+        f"{time.perf_counter() - t0:.1f} s); {SHARDS} shards on {dev}")
+    xd = torch.from_numpy(x).to(dev)
+
+    # the single plan of the same matrix, through the dispatch
+    cfg = SpMVConfig(kernel_type=KernelType.MERGE_PATH)
+    res = spmv_csr(A, xd, cfg, device=dev)
+    check(res.error_code == 0, f"sharded: the single plan, error "
+          f"{res.error_code}")
+    single = lambda: _run(res.plan, xd)  # noqa: E731
+    log(f"sharded: the single plan ({type(res.plan).__name__}) in "
+        f"{res.plan_seconds:.2f} s")
+
+    sh = built("flat", lambda: shard_csr(A, mesh))
+    sharded_cell("flat", sh, spmv_csr_sharded, A, x, xd, single)
+    sp = built("packed f32", lambda: shard_csr_packed(A, mesh))
+    sharded_cell("packed f32", sp, spmv_csr_sharded_packed, A, x, xd,
+                 single)
+    # shard 0's plan against its plain versions (its rows of A, padded)
+    hold_kernels(sp.plans[0], xd, _slice_rows(A, 0, sp.bounds[1],
+                                              pad_to=sp.rows_per_shard),
+                 x, "sharded packed, shard 0", timed=False)
+    del sp
+    sb = built("packed bf16", lambda: shard_csr_packed(
+        A, mesh, values_dtype="bfloat16"))
+    sharded_cell("packed bf16", sb, spmv_csr_sharded_packed, A, x, xd,
+                 tol=BF16_TOL)
+    del sb
+    spat = built("packed pattern", lambda: shard_csr_packed(
+        twin, mesh, pattern=True))
+    sharded_cell("packed pattern", spat, spmv_csr_sharded_packed, twin, x,
+                 xd)
+    hold_kernels(PatternPlan(spat.plans[0], spat.col_scale), xd,
+                 _slice_rows(twin, 0, spat.bounds[1],
+                             pad_to=spat.rows_per_shard),
+                 x, "sharded pattern, shard 0", timed=False)
+    del spat
+    sl = built("packed permute_rows", lambda: shard_csr_packed(
+        A, mesh, permute_rows=True))
+    check(sl.has_lam, "sharded permute_rows: the shard plans are not "
+          "leveled")
+    sharded_cell("packed permute_rows", sl, spmv_csr_sharded_packed, A, x,
+                 xd)
+    del sl
+    rs = built("ring (local structure)", lambda: shard_csr_ring(L, mesh))
+    log("sharded ring traffic: " + json.dumps(ring_traffic_report(rs)))
+    sharded_cell("ring (local structure)", rs, spmv_csr_ring, L, xl,
+                 torch.from_numpy(xl).to(dev))
+    del rs
+
+    # the same packed SpMV through a process group of world size 1 (NCCL),
+    # bit for bit against the local mesh's one shard
+    local = spmv_csr_sharded_packed(shard_csr_packed(
+        A, make_row_mesh(1, devices=[str(dev)])), xd)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        gmesh = make_row_mesh()
+        check(gmesh.group is not None and gmesh.n_shards == 1,
+              "sharded: the process-group mesh")
+        sg = shard_csr_packed(A, gmesh)
+        tk.reset_launch_counts()
+        y = spmv_csr_sharded_packed(sg, xd)
+        torch.cuda.synchronize()
+        check(tk.launch_counts() == sharded_launches(sg),
+              "sharded process group: launches")
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    check(torch.equal(y, local), "sharded: the process group of one is not "
+          "bit-identical to the local mesh's one shard")
+    log(f"sharded process group ({backend}, world size 1): bit-identical "
+        f"to the local one-shard mesh")
+    del local, sg, y
+
+    # PageRank over shards: the JAX bench's web graph, 30 iterations
+    t0 = time.perf_counter()
+    n, pavg = PAGERANK
+    T = transition_matrix(web_graph_csr(RandomGenerator(42), n, n,
+                                        avg_nnz=pavg))
+    mask = find_dangling_mask(T)
+    ref = power_iteration(T, PR_ITERS)
+    log(f"sharded PageRank matrix: {n} nodes, {T.nnz} nnz "
+        f"({time.perf_counter() - t0:.1f} s with its float64 reference)")
+    pcfg = PageRankConfig(max_iterations=PR_ITERS, tolerance=0.0)
+    for what, make in (("packed", lambda: shard_csr_packed(T, mesh)),
+                       ("pattern", lambda: shard_csr_packed(
+                           T, mesh, pattern=True))):
+        sh = built(f"PageRank {what}", make)
+        pagerank_sharded(sh, mask, pcfg)        # warm-up
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pr = pagerank_sharded(sh, mask, pcfg)
+        stop.record()
+        stop.synchronize()
+        counts = tk.launch_counts()
+        want = {k: PR_ITERS * v for k, v in sharded_launches(sh).items()}
+        check(pr.error_code == 0 and pr.iterations == PR_ITERS
+              and counts == want,
+              f"sharded PageRank {what}: error {pr.error_code}, "
+              f"{pr.iterations} iterations, launches {counts} ({want})")
+        ranks = pr.ranks_host()
+        err = np.abs(ranks - ref)
+        check(ranks.shape == (n,) and bool(np.all(np.isfinite(ranks)))
+              and bool(np.all(err <= PR_ATOL + PR_RTOL * np.abs(ref)))
+              and bool(np.all(err <= PR_ATOL_TIGHT + PR_RTOL * np.abs(ref)))
+              and abs(float(ranks.sum(dtype=np.float64)) - 1.0) < 1e-4,
+              f"sharded PageRank {what} vs the float64 power iteration")
+        log(f"sharded PageRank {what}: {PR_ITERS} iterations, "
+            f"{start.elapsed_time(stop) / PR_ITERS:.4f} ms/iteration over "
+            f"CUDA events; OK vs float64 (max|Δ| {float(err.max()):.3g}); "
+            f"launches {counts}")
+        del sh
+    # one step on the flat form, against the float64 step
+    r = np.full(n, 1.0 / n, np.float32)
+    step = pagerank_step_sharded(shard_csr(T, mesh), r, mask).cpu().numpy()
+    rows_t = np.repeat(np.arange(n), np.diff(T.row_ptrs))
+    want = 0.85 * np.bincount(rows_t, T.values.astype(np.float64)
+                              * r[T.col_indices], minlength=n) \
+        + 0.85 * float(r[mask > 0].sum(dtype=np.float64)) / n + 0.15 / n
+    check(bool(np.all(np.abs(step - want)
+                      <= PR_ATOL_TIGHT + PR_RTOL * np.abs(want))),
+          "sharded PageRank step vs the float64 step")
+    log("sharded PageRank step (flat): OK vs the float64 step")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1871,6 +2179,7 @@ def main() -> int:
     del W
     run(phase_wide, dev, stream)
     run(phase_reorder_ab, dev)
+    run(phase_sharded, dev)
     check("jax" not in sys.modules, "JAX was imported")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

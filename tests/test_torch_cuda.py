@@ -20,7 +20,13 @@ inner SpMV bit for bit.
 The benchmark probes' kernels are held to ``rtol=1e-5`` with
 ``atol = 1e-5 * max|ref|``: fp32 sums in another order, and in P1, P2 and
 P3 atomic adds in no fixed order.  PageRank on the card is held to a float64
-power iteration at ``rtol=1e-4, atol=1e-7``.
+power iteration at ``rtol=1e-4, atol=1e-7``.  The multi-device layer runs
+on 4 shards of one card (``["cuda:0"] * 4``), each path against the
+oracle and the flat path at the row bound; a process group of one (NCCL)
+equals the local mesh bit for bit; an out-of-memory error ends the call
+with ``EXECUTION`` and no other route serves it; ``DeviceBuffer`` and
+``profiling.trace`` run on the card; and K1 launches on its tensors'
+device while another is current (fault F9).
 """
 
 import dataclasses
@@ -31,8 +37,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from tpu_spmv_torch import (  # noqa: E402
-    DeviceCSR, KernelType, PageRankConfig, SpMVConfig, pagerank,
-    spmv_auto_config, spmv_csr)
+    CSRMatrix, DeviceCSR, KernelType, PageRankConfig, SpMVConfig, SpMVError,
+    pagerank, spmv_auto_config, spmv_csr)
 from tpu_spmv_torch import kernels as tk  # noqa: E402
 from tpu_spmv_torch.probes import profile_dma_share as p5  # noqa: E402
 from tpu_spmv_torch.probes import profile_kernel as p4  # noqa: E402
@@ -987,3 +993,238 @@ def test_harness_and_autotune_on_card(cuda_device):
     assert plan.step_groups == min(report, key=report.get)
     y = twe.spmv_window_ell(plan, torch.from_numpy(x).to(cuda_device))
     assert spmv_matches(y.cpu().numpy(), A, x, rel_tol=ROW_TOL)
+
+
+# ---- the multi-device layer, the ladder, DeviceBuffer, profiling ----
+
+def card_mesh(n):
+    from tpu_spmv_torch.parallel import make_row_mesh
+
+    return make_row_mesh(n, devices=["cuda:0"] * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["flat", "packed", "bf16", "pattern",
+                                  "permuted", "ring"])
+def test_sharded_paths_on_card_match_the_flat_path(cuda_device, path):
+    """Each sharded path on 4 shards of the card against the oracle and
+    the flat path (one DeviceCSR, plain ops) on the unpartitioned matrix;
+    every packed shard launches K1, and the output is bit-identical
+    across two calls."""
+    from tpu_spmv_torch.kernels.scalar import spmv_csr_scalar
+    from tpu_spmv_torch.parallel import (shard_csr, shard_csr_packed,
+                                         shard_csr_ring, spmv_csr_ring,
+                                         spmv_csr_sharded,
+                                         spmv_csr_sharded_packed)
+
+    A = RandomGenerator(42).power_law_csr(8192, 2048, 12.0, 1.6)
+    if path == "pattern":
+        A = transition_matrix(web_graph_csr(RandomGenerator(42), 8192, 8192,
+                                            avg_nnz=9))
+    x = RandomGenerator(7).vector(A.num_cols)
+    mesh = card_mesh(4)
+    if path == "flat":
+        sh, run = shard_csr(A, mesh), spmv_csr_sharded
+    elif path == "ring":
+        sh, run = shard_csr_ring(A, mesh), spmv_csr_ring
+    else:
+        sh = shard_csr_packed(
+            A, mesh, pattern=path == "pattern",
+            permute_rows=path == "permuted",
+            values_dtype="bfloat16" if path == "bf16" else "float32")
+        run = spmv_csr_sharded_packed
+    xd = torch.from_numpy(x).to(cuda_device)
+    tk.reset_launch_counts()
+    y = run(sh, xd)
+    again = run(sh, xd)
+    torch.cuda.synchronize()
+    folds = sum(tk.launch_counts()[k] for k in tk.FOLD_VARIANTS.values())
+    assert (folds == 0) == (path == "flat")
+    assert y.is_cuda
+    assert torch.equal(y, again)
+    tol = 8e-3 if path == "bf16" else ROW_TOL
+    assert spmv_matches(y.cpu().numpy(), A, x, rel_tol=tol)
+    flat = spmv_csr_scalar(A.to_device(cuda_device), xd).cpu().numpy()
+    bound = tol * np.maximum(abs_row_scale(A, x), 1.0)
+    assert np.all(np.abs(y.cpu().numpy() - flat) <= bound)
+
+
+@pytest.mark.cuda
+def test_sharded_pagerank_on_card(cuda_device):
+    """``pagerank_sharded`` over packed pattern shards on the card against
+    the single-plan ``pagerank``: the same iteration count, ranks within
+    1e-6."""
+    from tpu_spmv_torch.pagerank import find_dangling_mask
+    from tpu_spmv_torch.parallel import pagerank_sharded, shard_csr_packed
+
+    A = transition_matrix(web_graph_csr(RandomGenerator(42), 8192, 8192,
+                                        avg_nnz=9))
+    res = pagerank_sharded(shard_csr_packed(A, card_mesh(4), pattern=True),
+                           find_dangling_mask(A))
+    single = pagerank(A)
+    assert res.error_code == 0 and res.converged
+    assert res.iterations == single.iterations
+    assert res.ranks.is_cuda
+    assert np.abs(res.ranks_host() - single.ranks_host()).max() < 1e-6
+
+
+@pytest.mark.cuda
+def test_ring_buffer_narrower_than_a_chunk(cuda_device):
+    """A ring whose packed buffer is 8 wide (a banded matrix's halo): the
+    table's set-up pads it to the plan's columns and reads nothing past
+    it (K3's bounds test)."""
+    from tpu_spmv_torch.parallel import (ring_traffic_report, shard_csr_ring,
+                                         spmv_csr_ring)
+
+    n = 4096
+    idx = np.arange(n)
+    rows = np.concatenate([idx[1:], idx, idx[:-1]])
+    cols = np.concatenate([idx[:-1], idx, idx[1:]])
+    order = np.lexsort((cols, rows))
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))])
+    vals = RandomGenerator(3).rng.uniform(0.5, 2.0, len(rows))
+    A = CSRMatrix(n, n, vals.astype(np.float32),
+                  cols[order].astype(np.int32), ptr.astype(np.int32))
+    rs = shard_csr_ring(A, card_mesh(4))
+    assert rs.u_max == 8 and ring_traffic_report(rs)["ring_wins"]
+    x = RandomGenerator(7).vector(n)
+    y = spmv_csr_ring(rs, torch.from_numpy(x).to(cuda_device))
+    assert spmv_matches(y.cpu().numpy(), A, x, rel_tol=ROW_TOL)
+
+
+@pytest.mark.cuda
+def test_process_group_of_one_on_card_equals_the_local_mesh(cuda_device):
+    """A NCCL process group of world size 1: the packed SpMV through
+    ``all_gather_into_tensor`` equals the local one-shard mesh's bit for
+    bit; the group is destroyed after."""
+    import socket
+
+    import torch.distributed as dist
+    from tpu_spmv_torch.parallel import (init_distributed, make_row_mesh,
+                                         shard_csr_packed,
+                                         spmv_csr_sharded_packed)
+
+    A = RandomGenerator(42).power_law_csr(8192, 2048, 12.0, 1.6)
+    x = torch.from_numpy(RandomGenerator(7).vector(A.num_cols)).to(
+        cuda_device)
+    local = spmv_csr_sharded_packed(shard_csr_packed(A, card_mesh(1)), x)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = make_row_mesh()
+        assert mesh.group is not None and mesh.n_shards == 1
+        y = spmv_csr_sharded_packed(shard_csr_packed(A, mesh), x)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(y, local)
+
+
+@pytest.mark.cuda
+def test_oom_on_card_ends_the_call_with_execution(cuda_device, monkeypatch,
+                                                  caplog):
+    """An out-of-memory error injected into the packed route's fold on the
+    card ends the call with ``EXECUTION``, logged once, and no other route
+    (the flat path's torch ops) serves it; a launch error ends it the same
+    way; the next call, nothing injected, is served by the packed plan."""
+    import logging
+    import sys
+
+    from tpu_spmv_torch.errors import DeviceException
+
+    tspmv = sys.modules["tpu_spmv_torch.spmv"]
+    A = RandomGenerator(42).power_law_csr(8192, 2048, 12.0, 1.6)
+    x = RandomGenerator(7).vector(A.num_cols)
+    cfg = SpMVConfig(kernel_type=KernelType.MERGE_PATH)
+    spmv_csr(A, x, cfg)                       # plan and kernels built
+
+    def oom(*args, **kw):
+        raise torch.OutOfMemoryError("CUDA out of memory (injected)")
+
+    def flat(*args, **kw):
+        raise AssertionError("the flat path ran")
+
+    monkeypatch.setattr(tspmv, "spmv_csr_scalar", flat)
+    monkeypatch.setattr(twe, "fold_sections", oom)
+    with caplog.at_level(logging.WARNING, logger="tpu_spmv_torch"):
+        res = spmv_csr(A, x, cfg)
+    assert res.error_code == int(SpMVError.EXECUTION)
+    assert res.y is None and res.plan is None
+    assert sum("ran out of device memory" in r.message
+               for r in caplog.records) == 1
+
+    def launch_error(*args, **kw):
+        raise DeviceException("window-ELL fold launch: cudaError 700")
+
+    monkeypatch.setattr(twe, "fold_sections", launch_error)
+    res = spmv_csr(A, x, cfg)
+    assert res.error_code == int(SpMVError.EXECUTION)
+    assert res.plan is None
+
+    monkeypatch.undo()
+    res = spmv_csr(A, x, cfg)
+    assert res.error_code == 0 and not isinstance(res.plan, DeviceCSR)
+    assert spmv_matches(res.y_host(), A, x, rel_tol=ROW_TOL)
+
+
+@pytest.mark.cuda
+def test_device_buffer_on_card(cuda_device):
+    from tpu_spmv_torch import DeviceBuffer
+
+    buf = DeviceBuffer(64)
+    assert buf.get().is_cuda
+    data = np.arange(64, dtype=np.float32)
+    buf.copy_from_host(data[:16], count=16)
+    out = buf.copy_to_host()
+    np.testing.assert_array_equal(out[:16], data[:16])
+    np.testing.assert_array_equal(out[16:], np.zeros(48, np.float32))
+    buf.resize(8)
+    assert buf.size == 8 and buf.get().is_cuda
+    buf.release()
+    assert buf.empty
+
+
+@pytest.mark.cuda
+def test_trace_names_the_fold(cuda_device, tmp_path):
+    """``profiling.trace`` around an SpMV on the card writes a Chrome trace
+    in which K1's kernel (``fold_chunk``) appears."""
+    import json
+    import os
+
+    from tpu_spmv_torch import profiling
+
+    A = RandomGenerator(42).power_law_csr(8192, 2048, 12.0, 1.6)
+    x = RandomGenerator(7).vector(A.num_cols)
+    cfg = SpMVConfig(kernel_type=KernelType.MERGE_PATH)
+    spmv_csr(A, x, cfg)
+    with profiling.trace(str(tmp_path)):
+        with profiling.annotate("spmv"):
+            spmv_csr(A, x, cfg)
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    assert any("fold_chunk" in n for n in names)
+    assert "spmv" in names
+
+
+@pytest.mark.cuda
+def test_fold_launches_on_its_tensors_device(cuda_device):
+    """K1 and its epilogues launched on the last card while device 0 is
+    current: the wrappers make the tensors' device current, and the
+    shared-memory grant is per device (a sup-16384 plan's fold asks for
+    more than the default 48 KB).  With one card this runs on device 0,
+    which is then both."""
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    A = RandomGenerator(42).power_law_csr(8192, 2048, 12.0, 1.6)
+    x = RandomGenerator(7).vector(A.num_cols)
+    ys = []
+    for dev in (torch.device("cuda", 0), last):
+        plan = twe.plan_from_host(tplan.build(A, sup=16384, split_rows=128,
+                                              permute_rows=True), dev)
+        with torch.cuda.device(0):
+            ys.append(twe.spmv_window_ell(
+                plan, torch.from_numpy(x).to(dev)).cpu())
+    assert torch.equal(ys[0], ys[1])
+    assert spmv_matches(ys[1].numpy(), A, x, rel_tol=ROW_TOL)

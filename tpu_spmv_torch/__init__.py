@@ -50,6 +50,7 @@ from .ell import (
     ell_to_dense,
     ell_to_device,
 )
+from .buffer import DeviceBuffer
 from .ops import spmv_cpu_csr, spmv_cpu_ell
 from .spmv import (
     KernelType,
@@ -79,6 +80,7 @@ from .benchmark import (
 )
 from .io import load_matrix_market, save_matrix_market
 from .plan_io import load_plan, save_plan
+from . import profiling
 from .pagerank import (
     PageRankConfig,
     PageRankResult,
@@ -99,7 +101,7 @@ __all__ = [
     "ELLMatrix", "DeviceELL", "ell_index",
     "ell_create", "ell_from_dense", "ell_from_csr", "ell_to_dense",
     "ell_get_element", "ell_to_device", "ell_serialize", "ell_deserialize",
-    "spmv_cpu_csr", "spmv_cpu_ell",
+    "DeviceBuffer", "spmv_cpu_csr", "spmv_cpu_ell",
     "KernelType", "SpMVConfig", "SpMVResult",
     "spmv_csr", "spmv_ell", "spmv_validate_dimensions", "spmv_auto_config",
     "BandwidthMetrics", "compute_bandwidth_csr", "compute_bandwidth_ell",
@@ -110,4 +112,5 @@ __all__ = [
     "load_matrix_market", "save_matrix_market", "save_plan", "load_plan",
     "PageRankConfig", "PageRankResult", "TopKNode", "pagerank",
     "pagerank_top_k", "pagerank_save_state", "pagerank_load_state",
+    "profiling",
 ]

@@ -116,6 +116,8 @@ cudaError_t launch(int n_steps, int S, int cols8, cudaStream_t stream,
                    const int8_t* sb, const int32_t* wg, const int32_t* base,
                    float* out) {
   const int smem = SPLIT ? cols8 * kLane * int(sizeof(float)) : 0;
+  // the attribute belongs to the function on the current device, so it is
+  // set at every launch, on the device the wrapper made current
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         proto_v2<MODE, T, UNIT, SPLIT>,

@@ -80,8 +80,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 #include <cstring>
+#include <mutex>
 #include <type_traits>
 
 #include "epilogue.cuh"
@@ -455,17 +457,42 @@ struct FoldArgs {
   float* partial;
 };
 
+// The dynamic shared memory a kernel may take is an attribute of the
+// function on the current device: a grant on one card is none on another.
+// So each variant keeps its grant per device (cudaGetDevice), and raises it
+// under a lock, so that two threads launching on one card never lower it.
+constexpr int kMaxDevices = 64;
+constexpr int kDefaultSmem = 48 * 1024;   // the default dynamic cap
+std::mutex grant_lock;
+
+template <typename Kernel>
+cudaError_t grant_smem(Kernel kernel, std::atomic<int>* granted, int smem) {
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem <= granted[dev].load(std::memory_order_acquire)) {
+    return cudaSuccess;
+  }
+  const std::lock_guard<std::mutex> hold(grant_lock);
+  if (smem <= granted[dev].load(std::memory_order_relaxed)) {
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess) granted[dev].store(smem, std::memory_order_release);
+  return err;
+}
+
 template <int NTB, bool SBN, int TB, typename V>
 cudaError_t launch_chunk(cudaStream_t stream, const FoldArgs& a) {
   const int smem = Layout<NTB, SBN, TB, V>::bytes(a.max_runs);
-  static int granted = 48 * 1024;   // the default dynamic shared memory cap
-  if (smem > granted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fold_chunk<NTB, SBN, TB, V>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    granted = smem;
-  }
+  static std::atomic<int> granted[kMaxDevices];   // 0: nothing granted
+  const cudaError_t err =
+      grant_smem(fold_chunk<NTB, SBN, TB, V>, granted, smem);
+  if (err != cudaSuccess) return err;
   fold_chunk<NTB, SBN, TB, V><<<a.n_chunks, kLane * slices<NTB>(), smem,
                                 stream>>>(
       a.table, static_cast<const V*>(a.vals), a.lo, a.sb, a.wg, a.base,

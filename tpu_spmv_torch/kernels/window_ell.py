@@ -45,6 +45,7 @@ carry a sentinel sub-block that no output row matches (:func:`sentinel`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import struct
@@ -530,6 +531,16 @@ def _current_stream(device_index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(device_index)
 
 
+def on_device(index: int):
+    """CUDA device ``index`` made current around a launch: a kernel goes
+    to the current device, its stream must be that device's, and K1's
+    shared-memory grant is per device.  No context switch where it is
+    current already."""
+    if torch.cuda.current_device() == index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
+
+
 def _check_fold(plan: WindowEllPlan, table: torch.Tensor) -> None:
     if plan.pat != (plan.vals is None):
         raise ValueError("a pattern plan has no value stream, any other "
@@ -654,11 +665,12 @@ def section_epilogue(partial: torch.Tensor, sec: FoldSection,
         raise ValueError(
             f"section_epilogue: table {table.dtype} {tuple(table.shape)} on "
             f"{table.device}, extras from {extras_base} of {n_out}")
-    err = kernels().tsp_section_epilogue(
-        sec.launch_block + _EPILOGUE_ARGS.pack(
-            partial.data_ptr(), n_tb, extras_base // LANE,
-            out.data_ptr(), tail,
-            _current_stream(dev) if stream is None else stream))
+    with on_device(dev):
+        err = kernels().tsp_section_epilogue(
+            sec.launch_block + _EPILOGUE_ARGS.pack(
+                partial.data_ptr(), n_tb, extras_base // LANE,
+                out.data_ptr(), tail,
+                _current_stream(dev) if stream is None else stream))
     if err:
         raise DeviceException(f"section epilogue launch: cudaError {err}")
     section_epilogue.launches += 1
@@ -724,11 +736,21 @@ def fold_sections(plan: WindowEllPlan, table: torch.Tensor,
     partial)``: the last section's split superblocks are still partial
     tiles in ``partial`` (None for a plan without sections), for the
     caller's epilogue."""
+    if plain:
+        return _run_sections(plan, table, True, stream)
+    _check_kernel_plan(plan, table)
+    with on_device(table.get_device()):
+        return _run_sections(plan, table, False, stream)
+
+
+def _run_sections(plan: WindowEllPlan, table: torch.Tensor, plain: bool,
+                  stream: int | None) -> tuple:
+    """:func:`fold_sections` after the checks, the kernels' device
+    current."""
     dev = table.device
     out = torch.zeros(plan.out8 * LANE, dtype=torch.float32, device=dev)
     partial = None
     if not plain:
-        _check_kernel_plan(plan, table)
         if stream is None:
             stream = _current_stream(table.get_device())
         lib = kernels()
@@ -895,10 +917,11 @@ def unpermute(y: torch.Tensor, lam: torch.Tensor | None, num_rows: int, *,
         n_tb = _check_partial("unpermute", partial, sec, dev, n_y)
         split, partial_ptr = sec.launch_block, partial.data_ptr()
     res = torch.empty(num_rows, dtype=_F32, device=y.device)
-    err = kernels().tsp_unpermute(split + _UNPERMUTE_ARGS.pack(
-        partial_ptr, n_tb, y.data_ptr(), n_y, lam_ptr, tile_ptr, n_src,
-        res.data_ptr(), num_rows,
-        _current_stream(dev) if stream is None else stream))
+    with on_device(dev):
+        err = kernels().tsp_unpermute(split + _UNPERMUTE_ARGS.pack(
+            partial_ptr, n_tb, y.data_ptr(), n_y, lam_ptr, tile_ptr, n_src,
+            res.data_ptr(), num_rows,
+            _current_stream(dev) if stream is None else stream))
     if err:
         raise DeviceException(f"unpermute launch: cudaError {err}")
     unpermute.launches += 1
@@ -959,9 +982,10 @@ def _permute_into(x: torch.Tensor, src: torch.Tensor | None,
     if not out.numel():
         return out
     x = x.contiguous()
-    err = kernels().tsp_permute_chunks(_PERMUTE_ARGS.pack(
-        x.data_ptr(), x.numel(), 0 if src is None else src.data_ptr(),
-        out.data_ptr(), out_len, out.numel(), _current_stream(dev)))
+    with on_device(dev):
+        err = kernels().tsp_permute_chunks(_PERMUTE_ARGS.pack(
+            x.data_ptr(), x.numel(), 0 if src is None else src.data_ptr(),
+            out.data_ptr(), out_len, out.numel(), _current_stream(dev)))
     if err:
         raise DeviceException(f"permute_chunks launch: cudaError {err}")
     permute_chunks.launches += 1

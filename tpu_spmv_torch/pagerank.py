@@ -97,11 +97,11 @@ def column_scale_factor(adj: CSRMatrix) -> np.ndarray | None:
     return scale
 
 
-def _iterate(plan, mask: torch.Tensor, r: torch.Tensor, n: int,
+def _iterate(spmv, mask: torch.Tensor, r: torch.Tensor, n: int,
              damping: float, tolerance: float,
              max_iterations: int) -> tuple:
-    """The power iteration from ``r``: ``(iterations, ranks, residual)``,
-    the ranks renormalised.  With ``tolerance > 0`` the residual is read
+    """The power iteration from ``r``, ``spmv(r)`` giving ``A @ r`` (``n``
+    values): ``(iterations, ranks, residual)``, the ranks renormalised.  With ``tolerance > 0`` the residual is read
     back once per iteration for the stop test (``not residual >= tol``,
     the JAX loop's condition, so a NaN residual stops it too); with
     ``tolerance <= 0`` no residual can fall below it, and the loop runs
@@ -110,7 +110,7 @@ def _iterate(plan, mask: torch.Tensor, r: torch.Tensor, n: int,
     residual = torch.tensor(float("inf"), device=r.device)
     it = 0
     while it < max_iterations:
-        r_new = damping * _run(plan, r)[:n] \
+        r_new = damping * spmv(r) \
             + damping * torch.dot(mask, r) * inv_n + (1.0 - damping) * inv_n
         residual = torch.linalg.vector_norm(r_new - r)
         r = r_new
@@ -171,8 +171,9 @@ def pagerank(adj_matrix: CSRMatrix | None,
             r0 = torch.full((n,), 1.0 / n, dtype=torch.float32,
                             device=device)
         it, ranks, residual = _iterate(
-            plan, mask, r0, n, float(config.damping_factor),
-            float(config.tolerance), int(config.max_iterations))
+            lambda r: _run(plan, r)[:n], mask, r0, n,
+            float(config.damping_factor), float(config.tolerance),
+            int(config.max_iterations))
     except SpMVException as e:
         result.error_code = int(e.code)
         return result

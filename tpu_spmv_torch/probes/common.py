@@ -62,14 +62,18 @@ def check_multiple_of_t(S: int) -> None:
 
 def launch(fn: str, *args) -> None:
     """Call ``fn`` of the kernels library with ``args`` (a tensor goes as its
-    data pointer) and the current stream of the tensors' device; raises
+    data pointer) and the current stream of the tensors' device, that
+    device made current; raises
     :class:`DeviceException` when the launch returns a CUDA error."""
     from ..kernels._build import kernels
+    from ..kernels.window_ell import on_device
 
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = getattr(kernels(), fn)(
-        *ptrs, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    with on_device(dev.index):     # the attribute P1 sets is per device
+        err = getattr(kernels(), fn)(
+            *ptrs,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err:
         raise DeviceException(f"{fn} launch: cudaError {err}")
 

@@ -21,9 +21,17 @@ no-throw contract). The routes, in the JAX order:
   ``use_vmem_x=False``, and for a structure every packed layout rejects.
 
 A call whose packed route overflows is served as SCALAR_CSR, as the JAX
-dispatch does.  The JAX dispatch's retry on a kernel's execution error
-(``tpu_spmv/spmv.py:246-282``) is not ported: a kernel that fails to build
-or launch raises.
+dispatch does.  A route that runs out of device memory
+(``torch.OutOfMemoryError``: the per-call gather table, output or partial
+buffers, which the plan-time guards cannot see) ends the call with
+``SpMVError.EXECUTION``, logged as a warning on the ``tpu_spmv_torch``
+logger.  The JAX dispatch's fallback ladder (``tpu_spmv/spmv.py:246-282``,
+``:502-531``) is not ported: its rungs would hand a packed route's call to
+the flat path's torch ops on the card, and each needs more memory than the
+buffer that failed.  No route is ever retried on another: a kernel that
+fails to launch (:class:`~tpu_spmv_torch.errors.DeviceException`) ends the
+call with ``EXECUTION`` too, and one that fails to build, like any other
+error, propagates.
 
 ``spmv_ell`` routes an :class:`~tpu_spmv_torch.ell.ELLMatrix` as the JAX
 ``_resolve_ell_kernel`` does (``tpu_spmv/spmv.py:557-591``): up to
@@ -39,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import logging
 import os
 import time
 
@@ -49,7 +58,8 @@ from .bandwidth import (BandwidthMetrics, compute_bandwidth_csr,
                         compute_bandwidth_ell)
 from .csr import CSRMatrix, DeviceCSR
 from .ell import DeviceELL, ELLMatrix
-from .errors import SpMVError, SpMVException, guarded_upload
+from .errors import (DeviceException, SpMVError, SpMVException,
+                     guarded_upload)
 from .kernels.plan import (WindowEllOverflow, _choose_sup, build,
                            build_auto, build_composite)
 from .kernels.ell_kernel import spmv_ell_device
@@ -76,6 +86,8 @@ MERGE_SPLIT_ROWS = 128
 
 # measure=True: warm-up calls before the timed samples
 MEASURE_WARMUP = 10
+
+log = logging.getLogger("tpu_spmv_torch")
 
 
 class KernelType(enum.IntEnum):
@@ -366,6 +378,18 @@ def launches_per_call(plan: Plan) -> dict:
     return counts
 
 
+def _execute(plan: Plan, x: torch.Tensor) -> torch.Tensor:
+    """:func:`_run` for the dispatch: a route that runs out of device
+    memory raises :class:`DeviceException` (``EXECUTION``), logged as a
+    warning; no other route is tried."""
+    try:
+        return _run(plan, x)
+    except torch.OutOfMemoryError as e:
+        log.warning("spmv: %s ran out of device memory (%s)",
+                    type(plan).__name__, e)
+        raise DeviceException(e) from e
+
+
 def _resolve_csr_kernel(A: CSRMatrix, kernel_type: KernelType,
                         config: SpMVConfig, device: torch.device) -> Plan:
     """The plan that serves ``A`` (``tpu_spmv/spmv.py:353-396``).  Raises
@@ -426,7 +450,7 @@ def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
             plan = _resolve_csr_kernel(A, KernelType.SCALAR_CSR, config,
                                        device)
         result.plan_seconds = time.perf_counter() - t0
-        result.y = _run(plan, x)
+        result.y = _execute(plan, x)
     except SpMVException as e:
         result.error_code = int(e.code)
         return result
@@ -545,9 +569,8 @@ def spmv_ell(A: ELLMatrix | None, x, config: SpMVConfig | None = None,
     names another device, ``DEVICE_ALLOC`` with no CUDA device and none
     named.  ``measure=True`` fills the time, the GFLOP/s of the stored
     nonzeros (the reference's host recount, ``spmv_kernels.cu:399-405``)
-    and the ELL byte model's GB/s.  The JAX route's retry on a kernel's
-    execution error (``tpu_spmv/spmv.py:511-531``) is not ported: a kernel
-    that fails to build or launch raises."""
+    and the ELL byte model's GB/s.  A route that runs out of device memory
+    ends the call with ``EXECUTION``, as in :func:`spmv_csr`."""
     result, x, device = _begin(A, x, vec_size, device)
     if result.error_code or result.y is not None:
         return result
@@ -556,7 +579,7 @@ def spmv_ell(A: ELLMatrix | None, x, config: SpMVConfig | None = None,
         t0 = time.perf_counter()
         plan = _resolve_ell_kernel(A, config, device)
         result.plan_seconds = time.perf_counter() - t0
-        result.y = _run(plan, x)
+        result.y = _execute(plan, x)
     except SpMVException as e:
         result.error_code = int(e.code)
         return result

@@ -153,8 +153,20 @@ Phases (each raises on failure; nothing is caught and passed over):
     step.  Four shards on one card measure the cost of sharding, not the
     exchange between cards nor scaling.
 
+16. The differential soak (``python -m tpu_spmv_torch.soak``) on the card:
+    ``SOAK_TRIALS`` randomized matrices of seven structure classes at a
+    fixed seed through every dispatch path and, every 5th trial, the flat
+    and packed sharded paths on a 4-shard mesh of the one card, each held
+    to the CPU oracle; no path may fail, and each of K1's variants, its
+    section epilogue, K2 and K3 must launch (counts from 0 around the
+    soak).  Then one plan per lever group of the JAX fuzz slice
+    (``tests/test_fuzz.py``: run length, step widths 128 and 40, spill
+    beta with the balancer's windows, bypass and L2 balance, leveling,
+    pattern, bf16, bands; ``soak.LEVER_CASES``) through the card's SpMV
+    against the oracle, and its kernels against their plain versions.
+
 The phases run in the order 1-6, 13, 14, 7, 14's mesh plan file, 10, 9,
-11, 12, 8, 15, each new matrix made once and dropped when its phases end;
+11, 12, 8, 15, 16, each new matrix made once and dropped when its phases end;
 each phase's seconds are printed after it.
 
 Where one PyTorch call computes what a kernel computes, it is timed beside
@@ -239,6 +251,9 @@ PR_ATOL_TIGHT = 1e-9
 SHARDED = (262144, 4096, 16.0, 1.6)
 SHARDS = 4
 SHARD_ITERS = 50
+# phase 16: the differential soak's trials and seed on the card (about a
+# minute), and the fuzz slice's lever groups
+SOAK_TRIALS, SOAK_SEED = 60, 1
 # the fp32 peak outside the tensor cores (NVIDIA's H100 SXM data sheet), the
 # operations side of a kernel's bound
 FP32_PEAK_FLOPS = 67e12
@@ -578,12 +593,13 @@ def hold_kernels(plan, xd, A, x, what: str, timed: bool,
     if M is not None:
         check(spmv_matches((M @ xd).cpu().numpy(), A, x, rel_tol=REL_TOL),
               f"the library call (cuSPARSE) vs the oracle ({what})")
-    last = inner.sections[-1]
-    if inner.lam is not None or last.n_split or rp:
+    # a plan with no nonzeros (an empty band) has no section
+    last = inner.sections[-1] if inner.sections else None
+    if inner.lam is not None or (last and last.n_split) or rp:
         # K2, with the last section's partial tiles where it splits, and a
         # reordered plan's row map
         kw = {}
-        if last.n_split:
+        if last and last.n_split:
             kw = {"partial": tiles(last), "sec": last}
         n = rp.num_rows if rp else inner.num_rows
         library = None
@@ -2134,6 +2150,46 @@ def phase_sharded(dev) -> None:
     log("sharded PageRank step (flat): OK vs the float64 step")
 
 
+def phase_soak(dev) -> None:
+    """Phase 16: the differential soak (``tpu_spmv_torch.soak``) on the
+    card at a fixed seed, the sharded paths included, which must report no
+    failure and launch each of K1's variants, its section epilogue, K2 and
+    K3 (counts from 0 around it); then one plan per lever group of the fuzz
+    slice (``soak.LEVER_CASES``) through the card's SpMV against the oracle
+    and through :func:`hold_kernels` (each band of the banded one)."""
+    import torch
+
+    from tpu_spmv_torch import kernels as tk
+    from tpu_spmv_torch import soak
+    from tpu_spmv_torch.kernels import window_ell as twe
+    from tpu_spmv_torch.utils.testing import spmv_matches
+
+    tk.reset_launch_counts()
+    rc = soak.main(["--trials", str(SOAK_TRIALS), "--seed", str(SOAK_SEED)])
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    check(rc == 0, f"the soak on the card exited {rc}")
+    check(all(counts.values()),
+          f"the soak's paths left a kernel unlaunched: {counts}")
+    log(f"soak: seed {SOAK_SEED}, launches {counts}")
+    for name in soak.LEVER_CASES:
+        A, x, hp = soak.lever_case(name)
+        banded = name == "banded"
+        plan = (twe.banded_from_host if banded else twe.plan_from_host)(
+            hp, dev)
+        xd = torch.from_numpy(x).to(dev)
+        y = (twe.spmv_banded if banded else twe.spmv_window_ell)(plan, xd)
+        inner = plan.plans[0] if banded else plan
+        tol = BF16_TOL if inner.values == "bfloat16" else REL_TOL
+        check(spmv_matches(y.cpu().numpy(), A, x, rel_tol=tol),
+              f"fuzz lever {name}: the SpMV vs the oracle (rel {tol})")
+        log(f"fuzz lever {name}: {A.num_rows}x{A.num_cols}, {A.nnz} nnz, "
+            f"sup {inner.sup}, step {inner.step_groups}, tb {inner.tb}, "
+            f"{inner.values}, leveled {inner.lam is not None}, "
+            f"{len(plan.plans) if banded else 1} plan(s); OK vs oracle")
+        hold_stack(plan, A, x, dev, f"fuzz lever {name}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2180,6 +2236,7 @@ def main() -> int:
     run(phase_wide, dev, stream)
     run(phase_reorder_ab, dev)
     run(phase_sharded, dev)
+    run(phase_soak, dev)
     check("jax" not in sys.modules, "JAX was imported")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

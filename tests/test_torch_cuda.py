@@ -25,8 +25,12 @@ on 4 shards of one card (``["cuda:0"] * 4``), each path against the
 oracle and the flat path at the row bound; a process group of one (NCCL)
 equals the local mesh bit for bit; an out-of-memory error ends the call
 with ``EXECUTION`` and no other route serves it; ``DeviceBuffer`` and
-``profiling.trace`` run on the card; and K1 launches on its tensors'
-device while another is current (fault F9).
+``profiling.trace`` run on the card; K1 launches on its tensors'
+device while another is current (fault F9); one plan per lever group of
+the fuzz slice (``tpu_spmv_torch.soak.LEVER_CASES``) runs K1-K3 held to the
+plain versions on the CPU under the row bound and to the oracle; and
+PageRank's loop at tolerance 0 reads nothing back inside the loop and
+stops on a NaN residual (fault F10).
 """
 
 import dataclasses
@@ -40,6 +44,7 @@ from tpu_spmv_torch import (  # noqa: E402
     CSRMatrix, DeviceCSR, KernelType, PageRankConfig, SpMVConfig, SpMVError,
     pagerank, spmv_auto_config, spmv_csr)
 from tpu_spmv_torch import kernels as tk  # noqa: E402
+from tpu_spmv_torch import soak  # noqa: E402
 from tpu_spmv_torch.probes import profile_dma_share as p5  # noqa: E402
 from tpu_spmv_torch.probes import profile_kernel as p4  # noqa: E402
 from tpu_spmv_torch.probes import proto_v2 as p1  # noqa: E402
@@ -48,7 +53,7 @@ from tpu_spmv_torch.probes import proto_v4 as p3  # noqa: E402
 from tpu_spmv_torch.kernels import plan as tplan  # noqa: E402
 from tpu_spmv_torch.kernels import reorder as tr  # noqa: E402
 from tpu_spmv_torch.kernels import window_ell as twe  # noqa: E402
-from tpu_spmv_torch.spmv import PatternPlan  # noqa: E402
+from tpu_spmv_torch.spmv import PatternPlan, launches_per_call  # noqa: E402
 from tpu_spmv_torch.utils.testing import (RandomGenerator,  # noqa: E402
                                           abs_row_scale, scrambled_banded_csr,
                                           spmv_matches, transition_matrix,
@@ -1228,3 +1233,81 @@ def test_fold_launches_on_its_tensors_device(cuda_device):
                 plan, torch.from_numpy(x).to(dev)).cpu())
     assert torch.equal(ys[0], ys[1])
     assert spmv_matches(ys[1].numpy(), A, x, rel_tol=ROW_TOL)
+
+
+# ---- the fuzz slice's levers on the card, and F10's loop ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(soak.LEVER_CASES))
+def test_fuzz_lever_plan_on_card_matches_plain(cuda_device, name):
+    """One plan per lever group of the fuzz slice (``t_base``, the step
+    widths, ``spill_beta`` and the balancer, bypass and L2 balance,
+    leveling, pattern, bf16, bands) through K1-K3 on the card, held to the
+    same plan's plain versions on the CPU under the row bound, to the
+    oracle, and to itself across two calls."""
+    A, x, hp = soak.lever_case(name)
+    banded = name == "banded"
+    upload = twe.banded_from_host if banded else twe.plan_from_host
+    run = twe.spmv_banded if banded else twe.spmv_window_ell
+    plan, plan_cpu = upload(hp, cuda_device), upload(hp, "cpu")
+    xd = torch.from_numpy(x).to(cuda_device)
+    tk.reset_launch_counts()
+    y_dev = run(plan, xd)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    values = (plan.plans[0] if banded else plan).values
+    want = launches_per_call(plan)
+    fold = tk.FOLD_VARIANTS[values]
+    assert counts[fold] == want.pop("fold") > 0
+    assert {k: counts[k] for k in want} == want
+    assert torch.equal(run(plan, xd), y_dev)
+    y = y_dev.cpu().numpy()
+    y_ref = run(plan_cpu, torch.from_numpy(x)).numpy()
+    bound = ROW_TOL * np.maximum(abs_row_scale(A, x), 1.0)
+    assert np.all(np.abs(y - y_ref) <= bound)
+    assert spmv_matches(y, A, x, rel_tol=8e-3 if values == "bfloat16"
+                        else ROW_TOL)
+
+
+READ_BACKS = ("item", "tolist", "cpu", "numpy", "__float__", "__int__",
+              "__bool__", "__index__")
+
+
+def count_read_backs(monkeypatch) -> list:
+    """Wrap every ``Tensor`` method that brings a value to the host; the
+    returned list gets one name per call."""
+    calls = []
+    for name in READ_BACKS:
+        real = getattr(torch.Tensor, name)
+
+        def wrapped(self, *args, _real=real, _name=name, **kw):
+            calls.append(_name)
+            return _real(self, *args, **kw)
+
+        monkeypatch.setattr(torch.Tensor, name, wrapped)
+    return calls
+
+
+@pytest.mark.cuda
+def test_pagerank_loop_on_card_reads_back_once_f10(cuda_device, monkeypatch):
+    """At tolerance 0 the stop test stays on the card: one read-back (the
+    count and the residual, after the loop) for 5 iterations and for 40,
+    none inside the loop; and a NaN in the starting ranks stops the loop
+    after its first iteration, as the JAX loop does (F10)."""
+    A = transition_matrix(web_graph_csr(RandomGenerator(1), 2048, 2048, 6))
+    pagerank(A, PageRankConfig(max_iterations=2, tolerance=0.0))   # plan
+    torch.cuda.synchronize()
+    calls = count_read_backs(monkeypatch)
+    for iters in (5, 40):
+        calls.clear()
+        res = pagerank(A, PageRankConfig(max_iterations=iters, tolerance=0.0))
+        assert calls == ["tolist"], (iters, calls)
+        assert res.error_code == 0 and res.iterations == iters
+    monkeypatch.undo()
+    r0 = np.full(2048, 1.0 / 2048, np.float32)
+    r0[5] = np.nan
+    for tol in (0.0, -1.0, 1e-6):
+        res = pagerank(A, PageRankConfig(max_iterations=50, tolerance=tol),
+                       initial_ranks=r0)
+        assert res.iterations == 1 and np.isnan(res.final_residual)
+        assert np.isnan(res.ranks_host()).all()

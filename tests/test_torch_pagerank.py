@@ -262,6 +262,113 @@ def test_ranks_and_iterations_match_jax(absorb_helper, case, tolerance):
     assert abs(res.ranks_host().sum() - 1.0) < 1e-4
 
 
+def nan_case():
+    """Fault F10's case: a web graph's transition matrix and uniform
+    starting ranks with one NaN, so the first residual is NaN."""
+    n = 2048
+    A = transition_matrix(web_graph_csr(RandomGenerator(1), n, n, 6))
+    r0 = np.full(n, 1.0 / n, np.float32)
+    r0[5] = np.nan
+    return A, r0
+
+
+@pytest.mark.parametrize("tolerance", [0.0, -1.0, 1e-6])
+def test_nan_residual_stops_like_jax_f10(absorb_helper, tolerance):
+    """A NaN residual fails ``residual >= tolerance`` at every tolerance, so
+    the loop stops after the iteration that gave it, as the JAX loop does;
+    the port ran all 50 iterations at tolerance 0 and -1 (F10)."""
+    A, r0 = nan_case()
+    cfg = PageRankConfig(max_iterations=50, tolerance=tolerance)
+    res = pagerank(A, cfg, initial_ranks=r0, device=CPU)
+    jres = tpu_spmv.pagerank(to_jax(A), tpu_spmv.PageRankConfig(
+        max_iterations=50, tolerance=tolerance), initial_ranks=r0)
+    assert res.error_code == 0 == jres.error_code
+    assert res.iterations == jres.iterations == 1
+    assert np.isnan(res.final_residual) and np.isnan(jres.final_residual)
+    assert res.converged == jres.converged
+    np.testing.assert_allclose(res.ranks_host(), np.asarray(jres.ranks),
+                               rtol=1e-4, atol=1e-7, equal_nan=True)
+
+
+@pytest.mark.parametrize("tolerance", [0.0, -1.0, 1e-6])
+def test_nan_residual_stops_sharded_like_jax_f10(tolerance):
+    """``pagerank_sharded`` shares the loop: a NaN in the caller's dangling
+    mask makes the first residual NaN, and both packages stop there on a
+    4-shard mesh."""
+    from tpu_spmv.parallel import make_row_mesh as jax_mesh
+    from tpu_spmv.parallel import pagerank_sharded as jax_pagerank_sharded
+    from tpu_spmv.parallel import shard_csr as jax_shard_csr
+
+    from tpu_spmv_torch.pagerank import find_dangling_mask
+    from tpu_spmv_torch.parallel import (make_row_mesh, pagerank_sharded,
+                                         shard_csr)
+
+    A, _ = nan_case()
+    mask = find_dangling_mask(A)
+    mask[5] = np.nan
+    mesh = make_row_mesh(4, devices=[CPU] * 4)
+    res = pagerank_sharded(shard_csr(A, mesh), mask, PageRankConfig(
+        max_iterations=50, tolerance=tolerance), mesh)
+    jm = jax_mesh(4)
+    jres = jax_pagerank_sharded(jax_shard_csr(to_jax(A), jm), mask,
+                                tpu_spmv.PageRankConfig(
+                                    max_iterations=50, tolerance=tolerance),
+                                jm)
+    assert res.iterations == jres.iterations == 1
+    assert np.isnan(res.final_residual) and np.isnan(jres.final_residual)
+    np.testing.assert_allclose(res.ranks_host(), np.asarray(jres.ranks),
+                               rtol=1e-4, atol=1e-7, equal_nan=True)
+
+
+def test_device_loop_counts_and_keeps_the_stopping_iteration():
+    """At tolerance 0 the stop test runs on the device: a loop that the
+    NaN stops after 1 of 50 iterations gives that iteration's ranks, not
+    a later one's, and a loop with no NaN runs every iteration."""
+    from tpu_spmv_torch.pagerank import _iterate
+
+    n = 4
+    mask = torch.zeros(n)
+    calls = []
+
+    def spmv(r):
+        calls.append(r.clone())
+        return torch.full((n,), float("nan")) if len(calls) == 1 \
+            else torch.zeros(n)
+
+    r0 = torch.full((n,), 0.25)
+    it, ranks, residual = _iterate(spmv, mask, r0, n, 0.85, 0.0, 50)
+    assert it == 1 and np.isnan(residual) and len(calls) == 50
+    assert torch.isnan(ranks).all()
+    it, ranks, residual = _iterate(lambda r: r, mask, r0, n, 0.85, 0.0, 7)
+    assert it == 7 and residual == 0.0
+    assert torch.allclose(ranks, torch.full((n,), 0.25))
+
+
+@pytest.mark.parametrize("iterations", [5, 40])
+def test_device_loop_reads_back_once(monkeypatch, iterations):
+    """At tolerance 0 the loop brings nothing to the host until it ends:
+    one read-back (the count and the residual) whatever the iterations."""
+    from tpu_spmv_torch.pagerank import _iterate
+
+    calls = []
+    for name in ("item", "tolist", "cpu", "numpy", "__float__", "__int__",
+                 "__bool__", "__index__"):
+        real = getattr(torch.Tensor, name)
+
+        def wrapped(self, *args, _real=real, _name=name, **kw):
+            calls.append(_name)
+            return _real(self, *args, **kw)
+
+        monkeypatch.setattr(torch.Tensor, name, wrapped)
+    n = 64
+    M = torch.from_numpy(dense_of(column_normalized(
+        np.random.default_rng(2), n, 8 * n)))
+    it, ranks, residual = _iterate(lambda r: M @ r, torch.zeros(n),
+                                   torch.full((n,), 1.0 / n), n, 0.85, 0.0,
+                                   iterations)
+    assert calls == ["tolist"] and it == iterations
+
+
 def test_pagerank_keeps_the_requested_device_cpu():
     A = column_normalized(np.random.default_rng(5), 300, 2400)
     res = pagerank(A, PageRankConfig(max_iterations=3, tolerance=0.0),

@@ -91,6 +91,8 @@ from .pagerank import (
     pagerank_top_k,
 )
 
+__version__ = "0.3.0"  # the JAX package's version
+
 __all__ = [
     "SpMVError", "SpMVException", "DeviceException", "FileIOError",
     "InvalidArgumentError", "InvalidDimensionError", "InvalidFormatError",

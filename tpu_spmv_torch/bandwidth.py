@@ -7,7 +7,7 @@
 * The peak comes from the device's own attributes, memory clock × bus width
   × 2, as the CUDA reference's ``get_gpu_peak_bandwidth`` computes it
   (``bandwidth.cpp:7-20``), read with ``cudaDeviceGetAttribute`` through
-  ctypes on the CUDA runtime.
+  ctypes on the CUDA runtime, unless ``TPU_SPMV_PEAK_GBS`` names it.
 * STREAM is measured on the device with the JAX package's 256 MB
   read-reduce (``bandwidth.py:80-100``).
 """
@@ -53,8 +53,13 @@ def _cudart() -> ctypes.CDLL:
 
 
 def get_gpu_peak_bandwidth(device: int = 0) -> float:
-    """Theoretical peak device-memory bandwidth in GB/s: memory clock (kHz)
-    × 1e3 × bus width (bits) / 8 × 2 (double data rate) / 1e9."""
+    """Theoretical peak device-memory bandwidth in GB/s: the
+    ``TPU_SPMV_PEAK_GBS`` override where it is set (as the JAX package
+    reads it first), else memory clock (kHz) × 1e3 × bus width (bits) / 8 ×
+    2 (double data rate) / 1e9 from the device's attributes."""
+    env = os.environ.get("TPU_SPMV_PEAK_GBS")
+    if env:
+        return float(env)
     torch.cuda.init()
     lib = _cudart()
     fn = lib.cudaDeviceGetAttribute

@@ -202,7 +202,7 @@ class CSRMatrix:
         import torch
 
         key = ("_device", str(torch.device(device)))
-        if key not in self._plan_cache:
+        if key not in self._plan_cache or self._plan_cache[key].deleted:
             self._plan_cache[key] = DeviceCSR.from_host(self, device)
         return self._plan_cache[key]
 
@@ -261,6 +261,18 @@ class DeviceCSR:
         """Bytes the flat SpMV moves at least: values and column indices,
         the gathered x, the row pointers and y, 4 B each."""
         return 4.0 * (3 * self.nnz + 2 * self.num_rows + 1)
+
+    def delete(self) -> None:
+        """Drop the device tensors (the JAX ``DeviceCSR.delete``): their
+        memory goes back to the allocator once nothing else holds them,
+        and the form is empty; a host matrix that cached it uploads
+        again on its next :meth:`CSRMatrix.to_device`."""
+        for name in ("values", "col_indices", "row_ptrs"):
+            object.__setattr__(self, name, None)
+
+    @property
+    def deleted(self) -> bool:
+        return self.values is None
 
     @staticmethod
     def from_host(mat: CSRMatrix, device="cuda") -> "DeviceCSR":

@@ -202,7 +202,7 @@ class ELLMatrix:
         import torch
 
         key = ("_device", str(torch.device(device)))
-        if key not in self._plan_cache:
+        if key not in self._plan_cache or self._plan_cache[key].deleted:
             self._plan_cache[key] = DeviceELL.from_host(self, device)
         self._device_cache = self._plan_cache[key]
         return self._device_cache
@@ -259,6 +259,18 @@ class DeviceELL:
         4 B each."""
         return 4.0 * (2 * self.values.numel() + self.num_cols
                       + self.num_rows)
+
+    def delete(self) -> None:
+        """Drop the device tensors (the JAX ``DeviceELL.delete``): their
+        memory goes back to the allocator once nothing else holds them,
+        and the form is empty; a host matrix that cached it uploads
+        again on its next :meth:`ELLMatrix.to_device`."""
+        for name in ("values", "col_indices"):
+            object.__setattr__(self, name, None)
+
+    @property
+    def deleted(self) -> bool:
+        return self.values is None
 
     @staticmethod
     def from_host(mat: ELLMatrix, device="cuda") -> "DeviceELL":

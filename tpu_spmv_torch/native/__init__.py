@@ -81,6 +81,12 @@ def _library():
         return None
 
 
+def available() -> bool:
+    """Whether the library is loaded (building it on the first call);
+    false where ``TPU_SPMV_NO_NATIVE`` is set, as :func:`require` sees it."""
+    return not os.environ.get("TPU_SPMV_NO_NATIVE") and _library() is not None
+
+
 def require() -> None:
     """Raise unless the library is loaded (the main path calls this so a
     failed build cannot silently degrade plans to unbalanced ones)."""

@@ -8,8 +8,9 @@ Each iteration is
 with the SpMV through :func:`~tpu_spmv_torch.spmv.spmv_csr`'s dispatch and
 the dangling dot, the update and the L2 residual as torch ops on the same
 device (the SpMV through any plan the dispatch serves: a single, banded or
-composite plan, its pattern form, or the flat path); only the residual (one scalar per iteration, for the stop test) and
-the final ranks come back.  Column-normalised transition matrices factor as
+composite plan, its pattern form, or the flat path); only the residual (one
+scalar per iteration, for a positive tolerance's stop test) and the final
+ranks come back.  Column-normalised transition matrices factor as
 ``B·diag(1/outdeg)``, so the dispatch runs them on the pattern fast path
 (``SpMVConfig(pattern=True)``: a pattern plan over pre-scaled ranks, no value
 stream).
@@ -17,9 +18,9 @@ stream).
 Semantics kept from the JAX package and the reference:
 
 * dangling nodes are the columns with zero column sum, found once up front;
-* the loop stops at the first iteration whose residual is below the
-  tolerance, or after ``max_iterations``; the returned ranks are that
-  iteration's ``r_new``, renormalised to sum 1;
+* the loop stops at the first iteration whose residual is not at least the
+  tolerance (below it, or NaN), or after ``max_iterations``; the returned
+  ranks are that iteration's ``r_new``, renormalised to sum 1;
 * ``pagerank_top_k`` gives the ranks in descending order (``torch.topk``);
 * ``pagerank_save_state``/``pagerank_load_state`` write and read the JAX
   package's ``.npz`` keys, so each package reads the other's files.
@@ -101,22 +102,43 @@ def _iterate(spmv, mask: torch.Tensor, r: torch.Tensor, n: int,
              damping: float, tolerance: float,
              max_iterations: int) -> tuple:
     """The power iteration from ``r``, ``spmv(r)`` giving ``A @ r`` (``n``
-    values): ``(iterations, ranks, residual)``, the ranks renormalised.  With ``tolerance > 0`` the residual is read
-    back once per iteration for the stop test (``not residual >= tol``,
-    the JAX loop's condition, so a NaN residual stops it too); with
-    ``tolerance <= 0`` no residual can fall below it, and the loop runs
-    ``max_iterations`` without a read-back."""
+    values): ``(iterations, ranks, residual)``, the ranks renormalised.  It
+    stops as the JAX loop does, at the first iteration whose residual fails
+    ``residual >= tolerance`` (a NaN residual too), that iteration counted.
+
+    With ``tolerance > 0`` the residual is read back once per iteration for
+    the stop test, so the loop ends early.  With ``tolerance <= 0`` only a
+    NaN residual stops it, and the test stays on the device: the loop runs
+    ``max_iterations`` steps, and a flag taken from the previous step's
+    residual (the JAX ``cond`` before ``body``) keeps ``r``, the residual
+    and the count once it is false; the count and the residual are read
+    back once, after the loop."""
     inv_n = 1.0 / n
     residual = torch.tensor(float("inf"), device=r.device)
-    it = 0
-    while it < max_iterations:
+
+    def step(r):
         r_new = damping * spmv(r) \
             + damping * torch.dot(mask, r) * inv_n + (1.0 - damping) * inv_n
-        residual = torch.linalg.vector_norm(r_new - r)
-        r = r_new
-        it += 1
-        if tolerance > 0 and not float(residual) >= tolerance:
-            break
+        return r_new, torch.linalg.vector_norm(r_new - r)
+
+    if tolerance > 0:
+        it = 0
+        while it < max_iterations:
+            r, residual = step(r)
+            it += 1
+            if not float(residual) >= tolerance:
+                break
+    else:
+        count = torch.zeros((), dtype=torch.int32, device=r.device)
+        for _ in range(max_iterations):
+            going = residual >= tolerance
+            r_new, res_new = step(r)
+            r = torch.where(going, r_new, r)
+            residual = torch.where(going, res_new, residual)
+            count += going
+        it, residual = torch.stack(
+            [count.double(), residual.double()]).tolist()
+        it = int(it)
     total = r.sum()
     ranks = torch.where(total > 0.0, r / total, r)
     return it, ranks, float(residual)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 DEFAULT_SEED = 42
+DEFAULT_TOL = 1e-6
 
 
 class RandomGenerator:
@@ -195,6 +196,40 @@ def stencil_csr(g: int):
     rp = np.zeros(N + 1, np.int32)
     np.cumsum(np.bincount(ra, minlength=N), out=rp[1:])
     return CSRMatrix(N, N, va[o], ca[o].astype(np.int32), rp)
+
+
+def generate_random_dense_matrix(rng: RandomGenerator, rows: int, cols: int,
+                                 density: float = 0.1) -> np.ndarray:
+    return rng.dense_matrix(rows, cols, density)
+
+
+def generate_random_vector(rng: RandomGenerator, n: int) -> np.ndarray:
+    return rng.vector(n)
+
+
+def generate_random_csr(rng: RandomGenerator, rows: int, cols: int,
+                        density: float = 0.1):
+    return rng.csr(rows, cols, density)
+
+
+def float_arrays_equal(a, b, tol: float = DEFAULT_TOL) -> bool:
+    """Combined absolute and relative comparison (reference
+    ``floatArraysEqual``, ``test_utils.h:61-71``): per element ``|a-b| <=
+    tol`` or ``|a-b| <= tol * max(|a|, |b|)``."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    if a.shape != b.shape:
+        return False
+    diff = np.abs(a - b)
+    scale = np.maximum(np.abs(a), np.abs(b))
+    return bool(np.all((diff <= tol) | (diff <= tol * scale)))
+
+
+def int_arrays_equal(a, b) -> bool:
+    """Reference ``intArraysEqual`` (``test_utils.h:74-79``)."""
+    a = np.asarray(a)
+    b = np.asarray(b)
+    return a.shape == b.shape and bool(np.all(a == b))
 
 
 def abs_row_scale(csr, x) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Time one cell of ``chip_smoke.py`` in two checkouts of this repo, in
 turns, on one NVIDIA GPU.
 
-    python3 chip_ab.py [--cell pagerank|kernels] BEFORE AFTER
+    python3 chip_ab.py [--cell pagerank|kernels|probes] BEFORE AFTER
 
 ``BEFORE`` and ``AFTER`` are the roots of two checkouts (say the parent
 commit, unpacked with ``git archive``, and this tree).  Processes run in
@@ -108,7 +108,25 @@ out = {"spmv_us": res.elapsed_ms * 1e3}
 out.update({name + "_us": recs[0]["ms"] * 1e3 for name, recs in held.items()})
 print(json.dumps(out))
 """
-CELLS = {"pagerank": PAGERANK, "kernels": KERNELS}
+PROBES = r"""
+import json
+import torch
+from tpu_spmv_torch.probes import proto_v3 as p2, proto_v4 as p3
+from tpu_spmv_torch.timing import time_cuda
+PROBE_CALLS = 100
+out = {}
+cases = [(p3, p3.MAIN_MODES, m) for m in p3.MAIN_MODES] + [
+    (p2, ("w128",), "w128")]
+for mod, modes, mode in cases:
+    inp = mod.make_inputs(device="cuda", modes=modes)[mode]
+    y = mod.probe(inp)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()), mode
+    out[mode + "_ms"] = time_cuda(lambda: mod.probe(inp), iters=PROBE_CALLS,
+                                  samples=3) * 1e3
+print(json.dumps(out))
+"""
+CELLS = {"pagerank": PAGERANK, "kernels": KERNELS, "probes": PROBES}
 
 
 def turn(tree: str, cell: str) -> dict:

@@ -27,13 +27,15 @@ Phases (each raises on failure; nothing is caught and passed over):
    the round-2 inner-loop candidates, its table-in-output modes defined on
    head rows seeded with x2d):
    every mode of each probe's kernel against its plain version at a reduced
-   size (fp32 sums in another order, and in P2 and P3 atomic adds in no
-   fixed order: ``|Δ| <= 1e-5 * (|ref| + max|ref|)``), S = 24 refused by
-   P1, P2 and P3 (``ValueError``); then the probes' entry point, each probe's
+   size (fp32 sums in another order, and in P1 and P2 atomic adds in no
+   fixed order: ``|Δ| <= 1e-5 * (|ref| + max|ref|)``; P3's modes and P2's
+   ``w128``, run-ordered, bit for bit against their plain versions and
+   their CPU twins, and twice bit-identical), S = 24 refused by P1, P2 and
+   P3 (``ValueError``); then the probes' entry point, each probe's
    ``time_modes`` at its JAX main's default size (P4 at S = 128 only),
    printing the JAX scripts' lines under the physics guard, with the launch
-   counts from 0; then each mode against its plain version at that size,
-   timed beside it.
+   counts from 0; then each mode against its plain version (and CPU twin)
+   at that size, timed beside it, with its share of the bound.
 6. The main path at the headline size: merge-path ``spmv_csr`` on
    ``power_law_csr(262144, 4096, avg 40, alpha 1.6)`` (about 10.3M nnz)
    with the auto-selected configuration, checked against the CPU oracle,
@@ -966,6 +968,33 @@ def hold_probe(name: str, mod, inp, what: str) -> float:
     return float(diff.max())
 
 
+def hold_tiles(name: str, mod, inp, cpu, what: str) -> float:
+    """A run-ordered probe mode (P3's, P2's w128): two calls of its kernel
+    bit-identical, and equal bit for bit to the plain version
+    (``probe_plain``) and to the CPU twin that follows the kernel's schedule
+    (``probe_schedule``), both on ``cpu``, the same inputs made on the CPU;
+    returns max|Δ| (0)."""
+    import torch
+
+    got, again = mod.probe(inp), mod.probe(inp)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again),
+          f"probe {name} {inp.mode}: two calls differ ({what})")
+    got = got.cpu()
+    ref = mod.probe_plain(cpu)
+    check(torch.equal(got, ref),
+          f"probe {name} {inp.mode} vs plain, bit for bit ({what})")
+    check(torch.equal(got, mod.probe_schedule(cpu)),
+          f"probe {name} {inp.mode} vs its CPU twin, bit for bit ({what})")
+    return float((got - ref).abs().max())
+
+
+def run_ordered(inp) -> bool:
+    """Whether a probe mode adds its runs in run order (bit for bit): its
+    inputs carry a run index."""
+    return getattr(inp, "index", None) is not None
+
+
 def phase_probes(dev, stream: float) -> list:
     """Phase 5.  Returns a ``kernels`` record per probe: the largest error
     of every check, and as ``ms``, ``plain_ms`` and ``bound_ms`` the sums
@@ -985,8 +1014,11 @@ def phase_probes(dev, stream: float) -> list:
     for name, kw in PROBE_SMALL.items():
         mod = mods[name]
         small = mod.make_inputs(**kw, device=dev, modes=mod.MODES)
-        for inp in small.values():
-            err = hold_probe(name, mod, inp, "reduced")
+        cpu = mod.make_inputs(**kw, modes=mod.MODES)
+        for mode, inp in small.items():
+            err = hold_tiles(name, mod, inp, cpu[mode], "reduced") \
+                if run_ordered(inp) \
+                else hold_probe(name, mod, inp, "reduced")
             errs[name] = max(errs[name], err)
     for name in ("proto_v2", "proto_v3", "proto_v4"):
         try:
@@ -997,7 +1029,9 @@ def phase_probes(dev, stream: float) -> list:
         check(refused, f"probe {name}: S=24 was not refused")
     log(f"  probes vs plain, every mode at reduced sizes: max|Δ| "
         + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
-        + "; S=24 refused by proto_v2, proto_v3 and proto_v4")
+        + "; S=24 refused by proto_v2, proto_v3 and proto_v4; P3's modes "
+        "and P2's w128 bit for bit against their plain versions and CPU "
+        "twins, two calls bit-identical")
 
     # the probes' entry point at the JAX mains' sizes: counts from 0
     inputs = {name: mod.make_inputs(device=dev,
@@ -1015,22 +1049,30 @@ def phase_probes(dev, stream: float) -> list:
     log(f"probe launches: {counts}")
     check(all(counts[n] > 0 for n in mods), "a probe kernel was not launched")
 
-    # each mode against its plain version at that size, timed beside it
+    # each mode against its plain version at that size, timed beside it;
+    # the run-ordered modes bit for bit, and against their CPU twins
     records = []
     for name, mod in mods.items():
         ms = plain_ms = nbytes = ops = 0.0
         # a mode the main lists twice (P4's +scatter8, P1's three) keeps its
         # first time
         kernel_ms = {r["mode"]: r["ms"] for r in reversed(timed[name])}
-        for mode in dict.fromkeys(mod.MAIN_MODES):
+        modes = tuple(dict.fromkeys(mod.MAIN_MODES))
+        cpu = mod.make_inputs(modes=modes) \
+            if any(run_ordered(inputs[name][m]) for m in modes) else {}
+        for mode in modes:
             inp = inputs[name][mode]
-            err = hold_probe(name, mod, inp, "default size")
+            err = hold_tiles(name, mod, inp, cpu[mode], "default size") \
+                if run_ordered(inp) \
+                else hold_probe(name, mod, inp, "default size")
             errs[name] = max(errs[name], err)
             p_ms = time_cuda(lambda: mod.probe_plain(inp), iters=2, samples=1,
                              warmup=1) * 1e3
             b_ms, _ = bound(inp.nbytes, 2.0 * inp.vals.numel(), stream)
             log(f"  {name} {mode}: kernel {kernel_ms[mode]:.3f} ms, plain "
-                f"{p_ms:.3f} ms, bound {b_ms:.3f} ms, max|Δ| {err:.3g}")
+                f"{p_ms:.3f} ms, bound {b_ms:.3f} ms, "
+                f"{b_ms / kernel_ms[mode]:.0%} of the bound, max|Δ| "
+                f"{err:.3g}")
             ms += kernel_ms[mode]
             plain_ms += p_ms
             nbytes += inp.nbytes
@@ -1038,6 +1080,7 @@ def phase_probes(dev, stream: float) -> list:
         records.append(record(name, *PROBE_SOURCES[name], counts[name],
                               errs[name], ms, plain_ms, nbytes, ops, None,
                               stream))
+        del cpu
     del inputs
     log(f"probes phase {time.perf_counter() - t0:.1f} s")
     return records

@@ -18,8 +18,11 @@ set-up (K3) move values without arithmetic and must match exactly, and a
 reordered SpMV must equal the old composition of two permutes around the
 inner SpMV bit for bit.
 The benchmark probes' kernels are held to ``rtol=1e-5`` with
-``atol = 1e-5 * max|ref|``: fp32 sums in another order, and in P1, P2 and
-P3 atomic adds in no fixed order.  PageRank on the card is held to a float64
+``atol = 1e-5 * max|ref|``: fp32 sums in another order, and in P1 and P2
+atomic adds in no fixed order.  P3's modes and P2's ``w128`` add each
+output element's runs in run order, as the CPU plain version
+(``index_add_``) does, so they equal it bit for bit, at every tiling, and
+two calls are bit-identical.  PageRank on the card is held to a float64
 power iteration at ``rtol=1e-4, atol=1e-7``.  The multi-device layer runs
 on 4 shards of one card (``["cuda:0"] * 4``), each path against the
 oracle and the flat path at the row bound; a process group of one (NCCL)
@@ -642,6 +645,27 @@ def test_probe_kernel_matches_plain(cuda_device, mod, kw, mode):
     ref = mod.probe_plain(inp)
     torch.testing.assert_close(got, ref, rtol=1e-5,
                                atol=1e-5 * float(ref.abs().max()))
+
+
+# the run-ordered probe modes: P3's and P2's w128
+TILE_MODES = [pytest.param(p3, mode, id=f"proto_v4-{mode}")
+              for mode in p3.MAIN_MODES] + [
+    pytest.param(p2, "w128", id="proto_v3-w128")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", ["reduced", "default"])
+@pytest.mark.parametrize("mod, mode", TILE_MODES)
+def test_probe_tiles_equal_plain_bit_for_bit(cuda_device, mod, mode, size):
+    """The owner-computes kernels against the CPU plain version, bit for
+    bit, at the reduced and the JAX mains' sizes; two calls bit-identical."""
+    kw = dict(PROBES)[mod] if size == "reduced" else {}
+    ref = mod.probe_plain(mod.make_inputs(**kw, modes=(mode,))[mode])
+    inp = mod.make_inputs(**kw, modes=(mode,), device=cuda_device)[mode]
+    got, again = mod.probe(inp), mod.probe(inp)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

@@ -323,6 +323,28 @@ class TestBalancedSharding:
         init_distributed()  # must not raise or try to reach a coordinator
         assert not torch.distributed.is_initialized()
 
+    def test_init_distributed_without_a_card_raises(self, monkeypatch):
+        """With cluster variables set, no card and no backend named, the
+        call raises before it forms a group: a run never moves to gloo on
+        the CPU unasked (fault F11)."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        formed = []
+        monkeypatch.setattr(torch.distributed, "init_process_group",
+                            lambda *a, **k: formed.append((a, k)))
+        monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+        monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        monkeypatch.setenv("RANK", "0")
+        for args in ((), ("127.0.0.1:1", 2, 0)):
+            with pytest.raises(DeviceAllocError, match="gloo"):
+                init_distributed(*args)
+        with pytest.raises(DeviceAllocError):
+            init_distributed("127.0.0.1:1", 2, 0, backend="nccl")
+        assert formed == [] and not torch.distributed.is_initialized()
+        init_distributed("127.0.0.1:1", 2, 0, backend="gloo")
+        assert formed == [((("gloo",), {"init_method": "tcp://127.0.0.1:1",
+                                         "world_size": 2, "rank": 0}))]
+
 
 class TestRingSharded:
     def test_ring_matches_oracle(self):
@@ -530,7 +552,7 @@ def _gloo_rank(rank: int, world: int, port: int) -> None:
     import torch.distributed as dist
 
     tdist.build = functools.partial(tplan.build, step_groups=STEP)
-    init_distributed(f"127.0.0.1:{port}", world, rank)
+    init_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo")
     try:
         mesh, local = make_row_mesh(), cpu_mesh(world)
         assert mesh.group is not None and mesh.local == (rank,)

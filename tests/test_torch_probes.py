@@ -28,6 +28,7 @@ its ``main()`` at the default sizes, and holds the arrays it would have timed
 bit for bit equal to the port's ``make_inputs``.
 """
 
+import dataclasses
 import functools
 import importlib.util
 import os
@@ -49,6 +50,7 @@ from tpu_spmv_torch.probes import profile_kernel as p4  # noqa: E402
 from tpu_spmv_torch.probes import proto_v2 as p1  # noqa: E402
 from tpu_spmv_torch.probes import proto_v3 as p2  # noqa: E402
 from tpu_spmv_torch.probes import proto_v4 as p3  # noqa: E402
+from tpu_spmv_torch.probes.common import run_index  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-5
@@ -282,6 +284,142 @@ def test_proto_v4_matches_jax(interpret, mode):
     assert got.shape == ref.shape == (out8, 128)
     assert np.any(ref != 0)
     assert_close(got, ref)
+
+
+# ---- the run index and the kernel's order (P3, and P2's w128) ----
+
+P3_SMALL = dict(n_steps=4, S=32, out8=1024)
+P2_SMALL = dict(n_steps=4, S=32, out8=512)
+
+
+def overlaps(inp) -> list:
+    """Per band of ``inp.index``, the runs whose output rows touch it, in
+    run order, found by walking every (band, run) pair."""
+    unit, span = (128, 128) if inp.mode in ("msum128", "w128") \
+        else (8, inp.n_out * 8)
+    rows = inp.index.band_rows
+    base = inp.base.tolist()
+    return [[r for r, b0 in enumerate(base)
+             if b0 * unit < (b + 1) * rows and b0 * unit + span > b * rows]
+            for b in range(inp.index.n_bands)]
+
+
+def assert_index_lists_overlaps(inp):
+    idx = inp.index
+    assert idx.n_bands == -(-inp.out8 // idx.band_rows)
+    assert [idx.band(b) for b in range(idx.n_bands)] == overlaps(inp)
+
+
+def assert_schedule_is_plain(mod, inp):
+    assert_bit_equal(mod.probe_plain(inp).numpy(), mod.probe_schedule(inp))
+
+
+@pytest.mark.parametrize("size", ["reduced", "main"])
+@pytest.mark.parametrize("mode", [*p3.MAIN_MODES, "w128"])
+def test_run_index_lists_every_overlap_once_in_run_order(mode, size):
+    if mode == "w128":
+        kw = P2_SMALL if size == "reduced" else {}
+        inps = [p2.make_inputs(**kw, modes=(mode,))[mode]]
+    else:
+        kw = P3_SMALL if size == "reduced" else {}
+        inps = [p3.make_inputs(**kw, modes=(mode,))[mode]]
+    for inp in inps:
+        assert_index_lists_overlaps(inp)
+        runs = inp.index.runs.tolist()
+        if mode in ("msum128", "w128"):     # one block a run
+            assert sorted(runs) == list(range(inp.n_groups // 8))
+
+
+@pytest.mark.parametrize("mode", [*p3.MAIN_MODES, "w128"])
+def test_schedule_twin_equals_plain_bit_for_bit(mode):
+    mod, kw = (p2, P2_SMALL) if mode == "w128" else (p3, P3_SMALL)
+    assert_schedule_is_plain(mod, mod.make_inputs(**kw, modes=(mode,))[mode])
+
+
+@pytest.mark.parametrize("mode", [*p3.MAIN_MODES, "w128"])
+def test_schedule_twin_equals_plain_at_main_size(mode):
+    mod = p2 if mode == "w128" else p3
+    inp = mod.make_inputs(modes=(mode,))[mode]
+    assert_schedule_is_plain(mod, inp)
+
+
+@pytest.mark.parametrize("mode", [*p3.MAIN_MODES, "w128"])
+def test_schedule_twin_matches_jax(interpret, mode):
+    if mode == "w128":
+        inp = p2.make_inputs(**P2_SMALL, modes=(mode,))[mode]
+        ref = interpret("proto_v3").build(4, 32, 512, p2.COLS8, mode)(
+            *arrays(inp, P2_ARGS))
+        got = p2.probe_schedule(inp)
+    else:
+        inp = p3.make_inputs(**P3_SMALL, modes=(mode,))[mode]
+        ref = interpret("proto_v4").build(4, 32, 1024, p3.COLS8, mode,
+                                          inp.n_out)(*arrays(inp, P3_ARGS))
+        got = p3.probe_schedule(inp)
+    ref = np.asarray(ref)
+    assert np.any(ref != 0)
+    assert_close(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("mode", [*p3.MAIN_MODES, "w128"])
+def test_a_dropped_run_fails_the_index_and_twin_checks(mode):
+    """Mutation: one run left out of one band's list.  The overlap check
+    and the twin's bit-for-bit check both catch it."""
+    mod = p2 if mode == "w128" else p3
+    kw = P2_SMALL if mode == "w128" else P3_SMALL
+    inp = mod.make_inputs(**kw, modes=(mode,))[mode]
+    idx = inp.index
+    ptr, runs = idx.ptr.clone(), idx.runs.tolist()
+    b = int(torch.argmax(ptr[1:] - ptr[:-1]))   # a band with runs
+    del runs[int(ptr[b])]
+    ptr[b + 1:] -= 1
+    bad = dataclasses.replace(inp, index=dataclasses.replace(
+        idx, ptr=ptr, runs=torch.tensor(runs, dtype=torch.int32)))
+    with pytest.raises(AssertionError):
+        assert_index_lists_overlaps(bad)
+    with pytest.raises(AssertionError):
+        assert_schedule_is_plain(mod, bad)
+    assert_index_lists_overlaps(inp)
+    assert_schedule_is_plain(mod, inp)
+
+
+def test_products_pass_where_a_run_spans_two_bands():
+    """sg64 computes its products in a pass of their own where a run's
+    8*N rows cover two bands or more; msum128 takes no products pass."""
+    inps = p3.make_inputs(**P3_SMALL)
+    rows = inps["sg64_8"].index.band_rows
+    for mode, inp in inps.items():
+        spans = mode != "msum128" and inp.n_out * 8 >= 2 * rows
+        assert inp.products_first == spans, mode
+    assert [inps[m].products_first for m in p3.MAIN_MODES] == [
+        False, True, True, False]
+
+
+def test_bad_run_index_raises():
+    inp = p3.make_inputs(**P3_SMALL, modes=("sg64_8",))["sg64_8"]
+    idx = inp.index
+    for bad, match in (
+            (dataclasses.replace(idx, runs=idx.runs + 1000), "index.runs"),
+            (dataclasses.replace(idx, ptr=idx.ptr.flip(0).contiguous()),
+             "index.ptr"),
+            (dataclasses.replace(idx, ptr=idx.ptr[:-1].contiguous()),
+             "index.ptr"),
+            (dataclasses.replace(idx, max_runs=idx.max_runs - 1),
+             "max_runs")):
+        with pytest.raises(ValueError, match=match):
+            dataclasses.replace(inp, index=bad)
+    for rows in (32, 128):   # the kernel's bands are 64 rows
+        with pytest.raises(ValueError, match="bands of"):
+            dataclasses.replace(inp, index=run_index(
+                inp.base, 8, inp.n_out * 8, inp.out8, rows))
+    m = p3.make_inputs(**P3_SMALL, modes=("msum128",))["msum128"]
+    with pytest.raises(ValueError, match="bands of"):
+        dataclasses.replace(m, index=run_index(m.base, 128, 128, m.out8, 64))
+    buf = torch.zeros(inp.lo.numel() + 1, dtype=torch.int8)
+    with pytest.raises(ValueError, match="aligned"):
+        dataclasses.replace(inp, lo=buf[1:].view(inp.lo.shape))
+    with pytest.raises(ValueError, match="no run index"):
+        r = p2.make_inputs(**P2_SMALL, modes=("w128", "base"))
+        dataclasses.replace(r["base"], index=r["w128"].index)
 
 
 # ---- P5: profile_dma_share ----

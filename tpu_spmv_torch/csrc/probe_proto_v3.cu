@@ -20,13 +20,16 @@
 //            (masked_sum_wide, shared with P3's msum128)
 //
 // The Pallas output is resident for the whole grid and runs of different
-// steps add into the same rows.  Here one CTA takes one run (one thread per
-// lane, the 8 sums in registers), and its adds into the 1 MB output, which
-// stays in L2, are atomic: red.global.add.f32 is the card's counterpart of
-// the VMEM read-modify-write.  The sum order of a row therefore changes
-// from run to run (the system kernels keep to no atomics and a fixed order;
-// a probe measures a cost and needs neither).  Bound: 6 B/slot of slot
-// streams plus 8 atomic adds per lane per run (128 for w128).
+// steps add into the same rows.  w128 keeps that order on the card: it runs
+// masked_sum_wide (probe_common.cuh), owner-computes tiles that add the
+// runs in run order with plain stores, bit-identical from call to call.
+// The other modes take one run a CTA (one thread per lane, the 8 sums in
+// registers), and their adds into the 1 MB output, which stays in L2, are
+// atomic: red.global.add.f32 is the card's counterpart of the VMEM
+// read-modify-write.  Their sum order therefore changes from run to run (a
+// probe measures a cost and needs no fixed order; these modes reach half of
+// their bound and were left as they were).  Bound: 6 B/slot of slot streams
+// plus 8 atomic adds per lane per run.
 
 #include "probe_common.cuh"
 
@@ -40,6 +43,7 @@ enum Mode : int {
   kSgather = 4,
   kW128 = 5,
 };
+constexpr int kW128Lanes = 16;   // w128's tiles: lanes of a 128-row block
 
 template <int MODE>
 __global__ void __launch_bounds__(kLane)
@@ -108,12 +112,18 @@ cudaError_t launch_run(int n_runs, int S, cudaStream_t stream,
 }  // namespace
 
 // One probe call over n_runs runs of 8 groups (S groups per step, used by
-// mrg's layout), adding into `out`, which the wrapper zeroes.  mode: 0 base,
-// 1 nib, 2 mrg, 3 ind8/ind8u, 4 sgather, 5 w128.  Returns the CUDA error of
-// the launch (0 = launched); launches on `stream`, does not synchronize.
+// mrg's layout).  mode: 0 base, 1 nib, 2 mrg, 3 ind8/ind8u, 4 sgather add
+// into `out`, which the wrapper zeroes; 5 w128 writes every one of its
+// out_rows rows, through the run index (band_ptr: n_bands + 1 offsets into
+// band_runs, one band per 128-row block; max_runs, the most runs of a
+// block) in tiles of 16 lanes, and reads no base.  Returns the CUDA error
+// of the launch (0 = launched); launches on `stream`, does not
+// synchronize.
 extern "C" int tsp_probe_proto_v3(const void* x2d, const void* vals,
                                   const void* lo, const void* sb,
                                   const void* wg, const void* base,
+                                  const void* band_ptr, const void* band_runs,
+                                  int n_bands, int max_runs, int out_rows,
                                   int n_runs, int S, int mode, void* out,
                                   void* stream) {
   if (n_runs <= 0) return 0;
@@ -143,7 +153,10 @@ extern "C" int tsp_probe_proto_v3(const void* x2d, const void* vals,
       err = launch_run<kSgather>(n_runs, S, st, x, v, lo8, sb8, wg32, b32, o);
       break;
     case kW128:
-      err = launch_masked_sum_wide(n_runs, st, x, v, lo8, sb8, wg32, b32, o);
+      err = launch_masked_sum_wide<kW128Lanes>(
+          n_bands, max_runs, n_runs, st, x, v, lo8, sb8, wg32,
+          static_cast<const int32_t*>(band_ptr),
+          static_cast<const int32_t*>(band_runs), out_rows, o);
       break;
     default:
       break;

@@ -157,9 +157,10 @@ def kernels() -> ctypes.CDLL:
     lib.tsp_probe_profile_kernel.argtypes = [
         _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
     lib.tsp_probe_proto_v3.argtypes = [
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]
     lib.tsp_probe_proto_v4.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+        _P]
     lib.tsp_probe_dma_share.argtypes = [
         _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
     for fn in (lib.tsp_probe_proto_v2, lib.tsp_probe_profile_kernel,

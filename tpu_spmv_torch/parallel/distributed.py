@@ -63,11 +63,17 @@ RING_SUP = 1024
 
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
-                     process_id: int | None = None) -> None:
+                     process_id: int | None = None,
+                     backend: str | None = None) -> None:
     """Join this process to a process group, so that :func:`make_row_mesh`
     gives one shard per rank (the JAX ``init_distributed``,
-    ``distributed.py:58-77``, on ``torch.distributed.init_process_group``:
-    NCCL where a card is present, gloo on the CPU).
+    ``distributed.py:58-77``, on ``torch.distributed.init_process_group``).
+
+    ``backend`` None means NCCL, one card per rank: where no card is
+    present that raises :class:`DeviceAllocError` before any group is
+    formed.  A group on the CPU (gloo) is formed only when the caller names
+    it, ``backend="gloo"``: a multi-process run never moves to the CPU
+    unasked.
 
     ``coordinator_address`` is ``host:port`` or a URL.  With none of the
     arguments and none of ``COORDINATOR_ADDRESS``,
@@ -84,10 +90,15 @@ def init_distributed(coordinator_address: str | None = None,
         return
     if dist.is_initialized():
         return
+    backend = "nccl" if backend is None else backend
+    if backend == "nccl" and not torch.cuda.is_available():
+        raise DeviceAllocError("init_distributed: NCCL needs a CUDA device "
+                               "and none is available (pass backend=\"gloo\" "
+                               "to run the group on the CPU)")
     init = "env://" if address is None \
         else address if "://" in address else f"tcp://{address}"
     dist.init_process_group(
-        "nccl" if torch.cuda.is_available() else "gloo", init_method=init,
+        backend, init_method=init,
         world_size=int(os.environ.get("WORLD_SIZE", 1))
         if num_processes is None else num_processes,
         rank=int(os.environ.get("RANK", 0))

@@ -5,9 +5,11 @@ physics guard."""
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from ..errors import DeviceException
@@ -17,6 +19,7 @@ CHUNKS = 8
 T = 16      # groups per sub-tile of P2 and P3 (their Pallas loop S // T)
 TB = 8      # groups per scatter run (half a sub-tile)
 GUARD = 1.02  # a printed GB/s above GUARD x measured STREAM is refused
+WIDE = 128    # targets of the wide masked sum: one 128-row block a run
 
 
 def window_gather_plain(x2d: torch.Tensor, wg: torch.Tensor,
@@ -40,6 +43,14 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} on {t.device}, want {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_aligned(inp, names) -> None:
+    """The streams the tile kernels copy through the TMA (and the products
+    pass reads as float4) start on 16 bytes."""
+    for name in names:
+        if getattr(inp, name).data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (TMA boxes)")
 
 
 def check_range(name: str, t: torch.Tensor, lo: int, hi: int) -> None:
@@ -90,6 +101,78 @@ def require_cuda(device=None) -> torch.device:
     return dev
 
 
+@dataclasses.dataclass(frozen=True)
+class RunIndex:
+    """The run index of the owner-computes kernels (``masked_sum_wide`` in
+    ``csrc/probe_common.cuh``, ``scatter_tiles`` in
+    ``csrc/probe_proto_v4.cu``): the output cut into bands of
+    ``band_rows`` rows, each band into tiles of a slice of lanes, one CTA a
+    tile; ``runs[ptr[b]:ptr[b+1]]`` are the runs whose output rows touch
+    band ``b``, in run order."""
+
+    band_rows: int
+    ptr: torch.Tensor    # i32 (n_bands + 1,)
+    runs: torch.Tensor   # i32 (run, band) overlaps, band by band
+    max_runs: int        # the most runs of a band (a CTA copies its list)
+
+    @property
+    def n_bands(self) -> int:
+        return self.ptr.numel() - 1
+
+    @property
+    def nbytes(self) -> int:
+        return self.ptr.nbytes + self.runs.nbytes
+
+    def band(self, b: int) -> list:
+        """The runs of band ``b``, in order."""
+        lo, hi = self.ptr[b:b + 2].tolist()
+        return self.runs[lo:hi].tolist()
+
+
+def run_index(base: torch.Tensor, unit: int, span: int, out8: int,
+              band_rows: int) -> RunIndex:
+    """The run index of runs that cover output rows ``base[r]*unit ..
+    base[r]*unit + span`` (of ``out8``) in bands of ``band_rows`` rows, on
+    ``base``'s device; built with NumPy."""
+    if band_rows <= 0:
+        raise ValueError(f"band_rows={band_rows}")
+    first = base.cpu().numpy().astype(np.int64) * unit
+    last = np.minimum(first + span, out8) - 1
+    b0 = first // band_rows
+    counts = np.maximum(last // band_rows - b0 + 1, 0)
+    run = np.repeat(np.arange(first.size), counts)
+    starts = np.repeat(np.cumsum(counts) - counts, counts)
+    band = np.repeat(b0, counts) + np.arange(run.size) - starts
+    order = np.argsort(band, kind="stable")      # run order within a band
+    n_bands = -(-out8 // band_rows)
+    per_band = np.bincount(band, minlength=n_bands)
+    ptr = np.concatenate([[0], np.cumsum(per_band)])
+    return RunIndex(band_rows,
+                    torch.from_numpy(ptr.astype(np.int32)).to(base.device),
+                    torch.from_numpy(run[order].astype(np.int32))
+                    .to(base.device), int(per_band.max(initial=0)))
+
+
+def check_run_index(index: RunIndex, n_runs: int, out8: int,
+                    device: torch.device, band_rows: int) -> None:
+    """What the tile kernels index with unchecked: the offsets, the run
+    numbers, the longest list, a band count that covers ``out8`` rows; and
+    the ``band_rows`` the kernel is built for."""
+    if index.band_rows != band_rows:
+        raise ValueError(f"run index: bands of {index.band_rows} rows, the "
+                         f"kernel's are {band_rows}")
+    n_bands = -(-out8 // index.band_rows)
+    check_tensor("index.ptr", index.ptr, torch.int32, (n_bands + 1,), device)
+    check_tensor("index.runs", index.runs, torch.int32,
+                 (index.runs.numel(),), device)
+    check_nondecreasing("index.ptr", index.ptr)
+    if int(index.ptr[0]) != 0 or int(index.ptr[-1]) != index.runs.numel():
+        raise ValueError("index.ptr must run from 0 to len(index.runs)")
+    if int((index.ptr[1:] - index.ptr[:-1]).max()) > index.max_runs:
+        raise ValueError("index.max_runs is below a band's runs")
+    check_range("index.runs", index.runs, 0, n_runs)
+
+
 def masked_sum_wide_plain(prod: torch.Tensor, sb: torch.Tensor,
                           base: torch.Tensor, out8: int) -> torch.Tensor:
     """The plain wide masked sum (P2's ``w128``, P3's ``msum128``): per run,
@@ -103,6 +186,30 @@ def masked_sum_wide_plain(prod: torch.Tensor, sb: torch.Tensor,
         + torch.arange(128, device=prod.device)
     out = torch.zeros(out8, LANE, dtype=torch.float32, device=prod.device)
     return out.index_add_(0, dst.reshape(-1), rows.reshape(-1, LANE))
+
+
+def masked_sum_wide_schedule(prod: torch.Tensor, sb: torch.Tensor,
+                             index: RunIndex, out8: int) -> torch.Tensor:
+    """The wide masked sum in ``masked_sum_wide``'s order, in plain torch:
+    block by block (a band of the run index), the block's runs in index
+    order, each run's 64 products summed into 128 targets slot by slot from
+    zero, then added into the block's tile, which is written once.  Every
+    lane at once: lanes are independent, so the kernel's lane slices change
+    no sum.  Equal to :func:`masked_sum_wide_plain` bit for bit."""
+    n_runs = prod.shape[0]
+    sb = sb.reshape(n_runs, -1, LANE).long()
+    lanes = torch.arange(LANE, device=prod.device)
+    out = torch.zeros(out8, LANE, dtype=torch.float32, device=prod.device)
+    for b in range(index.n_bands):
+        tile = torch.zeros(WIDE, LANE, dtype=torch.float32,
+                           device=prod.device)
+        for r in index.band(b):
+            sums = torch.zeros_like(tile)
+            for s in range(prod.shape[1]):
+                sums[sb[r, s], lanes] += prod[r, s]
+            tile += sums
+        out[b * WIDE:(b + 1) * WIDE] = tile[:out8 - b * WIDE]
+    return out
 
 
 def start(device=None) -> tuple:

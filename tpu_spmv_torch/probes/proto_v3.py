@@ -19,9 +19,13 @@ output that is resident for the whole call:
 
 S must be a multiple of T = 16: the Pallas loop over ``S // T`` sub-tiles
 (``proto_v3.py:146-150``) drops the groups past the last whole one, so the
-port refuses such an S with ``ValueError``.  The kernel adds into shared
-output rows with atomics, so its result matches the plain version to fp32
-rounding in another order, not bit for bit.
+port refuses such an S with ``ValueError``.  Every mode but ``w128`` adds
+into shared output rows with atomics, so its result matches the plain
+version to fp32 rounding in another order, not bit for bit.  ``w128`` runs
+the owner-computes tiles that P3's ``msum128`` runs (``masked_sum_wide``,
+through a run index of the 128-row blocks, :class:`~.common.RunIndex`): no
+atomics, each output element's runs added in run order, equal to the plain
+version bit for bit (:func:`probe_schedule` is its order in plain torch).
 
     python3 -m tpu_spmv_torch.probes.proto_v3 [mode ...]
 
@@ -37,8 +41,10 @@ import sys
 import numpy as np
 import torch
 
-from .common import (CHUNKS, LANE, TB, check_multiple_of_t, check_range,
-                     check_tensor, launch, masked_sum_wide_plain, start,
+from .common import (CHUNKS, LANE, TB, WIDE, RunIndex, check_aligned,
+                     check_multiple_of_t, check_range, check_run_index,
+                     check_tensor, launch, masked_sum_wide_plain,
+                     masked_sum_wide_schedule, run_index, start,
                      time_run_modes, window_gather_plain)
 
 MODES = ("base", "nib", "mrg", "ind8", "ind8u", "w128", "sgather")
@@ -68,6 +74,7 @@ class Inputs:
     vals: torch.Tensor  # f32 (G*8, 128)
     lo: torch.Tensor    # i8 (G*8, 128); (2*G*8, 128) merged in mrg
     sb: torch.Tensor    # i8 (G*8, 128); (G*4, 128) in nib; unread in mrg
+    index: RunIndex = None  # w128's run index, built from base if None
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -100,6 +107,13 @@ class Inputs:
             check_range("sb", self.sb, 0, CHUNKS)
         elif self.mode == "w128":
             check_range("sb", self.sb, 0, 128)
+            check_aligned(self, ("vals", "lo", "sb"))
+            if self.index is None:
+                object.__setattr__(self, "index", run_index(
+                    self.base, WIDE, WIDE, self.out8, WIDE))
+            check_run_index(self.index, n_runs, self.out8, dev, WIDE)
+        elif self.index is not None:
+            raise ValueError(f"mode {self.mode} takes no run index")
 
     @property
     def device(self) -> torch.device:
@@ -112,9 +126,11 @@ class Inputs:
     @property
     def nbytes(self) -> int:
         """The bytes counted per call, as the JAX main counts them (vals,
-        lo, sb), less the ``sb`` argument of mrg, which is not read."""
+        lo, sb), less the ``sb`` argument of mrg, which is not read, and
+        w128's run index."""
         return self.vals.nbytes + self.lo.nbytes \
-            + (self.sb.nbytes if self.mode != "mrg" else 0)
+            + (self.sb.nbytes if self.mode != "mrg" else 0) \
+            + (self.index.nbytes if self.index is not None else 0)
 
 
 def make_inputs(n_steps: int = N_STEPS, S: int = S_DEFAULT,
@@ -210,17 +226,36 @@ def probe_plain(inp: Inputs) -> torch.Tensor:
     return out.index_add_(0, dst, rows.reshape(-1, LANE))
 
 
+def probe_schedule(inp: Inputs) -> torch.Tensor:
+    """w128 in its kernel's order, in plain torch
+    (:func:`~.common.masked_sum_wide_schedule`); equal to
+    :func:`probe_plain` bit for bit.  Nothing on the card's path calls it.
+    Returns (out8, 128)."""
+    if inp.mode != "w128":
+        raise ValueError(f"mode {inp.mode} adds with atomics: no run order")
+    prod = (inp.vals.view(-1, CHUNKS, LANE)
+            * window_gather_plain(inp.x2d, inp.wg, inp.lo))
+    return masked_sum_wide_schedule(prod.view(inp.n_groups // TB, -1, LANE),
+                                    inp.sb, inp.index, inp.out8)
+
+
 def probe(inp: Inputs) -> torch.Tensor:
-    """P2's kernel, ``inp.mode``: launches ``csrc/probe_proto_v3.cu`` into a
-    zeroed output for CUDA inputs; the plain version for CPU ones.  Returns
-    (out8, 128) f32."""
+    """P2's kernel, ``inp.mode``: launches ``csrc/probe_proto_v3.cu`` for
+    CUDA inputs (into a zeroed output; w128 writes every row itself); the
+    plain version for CPU ones.  Returns (out8, 128) f32."""
     if inp.device.type == "cpu":
         return probe_plain(inp)
     if inp.device.type != "cuda":
         raise ValueError(f"no probe kernel for {inp.device}")
-    out = torch.zeros(inp.out8, LANE, dtype=torch.float32, device=inp.device)
+    idx = inp.index
+    out = (torch.zeros if idx is None else torch.empty)(
+        inp.out8, LANE, dtype=torch.float32, device=inp.device)
     launch("tsp_probe_proto_v3", inp.x2d, inp.vals, inp.lo, inp.sb, inp.wg,
-           inp.base, inp.n_groups // TB, inp.S, _CODE[inp.mode], out)
+           inp.base, None if idx is None else idx.ptr,
+           None if idx is None else idx.runs,
+           0 if idx is None else idx.n_bands,
+           0 if idx is None else idx.max_runs, inp.out8, inp.n_groups // TB,
+           inp.S, _CODE[inp.mode], out)
     probe.launches += 1
     return out
 

@@ -12,8 +12,15 @@ x2d[wg[g]*8 + s, lo]``, are a stack that each output row gathers from:
 
 The src planes stream from device memory like a plan's arrays.  S must be a
 multiple of T = 16 (``proto_v4.py:96``; ``ValueError`` otherwise, as in P2).
-The kernel adds into shared output rows with atomics: its result matches the
-plain version to fp32 rounding in another order.
+The kernel has no atomics: like the Pallas kernel's resident output, each
+output element takes its runs in run order.  One CTA owns a tile of the
+output (a band of ``BAND`` rows by a slice of lanes) and walks the runs that
+touch its band, listed by the run index (:class:`~.common.RunIndex`, built
+when the inputs are made).  Where a run spans two bands or more
+(``products_first``), a products pass computes each
+slot's product once before the tiles gather from them.  The result equals
+the plain version's (``index_add_`` on the CPU) bit for bit, and
+:func:`probe_schedule` is the kernel's order in plain torch.
 
     python3 -m tpu_spmv_torch.probes.proto_v4 [mode ...]
 
@@ -30,8 +37,10 @@ import sys
 import numpy as np
 import torch
 
-from .common import (CHUNKS, LANE, TB, check_multiple_of_t, check_range,
-                     check_tensor, launch, masked_sum_wide_plain, start,
+from .common import (CHUNKS, LANE, TB, WIDE, RunIndex, check_aligned,
+                     check_multiple_of_t, check_range, check_run_index,
+                     check_tensor, launch, masked_sum_wide_plain,
+                     masked_sum_wide_schedule, run_index, start,
                      time_run_modes, window_gather_plain)
 
 MAIN_MODES = ("sg64_8", "sg64_16", "sg64_64", "msum128")
@@ -41,6 +50,7 @@ COLS8 = 32
 OUT8 = 4096
 ITERS, SAMPLES = 100, 2   # time_jitted(iters=100) and its 2 samples
 STACK = TB * CHUNKS       # 64 products per lane and run
+BAND = 64   # sg64's band rows (the kernel's kBand); msum128's are WIDE
 
 
 def n_out_of(mode: str) -> int:
@@ -65,6 +75,7 @@ class Inputs:
     lo: torch.Tensor     # i8 (G*8, 128)
     sb128: torch.Tensor  # i8 (G*8, 128), read in msum128
     src: torch.Tensor    # i8 (G/8 * N*8, 128) planes; (n_steps*8, 128) unread
+    index: RunIndex = None   # built from base if None
 
     def __post_init__(self):
         if self.mode != "msum128" and not (
@@ -91,12 +102,26 @@ class Inputs:
             check_tensor(name, getattr(self, name), dtype, shape, dev)
         check_range("wg", self.wg, 0, cols8 // CHUNKS)
         check_range("lo", self.lo, 0, LANE)
+        check_aligned(self, ("vals", "lo", "sb128", "src"))
         if self.mode == "msum128":
             check_range("base", self.base, 0, self.out8 // 128)
             check_range("sb128", self.sb128, 0, 128)
         else:
             check_range("base", self.base, 0,
                         self.out8 // CHUNKS - self.n_out + 1)
+        band = WIDE if self.mode == "msum128" else BAND
+        if self.index is None:
+            unit, span = (WIDE, WIDE) if self.mode == "msum128" \
+                else (CHUNKS, self.n_out * CHUNKS)
+            object.__setattr__(self, "index", run_index(
+                self.base, unit, span, self.out8, band))
+        check_run_index(self.index, n_runs, self.out8, dev, band)
+
+    @property
+    def products_first(self) -> bool:
+        """Whether sg64 computes its products in a pass of their own: where
+        a run's rows span two bands or more."""
+        return self.mode != "msum128" and self.n_out * CHUNKS >= 2 * BAND
 
     @property
     def device(self) -> torch.device:
@@ -115,8 +140,8 @@ class Inputs:
         """The bytes counted per call: vals, lo and the stream the mode
         reads, sb128 in msum128 and src in sg64 (the JAX main also counts
         sb128 there, which the Pallas BlockSpec copied and this kernel does
-        not read)."""
-        return self.vals.nbytes + self.lo.nbytes + (
+        not read), and the run index."""
+        return self.vals.nbytes + self.lo.nbytes + self.index.nbytes + (
             self.sb128.nbytes if self.mode == "msum128" else self.src.nbytes)
 
 
@@ -155,14 +180,19 @@ def make_inputs(n_steps: int = N_STEPS, S: int = S_DEFAULT,
     return out
 
 
+def products(inp: Inputs) -> torch.Tensor:
+    """The (n_runs, 64, 128) stacks of products."""
+    return (inp.vals.view(-1, CHUNKS, LANE)
+            * window_gather_plain(inp.x2d, inp.wg, inp.lo)
+            ).view(inp.n_groups // TB, STACK, LANE)
+
+
 def probe_plain(inp: Inputs) -> torch.Tensor:
     """P3's plain version, vectorised over runs: the stack gather as
     ``torch.gather`` along the stack, the adds with ``index_add_``.
     Returns (out8, 128)."""
     n_runs, dev = inp.n_groups // TB, inp.device
-    prod = (inp.vals.view(-1, CHUNKS, LANE)
-            * window_gather_plain(inp.x2d, inp.wg, inp.lo)
-            ).view(n_runs, STACK, LANE)
+    prod = products(inp)
     if inp.mode == "msum128":
         return masked_sum_wide_plain(prod, inp.sb128, inp.base, inp.out8)
     sj = inp.src.view(n_runs, -1, LANE).int()
@@ -174,18 +204,52 @@ def probe_plain(inp: Inputs) -> torch.Tensor:
     return out.index_add_(0, dst.reshape(-1), contrib.reshape(-1, LANE))
 
 
+def probe_schedule(inp: Inputs) -> torch.Tensor:
+    """P3 in the kernel's order, in plain torch: band by band of the run
+    index, the band's runs in index order, each run's gathered rows inside
+    the band added into the band's tile, which is written once
+    (``msum128``: :func:`~.common.masked_sum_wide_schedule`).  Every lane
+    at once: lanes are independent, so the kernel's lane slices change no
+    sum.  Equal to :func:`probe_plain` bit for bit; nothing on the card's
+    path calls it.  Returns (out8, 128)."""
+    prod = products(inp)
+    if inp.mode == "msum128":
+        return masked_sum_wide_schedule(prod, inp.sb128, inp.index, inp.out8)
+    span = inp.n_out * CHUNKS
+    sj = inp.src.view(-1, span, LANE).int()
+    base = inp.base.tolist()
+    band_rows = inp.index.band_rows
+    out = torch.zeros(inp.out8, LANE, dtype=torch.float32, device=inp.device)
+    for b in range(inp.index.n_bands):
+        row0 = b * band_rows
+        tile = torch.zeros(min(band_rows, inp.out8 - row0), LANE,
+                           dtype=torch.float32, device=inp.device)
+        for r in inp.index.band(b):
+            top = base[r] * CHUNKS - row0
+            t0, t1 = max(top, 0), min(top + span, tile.shape[0])
+            s = sj[r, t0 - top:t1 - top]
+            tile[t0:t1] += torch.where(
+                s < STACK, torch.gather(prod[r], 0, (s & (STACK - 1)).long()),
+                0.0)
+        out[row0:row0 + tile.shape[0]] = tile
+    return out
+
+
 def probe(inp: Inputs) -> torch.Tensor:
-    """P3's kernel, ``inp.mode``: launches ``csrc/probe_proto_v4.cu`` into a
-    zeroed output for CUDA inputs; the plain version for CPU ones.  Returns
-    (out8, 128) f32."""
+    """P3's kernel, ``inp.mode``: launches ``csrc/probe_proto_v4.cu``, which
+    writes every output row, for CUDA inputs; the plain version for CPU
+    ones.  Returns (out8, 128) f32."""
     if inp.device.type == "cpu":
         return probe_plain(inp)
     if inp.device.type != "cuda":
         raise ValueError(f"no probe kernel for {inp.device}")
-    out = torch.zeros(inp.out8, LANE, dtype=torch.float32, device=inp.device)
+    out = torch.empty(inp.out8, LANE, dtype=torch.float32, device=inp.device)
+    prod = torch.empty_like(inp.vals) if inp.products_first else None
+    idx = inp.index
     launch("tsp_probe_proto_v4", inp.x2d, inp.vals, inp.lo, inp.sb128,
-           inp.src, inp.wg, inp.base, inp.n_groups // TB, inp.n_out,
-           int(inp.mode == "msum128"), out)
+           inp.src, inp.wg, inp.base, idx.ptr, idx.runs, idx.n_bands,
+           idx.max_runs, inp.n_groups // TB,
+           inp.out8, inp.n_out, int(inp.mode == "msum128"), prod, out)
     probe.launches += 1
     return out
 

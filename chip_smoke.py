@@ -167,9 +167,23 @@ Phases (each raises on failure; nothing is caught and passed over):
     pattern, bf16, bands; ``soak.LEVER_CASES``) through the card's SpMV
     against the oracle, and its kernels against their plain versions.
 
+17. The port's headline benchmark as a user runs it: ``python3 -m
+    tpu_spmv_torch.bench`` in a subprocess at full size (``bench.py``'s
+    flow: the candidates, the oracle, STREAM, the guarded sweep, the flat
+    path, the 512^2 stencil, the 1M-node web graph, PageRank at 262,144
+    nodes, bf16 and pattern, the late re-measure).  It must exit 0; its
+    line, printed, must have ``bench.py``'s keys and ``device`` and
+    ``plan_build_s``, ``correct`` true, a fingerprinted winner, every
+    secondary positive, and the winner's streamed GB/s within 1.02 x its
+    STREAM.
+18. The device benchmarks' mains in this process, on the card:
+    ``scaling`` (its defaults: one row on one card, which prices no
+    scaling), ``perf_properties`` (its defaults) and ``tune --quick``;
+    each JSON names the card and every ``correct`` in it is true.
+
 The phases run in the order 1-6, 13, 14, 7, 14's mesh plan file, 10, 9,
-11, 12, 8, 15, 16, each new matrix made once and dropped when its phases end;
-each phase's seconds are printed after it.
+11, 12, 8, 15, 16, 17, 18, each new matrix made once and dropped when its
+phases end; each phase's seconds are printed after it.
 
 Where one PyTorch call computes what a kernel computes, it is timed beside
 it and printed on a ``library:`` line (cuSPARSE through a sparse CSR tensor
@@ -2233,6 +2247,112 @@ def phase_soak(dev) -> None:
         hold_stack(plan, A, x, dev, f"fuzz lever {name}")
 
 
+# phase 17: the keys of the port bench's line (bench.py:398-422, then the
+# port's two) and its secondaries, each of which must be positive
+BENCH_KEYS = ("spmv_over_stream", "stream_gb_s", "gflops", "gnnz_per_s",
+              "nnz", "skewness", "occupancy", "winning_plan",
+              "plan_fingerprints", "native_planner", "ell_stencil_gb_s",
+              "web_graph_1m_gb_s", "pagerank_262k_ms_per_iter",
+              "bf16_spmv_gb_s", "bf16_exact", "pattern_spmv_gb_s",
+              "correct", "device", "plan_build_s")
+BENCH_SECONDARIES = ("ell_stencil_gb_s", "web_graph_1m_gb_s",
+                     "pagerank_262k_ms_per_iter", "bf16_spmv_gb_s",
+                     "pattern_spmv_gb_s")
+BENCH_GUARD = 1.02
+
+
+def phase_bench() -> None:
+    """Phase 17: ``python3 -m tpu_spmv_torch.bench`` as a user runs it, a
+    subprocess at full size, which must exit 0 with its one line: the JAX
+    bench's keys and the port's two, ``correct``, the winner one of the
+    fingerprinted candidates, every secondary positive, and the winner's
+    streamed GB/s (its ``final headline`` line on stderr) within 1.02 x
+    the line's STREAM."""
+    import re
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "tpu_spmv_torch.bench"],
+                          cwd=here, env=env, capture_output=True, text=True,
+                          timeout=900)
+    log("python -m tpu_spmv_torch.bench, its diagnostics:\n"
+        + proc.stderr[-6000:])
+    check(proc.returncode == 0, f"the bench exited {proc.returncode}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    log("port bench line: " + json.dumps(line))
+    d = line["detail"]
+    check(list(line) == ["metric", "value", "unit", "vs_baseline", "detail"]
+          and tuple(d) == BENCH_KEYS, f"the bench line's keys: {list(d)}")
+    check(line["metric"] == "merge_path_csr_spmv_bandwidth"
+          and line["value"] > 0 and line["vs_baseline"] > 0,
+          "the bench's metric")
+    check(d["correct"] is True, "the bench's correct is not true")
+    check(d["winning_plan"] in d["plan_fingerprints"],
+          f"the winner {d['winning_plan']} is not a fingerprinted candidate")
+    for key in BENCH_SECONDARIES:
+        check(d[key] > 0, f"the bench's {key} is {d[key]}")
+    final = re.findall(r"final headline .*\((\d+) GB/s streamed\)",
+                       proc.stderr)
+    check(len(final) == 1, "the bench printed no final headline line")
+    check(float(final[0]) <= BENCH_GUARD * d["stream_gb_s"],
+          f"the winner streams {final[0]} GB/s, over {BENCH_GUARD} x STREAM "
+          f"{d['stream_gb_s']}")
+
+
+def script_json(main, argv: list) -> tuple:
+    """``main(argv)`` in this process, its stdout captured and logged:
+    ``(exit code, the JSON of its last line)``."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    log(out.getvalue().rstrip())
+    return rc, json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def correct_flags(obj) -> list:
+    """Every ``*correct`` value in a JSON object, at any depth."""
+    if isinstance(obj, dict):
+        return [v for k, v in obj.items() if k.endswith("correct")] \
+            + [f for v in obj.values() for f in correct_flags(v)]
+    if isinstance(obj, list):
+        return [f for v in obj for f in correct_flags(v)]
+    return []
+
+
+def phase_benchmarks() -> None:
+    """Phase 18: the mains of ``tpu_spmv_torch.benchmarks``'s ``scaling``
+    (its defaults: one row per card present), ``perf_properties`` (its
+    defaults) and ``tune --quick`` in this process, each on the card,
+    naming it; every ``correct`` true (a ring, leveled or pattern check is
+    ``None`` where the packed layout rejects it).  ``perf_properties`` exits
+    1 where a property is missed, a measurement, not a failure of the
+    port."""
+    import torch
+
+    from tpu_spmv_torch.benchmarks import perf_properties, scaling, tune
+
+    name = torch.cuda.get_device_name(0)
+    for mod, argv in ((scaling, ["--json"]), (perf_properties, []),
+                      (tune, ["--quick"])):
+        t0 = time.perf_counter()
+        rc, out = script_json(mod.main, argv)
+        what = mod.__name__.rsplit(".", 1)[1]
+        flags = correct_flags(out)
+        log(f"{what} {' '.join(argv)}: exit {rc}, {len(flags)} correct "
+            f"flags, {time.perf_counter() - t0:.1f} s")
+        check(out["device"] == name, f"{what} names {out['device']}")
+        check(flags and all(f in (True, None) for f in flags)
+              and any(f is True for f in flags),
+              f"{what}: a correct is not true")
+        missed = mod is perf_properties and not (
+            out["vector_csr_pass"] and out["merge_path_pass"])
+        check(rc == 0 or (rc == 1 and missed), f"{what} exited {rc}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2280,6 +2400,8 @@ def main() -> int:
     run(phase_reorder_ab, dev)
     run(phase_sharded, dev)
     run(phase_soak, dev)
+    run(phase_bench)
+    run(phase_benchmarks)
     check("jax" not in sys.modules, "JAX was imported")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -33,7 +33,9 @@ device while another is current (fault F9); one plan per lever group of
 the fuzz slice (``tpu_spmv_torch.soak.LEVER_CASES``) runs K1-K3 held to the
 plain versions on the CPU under the row bound and to the oracle; and
 PageRank's loop at tolerance 0 reads nothing back inside the loop and
-stops on a NaN residual (fault F10).
+stops on a NaN residual (fault F10).  The headline benchmark's smoke
+flow (``tpu_spmv_torch.bench --smoke``) runs on the card with STREAM
+measured and its guard held.
 """
 
 import dataclasses
@@ -1335,3 +1337,25 @@ def test_pagerank_loop_on_card_reads_back_once_f10(cuda_device, monkeypatch):
                        initial_ranks=r0)
         assert res.iterations == 1 and np.isnan(res.final_residual)
         assert np.isnan(res.ranks_host()).all()
+
+
+@pytest.mark.cuda
+def test_bench_smoke_on_card(cuda_device, capsys):
+    """``python -m tpu_spmv_torch.bench --smoke`` on the card: one line,
+    ``correct``, STREAM measured, the winner's streamed bytes within the
+    physics guard, and the card named."""
+    import json
+
+    from tpu_spmv_torch import bench
+
+    assert bench.main(["--smoke"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    d = line["detail"]
+    assert d["correct"] is True and d["stream_gb_s"] > 0
+    assert line["vs_baseline"] > 0
+    assert d["device"] == torch.cuda.get_device_name(0)
+    assert d["winning_plan"] in d["plan_fingerprints"]
+    for key in ("ell_stencil_gb_s", "web_graph_1m_gb_s",
+                "pagerank_262k_ms_per_iter", "bf16_spmv_gb_s",
+                "pattern_spmv_gb_s"):
+        assert d[key] > 0, key

@@ -291,7 +291,8 @@ def test_import_does_not_load_jax():
             "tpu_spmv_torch.pagerank, tpu_spmv_torch.probes.proto_v2, "
             "tpu_spmv_torch.cli, tpu_spmv_torch.plan_io, tpu_spmv_torch.ell, "
             "tpu_spmv_torch.benchmark, tpu_spmv_torch.io.matrix_market, "
-            "tpu_spmv_torch.kernels.ell_kernel; "
+            "tpu_spmv_torch.kernels.ell_kernel, tpu_spmv_torch.bench, "
+            "tpu_spmv_torch.benchmarks.scaling; "
             "bad = [m for m in sys.modules if m in ('jax', 'tpu_spmv') or "
             "m.startswith(('jax.', 'tpu_spmv.'))]; "
             "assert not bad, bad")

@@ -1,8 +1,8 @@
 """The port's ``DeviceBuffer`` and ``profiling`` on ``device="cpu"``, case
 for case with ``tests/test_common.py::TestDeviceBuffer`` and
 ``tests/test_profiling.py``, plus what differs: the card is the default
-device, ``start_server`` has no PyTorch counterpart, the port's kernels
-are invisible to the FLOP counter."""
+device, the port's kernels are invisible to the FLOP counter.  The span
+recorder is tested in ``tests/test_torch_spans.py``."""
 
 import json
 import os
@@ -154,50 +154,3 @@ def test_annotate_and_trace_contexts(tmp_path):
     with open(log_dir / files[0]) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert "spmv-region" in names
-
-
-def test_start_server_names_trace():
-    with pytest.raises(NotImplementedError, match="trace"):
-        profiling.start_server()
-
-
-def test_roofline_report_shapes():
-    """roofline_report works across plan kinds and reports consistent
-    byte accounting (pattern plans stream strictly less)."""
-    csr = RandomGenerator(42).power_law_csr(2000, 1000, avg_nnz=10.0,
-                                            alpha=1.6)
-    nat = profiling.roofline_report(twe.plan_from_host(
-        tplan.build(csr, split_rows=128), CPU), 1e-4, device=CPU)
-    pat = profiling.roofline_report(twe.plan_from_host(
-        tplan.build(csr, split_rows=128, pattern=True), CPU), 1e-4,
-        device=CPU)
-    assert nat["slots"] == pat["slots"] > 0
-    assert pat["stream_bytes"] < 0.5 * nat["stream_bytes"]
-    assert nat["ps_per_slot"] > 0 and nat["actual_gb_s"] > 0
-    assert nat["stream_gb_s"] == nat["stream_fraction"] == 0.0
-
-
-def test_roofline_report_matches_jax():
-    """The same fields and numbers as the JAX package's report on the
-    same plan and time (the STREAM rate aside: it is measured)."""
-    import tpu_spmv.bandwidth as jbw
-    import tpu_spmv.kernels.window_ell as jwe
-    from tpu_spmv.csr import CSRMatrix as JaxCSRMatrix
-    from tpu_spmv.profiling import roofline_report as jax_roofline
-
-    csr = RandomGenerator(42).power_law_csr(2000, 1000, avg_nnz=10.0,
-                                            alpha=1.6)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jwe, "_absorb_run_padding", tplan._absorb_run_padding,
-                   raising=False)
-        mp.setattr(jbw, "measured_stream_bandwidth", lambda device: 1000.0)
-        jplan = jwe.WindowEllPlan.build(JaxCSRMatrix(
-            csr.num_rows, csr.num_cols, csr.values, csr.col_indices,
-            csr.row_ptrs), split_rows=128, step_groups=256)
-        theirs = jax_roofline(jplan, 1e-4)
-    ours = profiling.roofline_report(twe.plan_from_host(
-        tplan.build(csr, split_rows=128, step_groups=256), CPU), 1e-4,
-        device=CPU)
-    assert set(ours) == set(theirs)
-    for key in ("stream_bytes", "slots", "ps_per_slot", "actual_gb_s"):
-        assert ours[key] == pytest.approx(theirs[key], rel=1e-12), key

@@ -28,7 +28,8 @@ on 4 shards of one card (``["cuda:0"] * 4``), each path against the
 oracle and the flat path at the row bound; a process group of one (NCCL)
 equals the local mesh bit for bit; an out-of-memory error ends the call
 with ``EXECUTION`` and no other route serves it; ``DeviceBuffer`` and
-``profiling.trace`` run on the card; K1 launches on its tensors'
+``profiling.trace`` run on the card, and the recorder's ``spmv.launch``
+span counts the plan's launches; K1 launches on its tensors'
 device while another is current (fault F9); one plan per lever group of
 the fuzz slice (``tpu_spmv_torch.soak.LEVER_CASES``) runs K1-K3 held to the
 plain versions on the CPU under the row bound and to the oracle; and
@@ -858,6 +859,37 @@ def test_stacked_call_is_captured_in_a_cuda_graph(cuda_device, monkeypatch,
     assert torch.equal(out, eager)
     assert spmv_matches(out.cpu().numpy(), A, x, rel_tol=ROW_TOL)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["single", "banded"])
+def test_launch_span_counts_the_plans_launches(cuda_device, matrix,
+                                               monkeypatch, name):
+    """The recorder's ``spmv.launch`` span carries the port's kernels
+    launched in it: ``launches_per_call`` of the plan, for a single plan
+    through ``spmv_csr`` and a banded stack through the dispatch's
+    launch."""
+    from tpu_spmv_torch import profiling
+    from tpu_spmv_torch.spmv import _execute, launches_per_call
+
+    profiling.clear()
+    if name == "single":
+        A, x = matrix
+        xd = torch.from_numpy(x).to(cuda_device)
+        with profiling.recording():
+            plan = spmv_csr(A, xd, SpMVConfig(
+                kernel_type=KernelType.VECTOR_CSR)).plan
+        assert isinstance(plan, twe.WindowEllPlan)
+    else:
+        upload, A, x = stack_case(name, monkeypatch)
+        plan = upload(cuda_device)
+        with profiling.recording(), profiling.annotate("banded"):
+            _execute(plan, torch.from_numpy(x).to(cuda_device))
+    torch.cuda.synchronize()
+    launch = [s for s in profiling.spans() if s.name == "spmv.launch"]
+    profiling.clear()
+    assert len(launch) == 1
+    assert launch[0].count == sum(launches_per_call(plan).values()) > 0
 
 # ---- the ELL dispatch, plan files and the harness on the card ----
 

@@ -7,7 +7,8 @@ the flat path (:mod:`.scalar`, plain PyTorch ops).
 
 Each kernel counts its launches in an attribute of a wrapper, ``launches``
 (for K1's fold a dict per value stream); :func:`launch_counts` reads them
-all and :func:`reset_launch_counts` sets them to 0."""
+all, :func:`launch_total` sums them, and :func:`reset_launch_counts` sets
+them to 0."""
 
 from .reorder import ReorderedPlan, build_reordered, spmv_reordered
 from .scalar import spmv_csr_scalar
@@ -23,7 +24,7 @@ __all__ = [
     "build_strips", "spmv_strips", "ReorderedPlan", "build_reordered",
     "spmv_reordered", "spmv_csr_scalar", "FOLD_VARIANTS", "permute_chunks",
     "section_epilogue", "unpermute", "window_ell_fold", "launch_counts",
-    "reset_launch_counts",
+    "launch_total", "reset_launch_counts",
 ]
 
 
@@ -45,3 +46,11 @@ def launch_counts() -> dict:
                   unpermute=unpermute.launches,
                   permute_chunks=permute_chunks.launches)
     return counts
+
+
+def launch_total() -> int:
+    """The sum of :func:`launch_counts`' values, read without building the
+    dict (the dispatch reads it on each side of a recorded launch)."""
+    return (sum(window_ell_fold.launches.values())
+            + section_epilogue.launches + unpermute.launches
+            + permute_chunks.launches)

@@ -33,6 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import profiling
 from .csr import CSRMatrix
 from .errors import SpMVError, SpMVException, guarded_upload
 from .kernels.plan import WindowEllOverflow
@@ -112,21 +113,34 @@ def _iterate(spmv, mask: torch.Tensor, r: torch.Tensor, n: int,
     ``max_iterations`` steps, and a flag taken from the previous step's
     residual (the JAX ``cond`` before ``body``) keeps ``r``, the residual
     and the count once it is false; the count and the residual are read
-    back once, after the loop."""
+    back once, after the loop.
+
+    Each step's issue is recorded as the span ``pagerank.step``, and each
+    read-back as ``pagerank.readback``."""
     inv_n = 1.0 / n
     residual = torch.tensor(float("inf"), device=r.device)
 
     def step(r):
+        if profiling.on:
+            span = profiling.begin("pagerank.step")
         r_new = damping * spmv(r) \
             + damping * torch.dot(mask, r) * inv_n + (1.0 - damping) * inv_n
-        return r_new, torch.linalg.vector_norm(r_new - r)
+        residual = torch.linalg.vector_norm(r_new - r)
+        if profiling.on:
+            profiling.end(span)
+        return r_new, residual
 
     if tolerance > 0:
         it = 0
         while it < max_iterations:
             r, residual = step(r)
             it += 1
-            if not float(residual) >= tolerance:
+            if profiling.on:
+                span = profiling.begin("pagerank.readback")
+            going = float(residual) >= tolerance
+            if profiling.on:
+                profiling.end(span)
+            if not going:
                 break
     else:
         count = torch.zeros((), dtype=torch.int32, device=r.device)
@@ -136,14 +150,19 @@ def _iterate(spmv, mask: torch.Tensor, r: torch.Tensor, n: int,
             r = torch.where(going, r_new, r)
             residual = torch.where(going, res_new, residual)
             count += going
+        if profiling.on:
+            span = profiling.begin("pagerank.readback")
         it, residual = torch.stack(
             [count.double(), residual.double()]).tolist()
+        if profiling.on:
+            profiling.end(span)
         it = int(it)
     total = r.sum()
     ranks = torch.where(total > 0.0, r / total, r)
     return it, ranks, float(residual)
 
 
+@profiling.call_span("pagerank.call")
 def pagerank(adj_matrix: CSRMatrix | None,
              config: PageRankConfig | None = None, initial_ranks=None,
              device=None) -> PageRankResult:
@@ -184,7 +203,11 @@ def pagerank(adj_matrix: CSRMatrix | None,
         except WindowEllOverflow:
             plan = _resolve_csr_kernel(adj_matrix, KernelType.SCALAR_CSR,
                                        SpMVConfig(), device)
+        if profiling.on:
+            span = profiling.begin("pagerank.mask")
         mask = guarded_upload(find_dangling_mask(adj_matrix)[:n], device)
+        if profiling.on:
+            profiling.end(span)
         if initial_ranks is not None:
             r0 = initial_ranks if isinstance(initial_ranks, torch.Tensor) \
                 else torch.from_numpy(np.asarray(initial_ranks, np.float32))

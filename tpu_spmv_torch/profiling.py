@@ -1,27 +1,171 @@
 """Tracing and profiling (port of ``tpu_spmv/profiling.py``).
 
+* the span recorder: a span is ``(name, start_ns, end_ns, parent, call,
+  count)`` on ``time.time_ns()``, the clock ``torch.profiler`` counts its
+  timeline from (``trace_start_ns``), so a span and a device event of one
+  trace compare directly.  ``parent`` is the index of the enclosing span in
+  :func:`spans` (-1 for a root), ``call`` an id every span of one public
+  call shares, ``count`` an optional integer the span carries;
 * :func:`trace`: ``torch.profiler.profile`` around the enclosed block, CPU
   activities and, where a card is present, CUDA ones (every kernel launch,
   the port's own among them), written as a Chrome trace into ``log_dir``;
-* :func:`annotate`: a named region in such a trace
-  (``torch.profiler.record_function``), and an NVTX range on the card;
+* :func:`annotate`: a named span, and while it records a region in such a
+  trace (``torch.profiler.record_function``) and an NVTX range on the card;
 * :func:`cost_analysis` and :func:`memory_analysis`: the FLOPs and memory
-  sizes of one call of a function;
-* :func:`roofline_report`: a measured plan time against the plan's
-  streamed bytes and the measured STREAM rate.
+  sizes of one call of a function.
 
-``start_server`` has no PyTorch counterpart (PyTorch has no live profiler
-endpoint): it raises ``NotImplementedError`` naming :func:`trace`.
+The recorder records in two cases only: inside ``with recording():``, and
+while a ``torch.profiler`` session is in its recording step (not in a
+schedule's warm-up step).  Each public entry (``spmv_csr``, ``spmv_ell``,
+``pagerank``; :func:`call_span`) takes that check once and sets
+:data:`on` for the call; a span site inside the call then costs one test of
+:data:`on` when nothing records.  Spans are kept in memory, at most
+``SPAN_CAP`` of them (:func:`dropped` counts those past it), read with
+:func:`spans` and emptied with :func:`clear`.  The recorder is one per
+process and is not locked: record from one thread at a time.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
+
+SPAN_CAP = 1 << 16
+OFF = -1        # enter()'s token where nothing records
+
+# recording in the current public call: the span sites test it
+on = False
+_forced = 0     # depth of recording() blocks
+_spans: list = []   # [name, start_ns, end_ns, parent, call, count]
+_open: list = []    # indices of the open spans, innermost last
+_call = 0
+_dropped = 0
+_clock = time.time_ns
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+class Span(NamedTuple):
+    """One recorded span, as :func:`spans` gives it."""
+
+    name: str
+    start_ns: int
+    end_ns: int      # 0 while the span is open
+    parent: int      # index in spans() of the enclosing span, -1 for a root
+    call: int
+    count: int | None
+
+
+def spans() -> list:
+    """The spans recorded since the last :func:`clear`, in the order they
+    opened."""
+    return [Span(*s) for s in _spans]
+
+
+def dropped() -> int:
+    """Spans not stored since the last :func:`clear`: the list was full."""
+    return _dropped
+
+
+def clear() -> None:
+    """Forget every span; not inside a recorded span."""
+    global _dropped
+    if _open:
+        raise RuntimeError("profiling.clear() inside a recorded span")
+    _spans.clear()
+    _dropped = 0
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans inside the block, with or without a profiler."""
+    global _forced
+    _forced += 1
+    try:
+        yield
+    finally:
+        _forced -= 1
+
+
+def begin(name: str) -> int:
+    """Open a span inside the innermost open one (a root where none is
+    open, under a new call id); only where :data:`on`.  Returns its index
+    for :func:`end`."""
+    global _call, _dropped
+    if _open:
+        parent = _open[-1]
+    else:
+        parent = -1
+        _call += 1
+    i = len(_spans)
+    if i >= SPAN_CAP:
+        # never stored; a token below OFF that no other open span has
+        i = -2 - len(_open)
+        _dropped += 1
+    else:
+        _spans.append([name, _clock(), 0, parent, _call, None])
+    _open.append(i)
+    return i
+
+
+def end(i: int, count: int | None = None) -> None:
+    """Close span ``i``, giving it its ``count``, and any span an exception
+    left open inside it."""
+    now = _clock()
+    j = _open.pop()
+    while j != i:
+        if j >= 0:
+            _spans[j][2] = now
+        j = _open.pop()
+    if i >= 0:
+        span = _spans[i]
+        span[2] = now
+        span[5] = count
+
+
+def enter(name: str) -> int:
+    """A public call's entry: the one check of whether anything records,
+    and where it does, its span opened and :data:`on` set.  Returns the
+    token for :func:`leave`, ``OFF`` where nothing records."""
+    global on
+    if not on:
+        if not (_forced or _profiler_enabled()):
+            return OFF
+        on = True
+    return begin(name)
+
+
+def leave(token: int) -> None:
+    """A public call's exit: its span closed, and :data:`on` restored where
+    it was the outermost."""
+    global on
+    if token == OFF:
+        return
+    end(token)
+    if not _open:
+        on = False
+
+
+def call_span(name: str):
+    """Decorate a public entry: each call is a span named ``name`` (a root
+    unless made inside another recorded span), with :data:`on` set for the
+    call while anything records."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            token = enter(name)
+            if token == OFF:
+                return fn(*args, **kwargs)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                leave(token)
+        return call
+    return wrap
 
 
 @contextlib.contextmanager
@@ -42,16 +186,15 @@ def trace(log_dir: str):
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-def start_server(port: int = 9012):
-    """The JAX package's live profiler endpoint: PyTorch has none."""
-    raise NotImplementedError(
-        "PyTorch has no live profiler endpoint; capture a trace with "
-        "tpu_spmv_torch.profiling.trace(log_dir) instead")
-
-
 @contextlib.contextmanager
 def annotate(name: str):
-    """A named region in captured traces, and an NVTX range on the card."""
+    """A named span around the enclosed block (as a public call's: a root
+    unless inside another recorded span); while it records, also a region
+    in captured traces and an NVTX range on the card."""
+    token = enter(name)
+    if token == OFF:
+        yield
+        return
     nvtx = torch.cuda.is_available()
     if nvtx:
         torch.cuda.nvtx.range_push(name)
@@ -61,6 +204,7 @@ def annotate(name: str):
     finally:
         if nvtx:
             torch.cuda.nvtx.range_pop()
+        leave(token)
 
 
 def cost_analysis(fn: Callable, *args, **kwargs) -> dict[str, Any]:
@@ -110,34 +254,3 @@ def memory_analysis(fn: Callable, *args, **kwargs) -> dict[str, Any]:
             "output_size_in_bytes": _nbytes(out),
             "temp_size_in_bytes": temp,
             "generated_code_size_in_bytes": None}
-
-
-def roofline_report(plan, secs: float, device=None) -> dict[str, Any]:
-    """A measured per-call time ``secs`` of a window-ELL plan (or a
-    banded, composite or strip stack of them) against its streamed bytes
-    (``stream_bytes``, the physics guard's count) and the STREAM rate
-    measured on ``device`` (:func:`~tpu_spmv_torch.bandwidth.
-    measured_stream_bandwidth`, the card unless the caller names another;
-    on the CPU no STREAM is measured, and its rate and the fraction are 0):
-    bytes, slots, ps per slot, the achieved rate and its fraction of
-    STREAM (``tpu_spmv/profiling.py:73-102``)."""
-    from .bandwidth import measured_stream_bandwidth
-    from .errors import target_device
-    from .kernels.plan import CHUNKS, LANE
-
-    plans = getattr(plan, "plans", (plan,))
-    slots = sum(p.n_groups * CHUNKS * LANE for p in plans)
-    bytes_ = sum(p.stream_bytes for p in plans)
-    if getattr(plan, "tail", None) is not None:  # composite remainder
-        bytes_ += float(plan.tail.nnz) * 12.0
-    dev = target_device(device, "roofline_report")
-    stream = measured_stream_bandwidth(dev) if dev.type == "cuda" else 0.0
-    gbs = bytes_ / secs / 1e9 if secs > 0 else 0.0
-    return {
-        "stream_bytes": float(bytes_),
-        "slots": int(slots),
-        "ps_per_slot": secs / slots * 1e12 if slots else 0.0,
-        "actual_gb_s": gbs,
-        "stream_gb_s": float(stream),
-        "stream_fraction": gbs / stream if stream else 0.0,
-    }

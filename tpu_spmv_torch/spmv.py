@@ -58,8 +58,10 @@ from .bandwidth import (BandwidthMetrics, compute_bandwidth_csr,
                         compute_bandwidth_ell)
 from .csr import CSRMatrix, DeviceCSR
 from .ell import DeviceELL, ELLMatrix
+from . import profiling
 from .errors import (DeviceException, SpMVError, SpMVException,
                      guarded_upload)
+from .kernels import launch_total
 from .kernels.plan import (WindowEllOverflow, _choose_sup, build,
                            build_auto, build_composite)
 from .kernels.ell_kernel import spmv_ell_device
@@ -381,13 +383,21 @@ def launches_per_call(plan: Plan) -> dict:
 def _execute(plan: Plan, x: torch.Tensor) -> torch.Tensor:
     """:func:`_run` for the dispatch: a route that runs out of device
     memory raises :class:`DeviceException` (``EXECUTION``), logged as a
-    warning; no other route is tried."""
+    warning; no other route is tried.  Recorded as the span
+    ``spmv.launch``, whose count is the port's kernels launched in it
+    (:func:`~tpu_spmv_torch.kernels.launch_total`)."""
+    if profiling.on:
+        span = profiling.begin("spmv.launch")
+        launched = launch_total()
     try:
-        return _run(plan, x)
+        y = _run(plan, x)
     except torch.OutOfMemoryError as e:
         log.warning("spmv: %s ran out of device memory (%s)",
                     type(plan).__name__, e)
         raise DeviceException(e) from e
+    if profiling.on:
+        profiling.end(span, launch_total() - launched)
+    return y
 
 
 def _resolve_csr_kernel(A: CSRMatrix, kernel_type: KernelType,
@@ -416,6 +426,7 @@ def _resolve_csr_kernel(A: CSRMatrix, kernel_type: KernelType,
     return A.to_device(device)
 
 
+@profiling.call_span("spmv.call")
 def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
              vec_size: int | None = None, measure: bool = False,
              measure_iters: int = 100, measure_samples: int = 5,
@@ -442,6 +453,8 @@ def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
     kernel_type = KernelType(config.kernel_type)
     try:
         x = guarded_upload(x, device).float()
+        if profiling.on:
+            span = profiling.begin("spmv.resolve")
         t0 = time.perf_counter()
         try:
             plan = _resolve_csr_kernel(A, kernel_type, config, device)
@@ -450,6 +463,8 @@ def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
             plan = _resolve_csr_kernel(A, KernelType.SCALAR_CSR, config,
                                        device)
         result.plan_seconds = time.perf_counter() - t0
+        if profiling.on:
+            profiling.end(span)
         result.y = _execute(plan, x)
     except SpMVException as e:
         result.error_code = int(e.code)
@@ -559,6 +574,7 @@ def _resolve_ell_kernel(A: ELLMatrix, config: SpMVConfig | None,
     return A.to_device(device)
 
 
+@profiling.call_span("spmv.call")
 def spmv_ell(A: ELLMatrix | None, x, config: SpMVConfig | None = None,
              vec_size: int | None = None, measure: bool = False,
              measure_iters: int = 100, measure_samples: int = 5,
@@ -576,9 +592,13 @@ def spmv_ell(A: ELLMatrix | None, x, config: SpMVConfig | None = None,
         return result
     try:
         x = guarded_upload(x, device).float()
+        if profiling.on:
+            span = profiling.begin("spmv.resolve")
         t0 = time.perf_counter()
         plan = _resolve_ell_kernel(A, config, device)
         result.plan_seconds = time.perf_counter() - t0
+        if profiling.on:
+            profiling.end(span)
         result.y = _execute(plan, x)
     except SpMVException as e:
         result.error_code = int(e.code)

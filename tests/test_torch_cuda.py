@@ -34,7 +34,8 @@ device while another is current (fault F9); one plan per lever group of
 the fuzz slice (``tpu_spmv_torch.soak.LEVER_CASES``) runs K1-K3 held to the
 plain versions on the CPU under the row bound and to the oracle; and
 PageRank's loop at tolerance 0 reads nothing back inside the loop and
-stops on a NaN residual (fault F10).  The headline benchmark's smoke
+stops on a NaN residual (fault F10), and a second call on one matrix
+takes the dangling mask the first uploaded.  The headline benchmark's smoke
 flow (``tpu_spmv_torch.bench --smoke``) runs on the card with STREAM
 measured and its guard held.
 """
@@ -1369,6 +1370,35 @@ def test_pagerank_loop_on_card_reads_back_once_f10(cuda_device, monkeypatch):
                        initial_ranks=r0)
         assert res.iterations == 1 and np.isnan(res.final_residual)
         assert np.isnan(res.ranks_host()).all()
+
+
+@pytest.mark.cuda
+def test_pagerank_on_card_uploads_the_mask_once(cuda_device):
+    """On a column-normalised graph with dangling nodes, the second call
+    takes the mask the first uploaded (its span counts 0, the cached
+    tensor is the same) and gives the same ranks bit for bit."""
+    from tpu_spmv_torch import profiling
+
+    A = transition_matrix(web_graph_csr(RandomGenerator(3), 4096, 4096, 4))
+    cfg = PageRankConfig(tolerance=1e-6)
+    key = ("_dangling", str(cuda_device))
+    profiling.clear()
+    try:
+        with profiling.recording():
+            first = pagerank(A, cfg)
+            mask = A._plan_cache[key]
+            second = pagerank(A, cfg)
+        counts = [s.count for s in profiling.spans()
+                  if s.name == "pagerank.mask"]
+    finally:
+        profiling.clear()
+    torch.cuda.synchronize()
+    assert first.error_code == second.error_code == 0
+    assert mask.device.type == "cuda" and float(mask.sum()) > 0
+    assert counts == [1, 0]
+    assert A._plan_cache[key].data_ptr() == mask.data_ptr()
+    assert first.iterations == second.iterations
+    assert torch.equal(first.ranks, second.ranks)
 
 
 @pytest.mark.cuda

@@ -374,3 +374,92 @@ def test_pagerank_keeps_the_requested_device_cpu():
     res = pagerank(A, PageRankConfig(max_iterations=3, tolerance=0.0),
                    initial_ranks=torch.full((300,), 1 / 300), device=CPU)
     assert res.ranks.device.type == "cpu" and res.iterations == 3
+
+
+@pytest.fixture
+def mask_builds(monkeypatch):
+    """Counts the calls of ``find_dangling_mask`` that ``pagerank`` makes
+    (the package's ``pagerank`` is the function, so the module is taken
+    from ``importlib``)."""
+    import importlib
+
+    module = importlib.import_module("tpu_spmv_torch.pagerank")
+
+    calls = []
+    real = module.find_dangling_mask
+
+    def counted(adj):
+        calls.append(adj)
+        return real(adj)
+
+    monkeypatch.setattr(module, "find_dangling_mask", counted)
+    return calls
+
+
+def test_second_call_reuses_the_dangling_mask(mask_builds):
+    """Two calls on one matrix give the same ranks, iterations and
+    residual bit for bit, and the mask is worked out once between them."""
+    A = column_normalized(np.random.default_rng(7), 300, 900)
+    cfg = PageRankConfig(tolerance=1e-6)
+    first = pagerank(A, cfg, device=CPU)
+    second = pagerank(A, cfg, device=CPU)
+    assert first.error_code == second.error_code == 0
+    assert len(mask_builds) == 1
+    assert torch.equal(first.ranks, second.ranks)
+    assert first.iterations == second.iterations > 1
+    assert first.final_residual == second.final_residual
+
+
+def test_free_device_drops_the_cached_mask(mask_builds):
+    A = column_normalized(np.random.default_rng(8), 200, 600)
+    cfg = PageRankConfig(tolerance=1e-6)
+    before = pagerank(A, cfg, device=CPU)
+    pagerank(A, cfg, device=CPU)
+    assert len(mask_builds) == 1
+    A.free_device()
+    after = pagerank(A, cfg, device=CPU)
+    assert len(mask_builds) == 2
+    assert torch.equal(before.ranks, after.ranks)
+
+
+def test_cached_mask_keeps_float32_cancellation():
+    """A column whose stored values cancel to 0.0 when summed in float32 in
+    storage order is dangling in the cached mask, as ``find_dangling_mask``
+    says: ``1 + 1e-8 - 1`` is 0.0 in float32 (not in float64), ``3 - 3``
+    is 0.0 in both."""
+    from tpu_spmv_torch.pagerank import find_dangling_mask
+
+    dense = np.zeros((5, 5), np.float32)
+    dense[0, 2], dense[1, 2], dense[2, 2] = 1.0, 1e-8, -1.0
+    dense[1, 3], dense[4, 3] = 3.0, -3.0
+    dense[3, 0] = dense[4, 1] = dense[0, 4] = 1.0
+    A = CSRMatrix.from_dense(dense)
+    expected = find_dangling_mask(A)
+    assert expected.tolist() == [0.0, 0.0, 1.0, 1.0, 0.0]
+    assert dense[:, 2].astype(np.float64).sum() != 0.0
+    cfg = PageRankConfig(max_iterations=5, tolerance=0.0)
+    first = pagerank(A, cfg, device=CPU)
+    cached = A._plan_cache[("_dangling", CPU)]
+    np.testing.assert_array_equal(cached.numpy(), expected)
+    np.testing.assert_array_equal(A._plan_cache["_dangling"], expected)
+    again = pagerank(A, cfg, device=CPU)
+    assert torch.equal(first.ranks, again.ranks)
+
+
+def test_mask_span_counts_builds():
+    """``pagerank.mask`` counts 1 on the call that made the mask, 0 on a
+    call that found it cached."""
+    from tpu_spmv_torch import profiling
+
+    A = column_normalized(np.random.default_rng(9), 200, 600)
+    cfg = PageRankConfig(max_iterations=3, tolerance=0.0)
+    profiling.clear()
+    try:
+        with profiling.recording():
+            pagerank(A, cfg, device=CPU)
+            pagerank(A, cfg, device=CPU)
+        counts = [s.count for s in profiling.spans()
+                  if s.name == "pagerank.mask"]
+    finally:
+        profiling.clear()
+    assert counts == [1, 0]

@@ -17,7 +17,8 @@ stream).
 
 Semantics kept from the JAX package and the reference:
 
-* dangling nodes are the columns with zero column sum, found once up front;
+* dangling nodes are the columns with zero column sum, found once per
+  matrix and device and cached on the matrix beside its plans;
 * the loop stops at the first iteration whose residual is not at least the
   tolerance (below it, or NaN), or after ``max_iterations``; the returned
   ranks are that iteration's ``r_new``, renormalised to sum 1;
@@ -162,6 +163,23 @@ def _iterate(spmv, mask: torch.Tensor, r: torch.Tensor, n: int,
     return it, ranks, float(residual)
 
 
+def _dangling_mask(A: CSRMatrix, device: torch.device) -> tuple:
+    """``find_dangling_mask(A)`` on ``device``, cached on the matrix as its
+    plans are: the host array under ``"_dangling"``, its device copy under
+    ``("_dangling", str(device))``.  Returns the device mask and 1 where
+    this call made the device copy (and the host array, if it was not
+    cached), 0 where it came from the cache."""
+    dkey = ("_dangling", str(device))
+    mask = A._plan_cache.get(dkey)
+    if mask is not None:
+        return mask, 0
+    if "_dangling" not in A._plan_cache:
+        A._plan_cache["_dangling"] = find_dangling_mask(A)
+    mask = guarded_upload(A._plan_cache["_dangling"], device)
+    A._plan_cache[dkey] = mask
+    return mask, 1
+
+
 @profiling.call_span("pagerank.call")
 def pagerank(adj_matrix: CSRMatrix | None,
              config: PageRankConfig | None = None, initial_ranks=None,
@@ -177,7 +195,14 @@ def pagerank(adj_matrix: CSRMatrix | None,
     ``SpMVConfig(pattern=True)`` and ``config.kernel_type``: a pattern plan
     (or banded stack) for column-scaled values, else the f32 plan, banded
     stack or composite; where the packed layout rejects the matrix,
-    SCALAR_CSR's (``tpu_spmv/pagerank.py:163-169``)."""
+    SCALAR_CSR's (``tpu_spmv/pagerank.py:163-169``).
+
+    The dangling mask is worked out on the first call for a matrix and
+    device and cached on the matrix with its plans (the span
+    ``pagerank.mask`` counts 1 where the call made it, 0 where it was
+    cached); as with the plans, a matrix changed in place needs
+    :meth:`~tpu_spmv_torch.csr.CSRMatrix.free_device` before the next
+    call."""
     result = PageRankResult()
     if adj_matrix is None:
         return result
@@ -205,9 +230,9 @@ def pagerank(adj_matrix: CSRMatrix | None,
                                        SpMVConfig(), device)
         if profiling.on:
             span = profiling.begin("pagerank.mask")
-        mask = guarded_upload(find_dangling_mask(adj_matrix)[:n], device)
+        mask, built = _dangling_mask(adj_matrix, device)
         if profiling.on:
-            profiling.end(span)
+            profiling.end(span, built)
         if initial_ranks is not None:
             r0 = initial_ranks if isinstance(initial_ranks, torch.Tensor) \
                 else torch.from_numpy(np.asarray(initial_ranks, np.float32))

@@ -1,4 +1,4 @@
-"""spmvbench: the benchmark of ``tpu_spmv_torch`` on one card.
+"""spmvbench: the benchmark of ``tpu_spmv_torch`` on one card or four.
 
     python3 -m spmvbench --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 

@@ -3,10 +3,20 @@ one client, closed.
 
 ``P`` is the column-normalised transition matrix of the configuration's
 graph (:func:`~spmvbench.reference.matrix.transition_matrix`).  The first
-call, in set-up, builds the plan the program caches on ``P``; each call of
-the window then pays what a user's call pays (the dangling mask on the
-host, its upload, the loop with its read-back each iteration), and the
-client waits for the ranks before the next call.
+call, in set-up, builds the plan the program caches on ``P``, with the
+dangling mask; each call of the window then pays what a user's later call
+pays (the plan and mask lookup, each iteration's issue and its read-back),
+and the client waits for the ranks before the next call.
+
+A cell on several devices (``Cell.devices``, one a chip of the cell; its
+configuration states the layout as ``shards``) ranks ``P`` row-sharded
+over them instead: set-up builds the mesh, ``shard_csr_packed(P, mesh,
+pattern=True)`` (nnz-balanced row blocks, one pattern window-ELL plan
+each) and ``find_dangling_mask(P)`` once, as a caller of
+``pagerank_sharded`` must, and makes the first call; each call of the
+window is ``pagerank_sharded`` (``x`` copied to every shard's card each
+iteration, the rows gathered to the first), and the client waits on the
+first card, where the ranks land.
 
 Outputs checked: ``check_outputs`` of the window's calls, a reservoir
 sample drawn from the seed.  Each call's ranks against the float64 power
@@ -73,16 +83,18 @@ def prepare(cell, run) -> State:
                                  tolerance=float(t["tolerance"]),
                                  max_iterations=int(t["max_iterations"]))
     dev = cell.device
+    t0 = time.perf_counter()
     if cell.control:
         def call(_, c, device):
             it, ranks = plain.pagerank_bf16(
                 P, float(t["damping"]), float(t["tolerance"]),
                 int(t["max_iterations"]), device)
             return ControlResult(ranks, it)
+    elif len(cell.devices) > 1:
+        call = _sharded(PA, cell)
     else:
         call = program.pagerank
     state = State(cell, P, PA, cfg, call)
-    t0 = time.perf_counter()
     first = call(PA, cfg, device=dev)
     _sync(dev)
     run.plan_s = time.perf_counter() - t0
@@ -92,6 +104,23 @@ def prepare(cell, run) -> State:
         call(PA, cfg, device=dev)
         _sync(dev)
     return state
+
+
+def _sharded(PA, cell):
+    """``pagerank_sharded`` over ``PA`` cut into a row block a device of
+    the cell, as a call of ``pagerank``'s signature."""
+    from tpu_spmv_torch.pagerank import find_dangling_mask
+    from tpu_spmv_torch.parallel import (make_row_mesh, pagerank_sharded,
+                                         shard_csr_packed)
+
+    mesh = make_row_mesh(devices=cell.devices)
+    sp = shard_csr_packed(PA, mesh, pattern=True)
+    mask = find_dangling_mask(PA)
+
+    def call(_, cfg, device):
+        return pagerank_sharded(sp, mask, cfg)
+
+    return call
 
 
 def window(state: State, seconds: float, run) -> None:
@@ -139,7 +168,8 @@ def run_calls(state: State, n: int, spans: list) -> int:
 
 
 def release(state: State) -> None:
-    """Drop the program's matrix and the plan cached on it."""
+    """Drop the program's matrix and the plans cached on it or held by a
+    sharded call, on every card."""
     state.PA = state.call = None
 
 

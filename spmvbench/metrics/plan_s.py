@@ -1,6 +1,7 @@
 """``plan_s``: the host plan build and upload of the first call in set-up:
 ``SpMVResult.plan_seconds``, or in a PageRank cell the first call's wall
-time (its one solve inside)."""
+time (its one solve inside; on a sharded cell with the shards' plans and
+the dangling mask made before it)."""
 
 
 def read(run):

@@ -13,14 +13,16 @@ A run makes the matrix and its vectors from the seed, hands them to
 ``tpu_spmv_torch`` (set-up: the first call builds and uploads the plan,
 then every shape is warmed up), runs the loop for ``--seconds`` seconds,
 and then, with ``--trace 1``, a bounded slice of the same calls under
-``torch.profiler``.  Once the window has closed it reads the memory peak,
-looks for JAX in ``sys.modules``, frees the program's state and holds a
-sample of the window's outputs, drawn from the seed, against the plain
-float64 reference (:mod:`spmvbench.reference.plain`).  It prints each
-number compared beside its limit as its last lines on standard error, and
-one JSON line last on standard output: ``correct``, ``attempted``,
-``failed``, ``metrics`` (the cell's end-to-end metrics, or with
-``--trace 1`` its per-layer ones), ``device``, with ``--trace 1``
+``torch.profiler``.  A cell on ``chips`` chips runs on the cards 0 to
+``chips - 1``; the loop finds them, with the configuration's dict, on its
+:class:`Cell`.  Once the window has closed it reads the memory peak (the
+fullest card's), looks for JAX in ``sys.modules``, frees the program's
+state and holds a sample of the window's outputs, drawn from the seed,
+against the plain float64 reference (:mod:`spmvbench.reference.plain`).
+It prints each number compared beside its limit as its last lines on
+standard error, and one JSON line last on standard output: ``correct``,
+``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
+with ``--trace 1`` its per-layer ones), ``device``, with ``--trace 1``
 ``breakdown``, and ``checks`` last.
 
 Without a CUDA device (or with fewer than the cell asks for) it exits 2
@@ -70,6 +72,7 @@ class Run:
     dispatch_ns: list = dataclasses.field(default_factory=list)
     iterations: list = dataclasses.field(default_factory=list)
     trace: object = None        # trace.Slice of the --trace 1 run
+    cards: int = 1              # the distinct devices the run used
 
 
 @dataclasses.dataclass
@@ -78,9 +81,11 @@ class Cell:
 
     traffic: dict
     matrix: object              # reference.matrix.Matrix
-    device: object              # torch.device
+    device: object              # torch.device: the first of ``devices``
     seed: int
     control: bool = False
+    config: dict = dataclasses.field(default_factory=dict)
+    devices: tuple = ()         # the run's devices, one a chip of the cell
 
 
 def load_module(path: str, tag: str):
@@ -132,12 +137,24 @@ def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
+def run_devices(device, chips: int) -> tuple:
+    """The devices of a run on ``chips`` chips: the cards 0 to ``chips -
+    1``, or ``device`` once a chip where it is not a card."""
+    import torch
+
+    if device.type != "cuda":
+        return (device,) * chips
+    return tuple(torch.device("cuda", i) for i in range(chips))
+
+
 def run_cell(root: str, workload: str, seed: int, seconds: float,
              traced: bool, device, start: float,
-             control: bool = False) -> tuple:
+             control: bool = False, devices=None) -> tuple:
     """One run; ``(result, checks)``, or ``(None, message)`` where JAX was
     loaded.  ``result`` is the JSON line's object without ``checks``;
-    ``checks`` maps each number compared to ``(value, limit)``."""
+    ``checks`` maps each number compared to ``(value, limit)``.  The run
+    uses ``devices`` (one a chip of the cell; by default
+    :func:`run_devices`), the matrix drawn on ``device``."""
     import torch
 
     bench, entry, _, config, traffic = resolve(root, workload)
@@ -146,21 +163,27 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
                       "generator_" + config["generator"])
     loop = load_module(find(root, "loops", traffic["loop"], ".py"),
                        "loop_" + traffic["loop"])
+    devices = tuple(run_devices(device, int(entry["chips"]))
+                    if devices is None else devices)
+    cards = list(dict.fromkeys(devices))
     cuda = device.type == "cuda"
     kind = torch.cuda.get_device_name(device) if cuda else device.type
     t0 = time.perf_counter()
     cell = Cell(traffic, law.generate(config, seed, device), device, seed,
-                control)
+                control, config, devices)
     m = cell.matrix
     if cuda:
         # the peak counts from here: the law's draws on the card are freed
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(device)
-    run = Run(traffic["loop"], m.num_rows, m.num_cols, m.nnz, kind)
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+    run = Run(traffic["loop"], m.num_rows, m.num_cols, m.nnz, kind,
+              cards=len(cards))
     t1 = time.perf_counter()
     state = loop.prepare(cell, run)
     if cuda:
-        torch.cuda.synchronize(device)
+        for d in cards:
+            torch.cuda.synchronize(d)
     t2 = time.perf_counter()
     run.setup_s = t2 - start
     print(f"spmvbench: set-up {run.setup_s:.3f} s: before the matrix "
@@ -172,11 +195,13 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         run.trace = trace.record(
             lambda n, spans: loop.run_calls(state, n, spans),
             traffic["trace_warmup"], traffic["trace_calls"],
-            traffic["trace_closing"])
+            traffic["trace_closing"],
+            tuple(d.index or 0 for d in cards) if cuda else (0,))
         print(f"spmvbench: trace: {run.trace.waits[0]} of "
               f"{run.trace.waits[1]} device synchronisations inside the "
               f"wait spans", file=sys.stderr, flush=True)
-    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    peak = max(torch.cuda.max_memory_allocated(d) for d in cards) \
+        if cuda else 0
     loop.release(state)
     checks = loop.check(state, run)
     correct = all(v <= lim for v, lim in checks.values())
@@ -194,7 +219,7 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
               "failed": run.failed, "metrics": metrics, "device": dev}
     if traced:
         t = run.trace
-        dev["busy_s"], dev["window_s"] = t.busy_s, t.window_s
+        dev["busy_s"], dev["window_s"] = t.card_busy_s, t.window_s
         result["breakdown"] = {
             "device_ops": [[n, us * 1e-6] for n, us in
                            trace.top_ops(t.device)],

@@ -1,6 +1,7 @@
 """Fixtures of the benchmark's CPU tests: a checkout root in a temporary
 directory that holds a copy of ``spmvbench`` and a ``BENCHMARK.json``
-whose cells are the real ones plus tiny cells of the same traffic mixes."""
+whose cells are the real ones plus tiny cells of the same traffic mixes
+(``tinygraphx4.pagerank`` on four shards, as ``graph500s20x4.pagerank``)."""
 
 import json
 import os
@@ -17,10 +18,12 @@ TINY = {
     "tinygraph": {"generator": "graph500", "scale": 11, "edgefactor": 8,
                   "a": 0.57, "b": 0.19, "c": 0.19, "structure_seed": 42},
 }
+TINY["tinygraphx4"] = {**TINY["tinygraph"], "shards": 4}
 # each tiny cell reports the metrics of the real cell of its mix
 TINY_CELLS = {"tiny.solve": "powerlaw262k.solve",
               "tinygraph.solve": "graph500s20.solve",
-              "tinygraph.pagerank": "graph500s20.pagerank"}
+              "tinygraph.pagerank": "graph500s20.pagerank",
+              "tinygraphx4.pagerank": "graph500s20x4.pagerank"}
 
 
 def make_root(path) -> str:
@@ -40,7 +43,8 @@ def make_root(path) -> str:
     for cell, real in TINY_CELLS.items():
         config, traffic = cell.split(".")
         bench["workloads"].append({"name": cell, "config": config,
-                                   "traffic": traffic, "chips": 1,
+                                   "traffic": traffic,
+                                   "chips": TINY[config].get("shards", 1),
                                    "why": "tests"})
         for group in ("end_to_end", "per_layer"):
             for m in bench[group]:

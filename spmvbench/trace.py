@@ -19,12 +19,15 @@ class Slice:
     """What the readers get from a traced slice.
 
     ``device``: ``(name, start, end)`` of every operation that ran on the
-    device (kernels, copies, fills); ``host``: ``(name, start, end)`` of the
-    benchmark's own spans; ``span``: the slice's ``(start, end)``;
-    ``calls``: the operations in it; ``spmvs``: the SpMVs they made;
-    ``waits``: of the CUDA runtime's device synchronisations in the slice,
-    how many lie inside the benchmark's wait spans, and how many there
-    are (the check that the two clocks agree)."""
+    device (kernels, copies, fills), on any of the run's cards; ``host``:
+    ``(name, start, end)`` of the benchmark's own spans; ``span``: the
+    slice's ``(start, end)``; ``calls``: the operations in it; ``spmvs``:
+    the SpMVs they made; ``waits``: of the CUDA runtime's device
+    synchronisations in the slice, how many lie inside the benchmark's
+    wait spans, and how many there are (the check that the two clocks
+    agree); ``card``: the card of each ``device`` event
+    (``FunctionEvent.device_index``; ``None``: all on the first of
+    ``cards``); ``cards``: the run's cards."""
 
     device: list
     host: list
@@ -32,6 +35,8 @@ class Slice:
     calls: int
     spmvs: int
     waits: tuple = (0, 0)
+    card: list = None
+    cards: tuple = (0,)
 
     @property
     def window_s(self) -> float:
@@ -39,7 +44,26 @@ class Slice:
 
     @property
     def busy_s(self) -> float:
+        """The union of the device events: some card busy."""
         return busy_us(self.device, *self.span) * 1e-6
+
+    def on_card(self, c: int) -> list:
+        """The ``device`` events of card ``c`` (all of them where the run
+        has one card)."""
+        if self.card is None or len(self.cards) == 1:
+            return list(self.device) if c == self.cards[0] else []
+        return [e for e, k in zip(self.device, self.card) if k == c]
+
+    @property
+    def card_busy_us(self) -> dict:
+        """Each card's busy time inside the slice's span, µs."""
+        return {c: busy_us(self.on_card(c), *self.span) for c in self.cards}
+
+    @property
+    def card_busy_s(self) -> float:
+        """The busy time a card, the mean over the run's cards."""
+        b = self.card_busy_us
+        return sum(b.values()) / len(b) * 1e-6
 
     @property
     def kernels(self) -> int:
@@ -102,11 +126,12 @@ def top_ops(events: list, k: int = 10) -> list:
     return sorted(by.items(), key=lambda kv: -kv[1])[:k]
 
 
-def record(run_calls, warm: int, n: int, closing: int) -> Slice:
+def record(run_calls, warm: int, n: int, closing: int,
+           cards: tuple = (0,)) -> Slice:
     """Trace ``run_calls(n, spans)`` (which returns the SpMVs it made and
     appends its spans to ``spans`` as ``(name, start, end)`` in
     ``time.time_ns()``) after ``run_calls(warm, [])`` and before
-    ``run_calls(closing, [])``, on the card.
+    ``run_calls(closing, [])``, on the cards ``cards`` (their indices).
 
     Only the device's activity is traced (with the CUDA runtime's calls),
     not the host's operators: recording each operator would slow the host
@@ -128,13 +153,14 @@ def record(run_calls, warm: int, n: int, closing: int) -> Slice:
         prof.step()
     t0 = prof.profiler.kineto_results.trace_start_ns()
     host = [(name, (s - t0) * 1e-3, (e - t0) * 1e-3) for name, s, e in spans]
-    device, syncs = [], []
+    device, card, syncs = [], [], []
     for e in prof.events():
         rng = (e.time_range.start, e.time_range.end)
         if e.device_type == DeviceType.CUDA:
             if not e.is_user_annotation \
                     and not e.name.startswith("ProfilerStep"):
                 device.append((e.name, *rng))
+                card.append(e.device_index)
         elif e.name == "cudaDeviceSynchronize":
             syncs.append(rng)
     if not host or not device:
@@ -143,4 +169,4 @@ def record(run_calls, warm: int, n: int, closing: int) -> Slice:
     inside = sum(1 for s, e in syncs
                  if any(h[1] <= s and e <= h[2] for h in waits))
     return Slice(device, host, (host[0][1], host[-1][2]), n, spmvs,
-                 (inside, len(syncs)))
+                 (inside, len(syncs)), card, tuple(cards))

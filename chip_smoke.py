@@ -1233,7 +1233,7 @@ def phase_reorder(dev, stream: float) -> tuple:
     from tpu_spmv_torch import spmv_auto_config, spmv_csr
     from tpu_spmv_torch.kernels import reorder as tr
     from tpu_spmv_torch.kernels.window_ell import setup_bytes
-    from tpu_spmv_torch.spmv import MEASURE_WARMUP, MERGE_SPLIT_ROWS
+    from tpu_spmv_torch.spmv import MEASURE_WARMUP
     from tpu_spmv_torch.timing import time_turns
     from tpu_spmv_torch.utils.testing import (RandomGenerator,
                                               scrambled_banded_csr,
@@ -1247,10 +1247,8 @@ def phase_reorder(dev, stream: float) -> tuple:
         f"{time.perf_counter() - t0:.1f} s)")
     cfg = spmv_auto_config(A)
     check(cfg.reorder is None, "the auto configuration probes reordering")
-    split = MERGE_SPLIT_ROWS if cfg.kernel_type == KernelType.MERGE_PATH \
-        else None
     t0 = time.perf_counter()
-    order = tr.maybe_reorder(A, split_rows=split)
+    order = tr.maybe_reorder(A)
     probe_s = time.perf_counter() - t0
     check(order is not None, "the reorder probe skipped the mesh")
     xd = torch.from_numpy(x).to(dev)

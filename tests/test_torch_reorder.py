@@ -142,24 +142,105 @@ def iid_web_graph(rows, cols):
     return jt.web_graph_csr(jt.RandomGenerator(42), rows, cols, avg_nnz=8.0)
 
 
+def mesh_matrix(scale, scramble=True):
+    """The benchmark's ``mesh1m`` law at ``2**scale`` points: the P1
+    stiffness matrix of a Delaunay mesh, numbered along a Morton curve in
+    128-vertex patches, the patches numbered at random where ``scramble``
+    (``spmvbench/generators/delaunay.py``)."""
+    from spmvbench.generators import delaunay
+
+    m = delaunay.generate({"scale": scale, "patch": 128,
+                           "structure_seed": 42, "scramble": scramble})
+    return tpu_spmv_torch.CSRMatrix(m.num_rows, m.num_cols, m.values,
+                                    m.col_indices, m.row_ptrs), m
+
+
+def graph500_matrix(scale):
+    """An undirected Graph500 graph of ``2**scale`` vertices, labels
+    permuted (the benchmark's ``graph500`` law, drawn on the CPU)."""
+    from spmvbench.generators import graph500
+
+    m = graph500.structure({"scale": scale, "edgefactor": 16, "a": 0.57,
+                            "b": 0.19, "c": 0.19}, 42, torch.device("cpu"))
+    return tpu_spmv_torch.CSRMatrix(m.num_rows, m.num_cols, m.values,
+                                    m.col_indices, m.row_ptrs)
+
+
 @pytest.mark.parametrize("which", ["banded", "banded_merge", "clustered_tiny",
-                                   "iid", "rectangular", "forced"])
+                                   "iid", "rectangular", "forced",
+                                   "narrow_mesh"])
 def test_probe_verdict_equals_jax(absorb_helper, which):
+    """The port's probe gives the JAX probe's verdict and order, but for
+    one stated departure (``narrow_mesh``): the JAX probe turns away every
+    matrix whose superblock choice is narrow before its packing model is
+    asked, and the port's asks the model.  The scrambled mesh at 2^16
+    points, its choice set narrow in JAX (what the selector picks from
+    2^18 points up), is admitted by the port alone, with the order JAX
+    forces.  The port's probe takes no superblock choice or merge-path
+    split (``banded_merge`` gives the split to JAX alone)."""
     if which in ("iid", "rectangular"):
         jA = iid_web_graph(65536, 65536 if which == "iid" else 32768)
         A = to_port(jA)
+    elif which == "narrow_mesh":
+        A, _ = mesh_matrix(16)
+        jA = to_jax(A)
     else:
         A = port_matrix(CLUSTERED_8K if which == "clustered_tiny"
                         else BANDED_65K)
         jA = to_jax(A)
-    kw = {"split_rows": 128} if which == "banded_merge" else {}
-    if which == "forced":
-        kw = {"force": True}
-    got, ref = tr.maybe_reorder(A, **kw), jr.maybe_reorder(jA, **kw)
+    kw = {"force": True} if which == "forced" else {}
+    jkw = {"split_rows": 128} if which == "banded_merge" \
+        else {"choice": (tplan.SUP_LEVELS[0], 0)} if which == "narrow_mesh" \
+        else kw
+    got, ref = tr.maybe_reorder(A, **kw), jr.maybe_reorder(jA, **jkw)
+    if which == "narrow_mesh":
+        assert got is not None and ref is None
+        nat, prm = tr.reorder_gain(A, got)
+        assert prm <= 0.75 * nat
+        assert np.array_equal(got, jr.maybe_reorder(jA, force=True))
+        return
     applies = which in ("banded", "banded_merge", "forced")
     assert (got is not None) == (ref is not None) == applies
     if applies:
         assert np.array_equal(got, ref)
+
+
+def test_spmv_csr_serves_the_narrow_scrambled_mesh_reordered():
+    """At 2^18 points (1,834,952 nonzeros) the selector picks the narrow
+    superblock for the scrambled mesh; ``spmv_csr`` under
+    ``spmv_auto_config`` still serves it through a ``ReorderedPlan``, which
+    streams fewer slots than the natural plan, and its output is within
+    the row bound of the benchmark's plain float64 product."""
+    from spmvbench.reference import plain
+
+    A, m = mesh_matrix(18)
+    assert A.nnz == 1_834_952
+    cfg = tpu_spmv_torch.spmv_auto_config(A)
+    assert tplan._choose_sup(A, split_rows=128) == tplan.SUP_LEVELS[0]
+    x = torch.from_numpy(tt.RandomGenerator(7).vector(A.num_cols))
+    res = tpu_spmv_torch.spmv_csr(A, x, cfg, device="cpu")
+    assert res.error_code == 0 and isinstance(res.plan, tr.ReorderedPlan)
+    natural = tpu_spmv_torch.spmv_csr(A, x, SpMVConfig(
+        kernel_type=cfg.kernel_type, reorder=False), device="cpu").plan
+    assert not isinstance(natural, tr.ReorderedPlan)
+    assert res.plan.n_groups < natural.n_groups
+    op = plain.Operator(m, "cpu")
+    y64, scale = op.matvec(x), op.matvec(x, absolute=True)
+    diff = (res.y.double() - y64).abs()
+    assert bool((diff <= ROW_TOL * torch.clamp(scale, min=1.0)).all())
+
+
+@pytest.mark.parametrize("which", ["mesh_unscrambled", "graph500"])
+def test_probe_turns_down_what_hides_no_locality(which):
+    """Without a width gate the packing model alone turns these down, as
+    it does the iid and non-square cases above: the mesh in its Morton
+    numbering (already local) and a Graph500-law graph (labels
+    permuted)."""
+    A = mesh_matrix(16, scramble=False)[0] if which == "mesh_unscrambled" \
+        else graph500_matrix(13)
+    nat, prm = tr.reorder_gain(A, tr.block_order(A))
+    assert prm > tr.GAIN_THRESHOLD * nat
+    assert tr.maybe_reorder(A) is None
 
 
 def test_probe_env_disable(monkeypatch):

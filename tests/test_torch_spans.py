@@ -12,10 +12,13 @@ torch = pytest.importorskip("torch")
 
 from torch.profiler import ProfilerActivity, profile, schedule  # noqa: E402
 
-from tpu_spmv_torch import (ELLMatrix, PageRankConfig, pagerank,  # noqa: E402
-                            profiling, spmv_auto_config, spmv_csr, spmv_ell)
-from tpu_spmv_torch.utils.testing import (RandomGenerator,  # noqa: E402
-                                          transition_matrix, web_graph_csr)
+from tpu_spmv_torch import (DeviceCSR, ELLMatrix, KernelType,  # noqa: E402
+                            PageRankConfig, SpMVConfig, pagerank, profiling,
+                            spmv_auto_config, spmv_csr, spmv_ell)
+from tpu_spmv_torch.kernels.window_ell import BandedPlan  # noqa: E402
+from tpu_spmv_torch.spmv import launches_per_call  # noqa: E402
+from tpu_spmv_torch.utils.testing import (  # noqa: E402
+    RandomGenerator, scrambled_banded_csr, transition_matrix, web_graph_csr)
 
 CPU = "cpu"
 
@@ -249,3 +252,90 @@ def test_launch_total_sums_the_launch_counters(monkeypatch):
         twe.window_ell_fold.launches[v] = 10 * (k + 1)
     assert kernels.launch_total() == sum(kernels.launch_counts().values()) \
         == 2 + 3 + 4 + 10 + 20 + 30
+
+
+@pytest.fixture
+def banded_mesh():
+    """A scrambled banded matrix the reorder probe admits, and a vector
+    (made for each test: the plans are cached on the matrix)."""
+    rng = RandomGenerator(42)
+    A = scrambled_banded_csr(rng, 16384, 1024, 6.0)
+    return A, torch.from_numpy(rng.vector(A.num_cols))
+
+
+def reordered_call(banded_mesh, monkeypatch, banded):
+    """``spmv_csr`` of the planted mesh through its reordered plan, the
+    inner plan one window-ELL plan or (the group cap lowered under it) a
+    row-banded stack, at step width 8."""
+    from tpu_spmv_torch.kernels import plan as tplan
+    from tpu_spmv_torch.kernels import reorder as tr
+
+    A, x = banded_mesh
+    cfg = SpMVConfig(kernel_type=KernelType.VECTOR_CSR, block_size=16)
+    if banded:
+        single, _ = tr.build_reordered_host(A, step_groups=8)
+        monkeypatch.setattr(tplan, "MAX_GROUPS", single.n_groups - 8)
+    res = spmv_csr(A, x, cfg, device=CPU)
+    assert res.error_code == 0 and isinstance(res.plan, tr.ReorderedPlan)
+    assert isinstance(res.plan.inner, BandedPlan) == banded
+    return res
+
+
+@pytest.mark.parametrize("banded, permutes", [(True, 2), (False, 0)])
+def test_a_reordered_call_records_its_permutes(banded_mesh, monkeypatch,
+                                               banded, permutes):
+    """``spmv.reorder`` sits inside ``spmv.launch``; its count is the
+    standalone chunk permutes it made: two around a banded inner stack,
+    none where the table's set-up and K2's tile map take them."""
+    with profiling.recording():
+        res = reordered_call(banded_mesh, monkeypatch, banded)
+    spans = profiling.spans()
+    assert [s.name for s in spans] == ["spmv.call", "spmv.resolve",
+                                       "spmv.launch", "spmv.reorder"]
+    launch, reorder = spans[2:]
+    assert reorder.parent == 2 and reorder.call == launch.call
+    assert launch.start_ns <= reorder.start_ns <= reorder.end_ns \
+        <= launch.end_ns
+    # K3 launches a table set-up a window-ELL plan, and the permutes
+    inner = res.plan.inner
+    setups = len(inner.plans) if banded else 1
+    assert reorder.count == permutes \
+        == launches_per_call(res.plan)["permute_chunks"] - setups
+    # the resolve span counts the groups of the plan that served
+    assert spans[1].count == res.plan.inner.n_groups == res.plan.n_groups
+
+
+@pytest.mark.parametrize("route", ["csr", "ell", "flat", "reorder off",
+                                   "pagerank"])
+def test_no_other_route_records_a_reorder(case, graph, banded_mesh, route):
+    """The plan of each other route, and the groups its resolve span
+    counts: a single plan's, the ELL route's, none on the flat path, the
+    natural plan of a matrix the probe would admit; PageRank records no
+    ``spmv.*`` span."""
+    with profiling.recording():
+        if route == "pagerank":
+            assert pagerank(graph, device=CPU).error_code == 0
+        elif route == "reorder off":
+            A, x = banded_mesh
+            res = spmv_csr(A, x, SpMVConfig(
+                kernel_type=KernelType.VECTOR_CSR, reorder=False),
+                device=CPU)
+        elif route == "flat":
+            A, x, _ = case
+            res = spmv_csr(A, x, SpMVConfig(
+                kernel_type=KernelType.ELL_KERNEL), device=CPU)
+        else:
+            res = call(case, route)
+    spans = profiling.spans()
+    assert spans and "spmv.reorder" not in by_name(spans)
+    if route == "pagerank":
+        assert not any(s.name.startswith("spmv.") for s in spans)
+        return
+    assert res.error_code == 0
+    resolve = [s for s in spans if s.name == "spmv.resolve"]
+    assert len(resolve) == 1
+    if route == "flat":
+        assert isinstance(res.plan, DeviceCSR) and resolve[0].count is None
+    else:
+        assert not isinstance(res.plan, DeviceCSR)
+        assert resolve[0].count == res.plan.n_groups > 0

@@ -193,25 +193,21 @@ def _cached(A: CSRMatrix, key: tuple, device: torch.device, make):
 
 def _host_plan(A: CSRMatrix, split: int | None, config: SpMVConfig):
     """The host plan for ``A`` in the order of ``tpu_spmv/spmv.py:156-205``:
-    up to ``VMEM_X_MAX_COLS`` columns the reorder probe (once per
-    ``split``), the reordered build where the probe applies and the
-    permuted matrix packs, else ``build_auto``'s plan or banded stack; past
-    that width, or where that overflows, the composite plan (its levels f32,
-    as in the JAX package).  Returns ``(plan, block order)``: the order is
-    ``None`` for a plan of ``A``'s own rows."""
+    up to ``VMEM_X_MAX_COLS`` columns the reorder probe (once a matrix; the
+    port's probe, unlike the JAX one, does not ask the superblock choice),
+    the reordered build where the probe applies and the permuted matrix
+    packs, else ``build_auto``'s plan or banded stack at the superblock
+    choice (once per ``split``); past that width, or where that overflows,
+    the composite plan (its levels f32, as in the JAX package).  Returns
+    ``(plan, block order)``: the order is ``None`` for a plan of ``A``'s own
+    rows."""
     vdt = "bfloat16" if config.bf16_values else "float32"
     if A.num_cols <= VMEM_X_MAX_COLS:
-        skey = ("_sup", split)
-        if skey not in A._plan_cache:   # O(nnz) sampled model — cache
-            A._plan_cache[skey] = _choose_sup(A, with_groups=True,
-                                              split_rows=split)
         if config.reorder is not False:
-            # the verdict depends on the split-dependent superblock choice
-            rkey = ("_reorder", bool(config.reorder), split)
+            rkey = ("_reorder", bool(config.reorder))
             if rkey not in A._plan_cache:   # O(nnz) probe — cache
                 A._plan_cache[rkey] = maybe_reorder(
-                    A, choice=A._plan_cache[skey],
-                    force=config.reorder is True, split_rows=split)
+                    A, force=config.reorder is True)
             order = A._plan_cache[rkey]
             if order is not None:
                 try:
@@ -220,6 +216,10 @@ def _host_plan(A: CSRMatrix, split: int | None, config: SpMVConfig):
                                                 values_dtype=vdt)
                 except WindowEllOverflow:
                     pass   # the permuted matrix packs in no layout
+        skey = ("_sup", split)
+        if skey not in A._plan_cache:   # O(nnz) sampled model — cache
+            A._plan_cache[skey] = _choose_sup(A, with_groups=True,
+                                              split_rows=split)
         try:
             return build_auto(A, step_groups=config.step_groups,
                               split_rows=split, choice=A._plan_cache[skey],
@@ -380,6 +380,18 @@ def launches_per_call(plan: Plan) -> dict:
     return counts
 
 
+def _packed_groups(plan: Plan) -> int | None:
+    """The packed groups (1,024 slots each) ``plan`` streams a call, summed
+    over the bands, levels or strips of a stack; ``None`` on a flat path
+    (CSR or ELL).  The dispatch gives it to its ``spmv.resolve`` span as
+    the span's count."""
+    if isinstance(plan, (DeviceCSR, DeviceELL)):
+        return None
+    if isinstance(plan, PatternPlan):
+        plan = plan.plan
+    return plan.n_groups
+
+
 def _execute(plan: Plan, x: torch.Tensor) -> torch.Tensor:
     """:func:`_run` for the dispatch: a route that runs out of device
     memory raises :class:`DeviceException` (``EXECUTION``), logged as a
@@ -464,7 +476,7 @@ def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
                                        device)
         result.plan_seconds = time.perf_counter() - t0
         if profiling.on:
-            profiling.end(span)
+            profiling.end(span, _packed_groups(plan))
         result.y = _execute(plan, x)
     except SpMVException as e:
         result.error_code = int(e.code)
@@ -598,7 +610,7 @@ def spmv_ell(A: ELLMatrix | None, x, config: SpMVConfig | None = None,
         plan = _resolve_ell_kernel(A, config, device)
         result.plan_seconds = time.perf_counter() - t0
         if profiling.on:
-            profiling.end(span)
+            profiling.end(span, _packed_groups(plan))
         result.y = _execute(plan, x)
     except SpMVException as e:
         result.error_code = int(e.code)

@@ -35,12 +35,18 @@ the fuzz slice (``tpu_spmv_torch.soak.LEVER_CASES``) runs K1-K3 held to the
 plain versions on the CPU under the row bound and to the oracle; and
 PageRank's loop at tolerance 0 reads nothing back inside the loop and
 stops on a NaN residual (fault F10), and a second call on one matrix
-takes the dangling mask the first uploaded.  The headline benchmark's smoke
+takes the dangling mask the first uploaded.  The dispatch's captured call
+(the headline-class matrix, a banded stack, the reordered banded mesh)
+equals the eager call bit for bit over 16 ``x``, returns a tensor of its
+own each call, counts the plan's launches on its first, second and tenth
+call, runs eagerly on another stream, and records ``spmv.graph`` (1 a
+replay) and the reordered plan's ``spmv.reorder``.  The headline benchmark's smoke
 flow (``tpu_spmv_torch.bench --smoke``) runs on the card with STREAM
 measured and its guard held.
 """
 
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -891,6 +897,198 @@ def test_launch_span_counts_the_plans_launches(cuda_device, matrix,
     profiling.clear()
     assert len(launch) == 1
     assert launch[0].count == sum(launches_per_call(plan).values()) > 0
+
+# ---- the dispatch's captured call ----
+
+GRAPH_CASES = ["headline", "banded", "reordered-banded"]
+
+
+def graph_case(name: str, monkeypatch, dev):
+    """``(call, plan, A, xs)``: ``call(x)`` serves ``x`` through the
+    dispatch's launch (``_execute``, with a plan cache of its own), each
+    call a recorded root where anything records; ``plan`` is served; 16
+    different ``x`` on ``dev``.  The headline-class power-law matrix
+    through ``spmv_csr`` (one window-ELL plan), a banded stack, and the
+    reordered banded mesh."""
+    from tpu_spmv_torch import profiling
+    from tpu_spmv_torch.spmv import _execute, _resolve_csr_kernel
+
+    if name == "headline":
+        A = RandomGenerator(42).power_law_csr(8192, 2048, 12.0, 1.6)
+        cfg = spmv_auto_config(A)
+        # the plan the calls will serve, resolved (and cached) without a
+        # call, so that the first call is the plan's first
+        plan = _resolve_csr_kernel(A, KernelType(cfg.kernel_type), cfg, dev)
+
+        def call(x):
+            res = spmv_csr(A, x, cfg)
+            assert res.error_code == 0
+            return res.y
+    else:
+        upload, A, _ = stack_case(name, monkeypatch)
+        plan, cache = upload(dev), {}
+
+        def call(x):
+            with profiling.annotate("spmv.call"):
+                return _execute(plan, x, cache)
+    xs = [torch.from_numpy(RandomGenerator(100 + k).vector(A.num_cols)).to(
+        dev) for k in range(16)]
+    assert isinstance(plan, (twe.WindowEllPlan, twe.BandedPlan,
+                             tr.ReorderedPlan))
+    return call, plan, A, xs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRAPH_CASES)
+def test_replayed_call_equals_eager_bit_for_bit(cuda_device, monkeypatch,
+                                                name):
+    """Over 16 different ``x`` the dispatch's calls (the first eager, the
+    second captured, the rest replayed) equal the plan's eager run bit for
+    bit; each call returns a tensor of its own, and every earlier ``y``
+    keeps its values through 16 later calls."""
+    from tpu_spmv_torch.spmv import _run
+
+    call, plan, A, xs = graph_case(name, monkeypatch, cuda_device)
+    ys = [call(x) for x in xs]
+    eager = [_run(plan, x) for x in xs]
+    more = [call(x) for x in reversed(xs)]
+    torch.cuda.synchronize()
+    assert len({y.data_ptr() for y in ys + more}) == 2 * len(xs)
+    for y, e in zip(ys, eager):
+        assert torch.equal(y, e)
+    for y, e in zip(more, reversed(eager)):
+        assert torch.equal(y, e)
+    assert spmv_matches(ys[-1].cpu().numpy(), A, xs[-1].cpu().numpy(),
+                        rel_tol=ROW_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRAPH_CASES)
+def test_graph_calls_count_the_plans_launches(cuda_device, monkeypatch,
+                                              name):
+    """``launch_counts()`` moves by the plan's ``launches_per_call`` on
+    the first (eager), second (captured) and tenth (replayed) call."""
+    call, plan, A, xs = graph_case(name, monkeypatch, cuda_device)
+    want = launches_per_call(plan)
+    expect = {"window_ell_fold": want["fold"], "window_ell_fold_bf16": 0,
+              "window_ell_fold_pattern": 0,
+              **{k: want[k] for k in ("section_epilogue", "unpermute",
+                                      "permute_chunks")}}
+    assert expect["window_ell_fold"] > 0
+    for k in range(1, 11):
+        before = tk.launch_counts()
+        call(xs[k % len(xs)])
+        after = tk.launch_counts()
+        if k in (1, 2, 10):
+            assert {n: after[n] - before[n] for n in after} == expect, k
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRAPH_CASES)
+def test_a_call_on_another_stream_runs_eagerly(cuda_device, monkeypatch,
+                                               name):
+    """Once captured, a call made on another current stream than the
+    capture's runs the plan eagerly there (``spmv.graph`` counts 0) and is
+    correct; the next call on the capture's stream replays."""
+    from tpu_spmv_torch import profiling
+    from tpu_spmv_torch.spmv import _run
+
+    call, plan, A, xs = graph_case(name, monkeypatch, cuda_device)
+    call(xs[0])
+    call(xs[1])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    profiling.clear()
+    with profiling.recording():
+        with torch.cuda.stream(side):
+            y = call(xs[2])
+        torch.cuda.current_stream().wait_stream(side)
+        again = call(xs[2])
+    torch.cuda.synchronize()
+    counts = [s.count for s in profiling.spans() if s.name == "spmv.graph"]
+    profiling.clear()
+    assert counts == [0, 1]
+    assert torch.equal(y, again) and torch.equal(y, _run(plan, xs[2]))
+    assert spmv_matches(y.cpu().numpy(), A, xs[2].cpu().numpy(),
+                        rel_tol=ROW_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRAPH_CASES)
+def test_graph_span_counts_replays(cuda_device, monkeypatch, name):
+    """``spmv.graph`` counts 0 on the eager first call and on the
+    capture, 1 on each replay, inside ``spmv.launch``, whose count stays
+    the plan's launches; a reordered banded plan's ``spmv.reorder`` counts
+    its two standalone permutes on every call, replays too."""
+    from tpu_spmv_torch import profiling
+
+    call, plan, A, xs = graph_case(name, monkeypatch, cuda_device)
+    profiling.clear()
+    with profiling.recording():
+        for x in xs[:4]:
+            call(x)
+    torch.cuda.synchronize()
+    spans = profiling.spans()
+    profiling.clear()
+    by = {n: [s for s in spans if s.name == n]
+          for n in ("spmv.launch", "spmv.graph", "spmv.reorder")}
+    assert [s.count for s in by["spmv.graph"]] == [0, 0, 1, 1]
+    assert [s.count for s in by["spmv.launch"]] \
+        == [sum(launches_per_call(plan).values())] * 4
+    assert all(spans[s.parent].name == "spmv.launch"
+               for s in by["spmv.graph"])
+    permutes = [s.count for s in by["spmv.reorder"]]
+    assert permutes == ([2] * 4 if name == "reordered-banded" else [])
+
+
+@pytest.mark.cuda
+def test_threads_sharing_a_captured_plan_get_their_own_products(
+        cuda_device, monkeypatch):
+    """Sixteen threads, more than the host's cores, call ``spmv_csr`` on
+    one captured plan at once under a short switch interval: every call's
+    ``y`` equals the eager product of its own ``x`` (no two calls in
+    flight share the graph's static buffers), and some calls replayed."""
+    import threading
+
+    from tpu_spmv_torch.spmv import CallGraph, _run
+
+    call, plan, A, xs = graph_case("headline", monkeypatch, cuda_device)
+    want = [_run(plan, x) for x in xs]
+    call(xs[0])
+    call(xs[1])
+    served = []
+    replay = CallGraph.__call__
+
+    def counted(self, x):
+        y = replay(self, x)
+        served.append(y is not None)
+        return y
+
+    monkeypatch.setattr(CallGraph, "__call__", counted)
+    got = []
+
+    def work(t):
+        for k in range(40):
+            i = (7 * t + k) % len(xs)
+            got.append((i, call(xs[i])))
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(16)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert len(got) == 16 * 40 and any(served)
+    for i, y in got:
+        assert torch.equal(y, want[i]), i
+
 
 # ---- the ELL dispatch, plan files and the harness on the card ----
 

@@ -7,7 +7,8 @@ the flat path (:mod:`.scalar`, plain PyTorch ops).
 
 Each kernel counts its launches in an attribute of a wrapper, ``launches``
 (for K1's fold a dict per value stream); :func:`launch_counts` reads them
-all, :func:`launch_total` sums them, and :func:`reset_launch_counts` sets
+all, :func:`launch_total` sums them, :func:`add_launch_counts` adds the
+launches a replayed CUDA graph made, and :func:`reset_launch_counts` sets
 them to 0."""
 
 from .reorder import ReorderedPlan, build_reordered, spmv_reordered
@@ -24,7 +25,7 @@ __all__ = [
     "build_strips", "spmv_strips", "ReorderedPlan", "build_reordered",
     "spmv_reordered", "spmv_csr_scalar", "FOLD_VARIANTS", "permute_chunks",
     "section_epilogue", "unpermute", "window_ell_fold", "launch_counts",
-    "launch_total", "reset_launch_counts",
+    "launch_total", "add_launch_counts", "reset_launch_counts",
 ]
 
 
@@ -54,3 +55,14 @@ def launch_total() -> int:
     return (sum(window_ell_fold.launches.values())
             + section_epilogue.launches + unpermute.launches
             + permute_chunks.launches)
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` (keyed as :func:`launch_counts` gives them) to the
+    kernels' counters: a replayed CUDA graph launches the kernels it
+    captured without their wrappers, which count each launch."""
+    for v, name in FOLD_VARIANTS.items():
+        window_ell_fold.launches[v] += counts[name]
+    section_epilogue.launches += counts["section_epilogue"]
+    unpermute.launches += counts["unpermute"]
+    permute_chunks.launches += counts["permute_chunks"]

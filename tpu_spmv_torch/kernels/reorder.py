@@ -280,22 +280,27 @@ def spmv_reordered(rp: ReorderedPlan, x: torch.Tensor) -> torch.Tensor:
     to ``num_rows``.  On a banded inner plan each gather is a
     :func:`permute_chunks` (K3) around :func:`~.window_ell.spmv_banded`.
     Recorded as the span ``spmv.reorder``, whose count is the standalone
-    :func:`permute_chunks` calls it made: 2 on a banded inner plan, else
-    0."""
+    :func:`permute_chunks` calls it made (:func:`standalone_permutes`)."""
     if profiling.on:
         span = profiling.begin("spmv.reorder")
     if isinstance(rp.inner, BandedPlan):
         xp = permute_chunks(x, rp.col_src, rp.inner.num_cols)
         y = permute_chunks(spmv_banded(rp.inner, xp), rp.row_src,
                            rp.num_rows)
-        permutes = 2
     else:
         table = gather_table(rp.inner, x, rp.col_src)
         y = spmv_on_table(rp.inner, table, rp.row_src, rp.num_rows)
-        permutes = 0
     if profiling.on:
-        profiling.end(span, permutes)
+        profiling.end(span, standalone_permutes(rp))
     return y
+
+
+def standalone_permutes(rp: ReorderedPlan) -> int:
+    """The :func:`permute_chunks` calls of their own that one
+    :func:`spmv_reordered` makes: 2 on a banded inner plan (``x`` into the
+    block order, the rows back), else 0 (the table's set-up and K2's tile
+    map take both gathers)."""
+    return 2 if isinstance(rp.inner, BandedPlan) else 0
 
 
 def _check_maps(col_src: np.ndarray, row_src: np.ndarray, num_rows: int,

@@ -33,6 +33,20 @@ fails to launch (:class:`~tpu_spmv_torch.errors.DeviceException`) ends the
 call with ``EXECUTION`` too, and one that fails to build, like any other
 error, propagates.
 
+On the card the dispatch replays a plan's call as one CUDA graph
+(:class:`CallGraph`) wherever the plan's whole call is the port's kernels
+and torch ops that never wait on the host (:func:`graphable`: a window-ELL
+plan, a banded stack, a pattern plan over either, a reordered plan over
+either).  A matrix's first call on such a plan runs eagerly, the second
+captures it, and every later call copies ``x`` in, replays the graph and
+copies ``y`` out into a tensor of its own: the same kernels in the same
+order, so the output is the eager call's bit for bit.  The graph is cached
+on the matrix beside its plan (``free_device()`` drops both).  A call on
+another stream than the capture's, or while another thread holds the
+graph's buffers, runs eagerly; a plan whose capture fails runs eagerly
+from then on, logged once.  ``measure=True``'s timed calls and PageRank's
+SpMVs run the plan eagerly.
+
 ``spmv_ell`` routes an :class:`~tpu_spmv_torch.ell.ELLMatrix` as the JAX
 ``_resolve_ell_kernel`` does (``tpu_spmv/spmv.py:557-591``): up to
 ``VMEM_X_MAX_COLS`` columns the pattern route of its CSR form where
@@ -45,10 +59,12 @@ slot-major flat ELL path (:mod:`.kernels.ell_kernel`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import logging
 import os
+import threading
 import time
 
 import numpy as np
@@ -61,13 +77,13 @@ from .ell import DeviceELL, ELLMatrix
 from . import profiling
 from .errors import (DeviceException, SpMVError, SpMVException,
                      guarded_upload)
-from .kernels import launch_total
+from .kernels import add_launch_counts, launch_counts, launch_total
 from .kernels.plan import (WindowEllOverflow, _choose_sup, build,
                            build_auto, build_composite)
 from .kernels.ell_kernel import spmv_ell_device
 from .kernels.reorder import (ReorderedPlan, build_reordered_host,
                               maybe_reorder, reordered_from_host,
-                              spmv_reordered)
+                              spmv_reordered, standalone_permutes)
 from .kernels.scalar import spmv_csr_scalar
 from .kernels.strips import (STRIP_MAX_COLS, HostStrips, StripPlan,
                              build_strips_host, spmv_strips,
@@ -76,6 +92,7 @@ from .kernels.window_ell import (BandedPlan, CompositePlan, WindowEllPlan,
                                  spmv_banded, spmv_composite, spmv_pattern,
                                  spmv_pattern_banded, spmv_window_ell,
                                  upload)
+from .kernels.window_ell import _current_stream
 
 # the JAX package's column caps (TPU VMEM limits), kept so both packages
 # route the same matrices the same way; ROADMAP M13 revisits them
@@ -392,17 +409,143 @@ def _packed_groups(plan: Plan) -> int | None:
     return plan.n_groups
 
 
-def _execute(plan: Plan, x: torch.Tensor) -> torch.Tensor:
-    """:func:`_run` for the dispatch: a route that runs out of device
-    memory raises :class:`DeviceException` (``EXECUTION``), logged as a
+def graphable(plan: Plan) -> bool:
+    """Whether the dispatch captures ``plan``'s call in a CUDA graph: a
+    plan whose whole :func:`_run` is the port's kernels and torch ops that
+    never wait on the host, by its type (a window-ELL plan, a banded stack,
+    a pattern plan over either, a reordered plan over either).  The flat
+    paths, column strips and composite plans run eagerly."""
+    if isinstance(plan, PatternPlan):
+        plan = plan.plan
+    elif isinstance(plan, ReorderedPlan):
+        plan = plan.inner
+    return isinstance(plan, (WindowEllPlan, BandedPlan))
+
+
+class CallGraph:
+    """One call of ``plan`` captured in a CUDA graph on ``x``'s device.
+
+    The capture runs :func:`_run` on a side stream into the graph's private
+    memory pool, over a static ``x`` of ``x``'s shape, and keeps the call's
+    output, the port's kernels it launched (``launches``, as
+    :func:`~tpu_spmv_torch.kernels.launch_counts` gives them; the wrappers
+    count them once, at the capture) and the stream it serves: the one
+    current on the device at the capture.  Nothing runs on the card until
+    a call.  The span recorder records nothing during the capture.  Raises
+    where the capture fails, its stream's capture ended."""
+
+    def __init__(self, plan: Plan, x: torch.Tensor):
+        self.device = x.get_device()
+        self.stream = _current_stream(self.device)
+        self.permutes = standalone_permutes(plan) \
+            if isinstance(plan, ReorderedPlan) else None
+        self.lock = threading.Lock()
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        recording, profiling.on = profiling.on, False
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(x.device)):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.x = torch.empty(x.shape, dtype=x.dtype,
+                                         device=x.device)
+                    self.y = _run(plan, self.x)
+                except BaseException:
+                    with contextlib.suppress(RuntimeError):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+        finally:
+            profiling.on = recording
+        after = launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after}
+        self.graph = graph
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor | None:
+        """``y`` for ``x``: ``x`` copied into the static input, the graph
+        replayed, the output copied into a fresh tensor, all on the current
+        stream; recorded as ``spmv.reorder`` around the replay where the
+        plan is reordered (its count the standalone permutes the graph
+        runs).  ``None``, with nothing done, where the current stream is
+        not the capture's or another thread holds the static buffers."""
+        if _current_stream(self.device) != self.stream \
+                or not self.lock.acquire(blocking=False):
+            return None
+        try:
+            self.x.copy_(x)
+            if profiling.on and self.permutes is not None:
+                span = profiling.begin("spmv.reorder")
+                self.graph.replay()
+                profiling.end(span, self.permutes)
+            else:
+                self.graph.replay()
+            return self.y.clone()
+        finally:
+            self.lock.release()
+
+
+def _served(plan: Plan, x: torch.Tensor, cache: dict) -> tuple:
+    """``(y, replayed)`` for a :func:`graphable` plan on the card, its
+    graph cached in ``cache`` (the matrix's plan cache) under ``("_graph",
+    id(plan))`` beside the plan: the first call eagerly; the second
+    captured and replayed; later calls replayed (``replayed`` 1, each
+    captured kernel counted as launched), or eagerly where the graph cannot
+    serve them.  A capture that fails on a CUDA error or a launch error
+    leaves the plan eager for good, logged once as a warning; out of
+    memory there ends the call."""
+    key = ("_graph", id(plan))
+    held = cache.get(key)
+    if held is None or held[0] is not plan:
+        cache[key] = (plan, None)
+        return _run(plan, x), 0
+    graph, replayed = held[1], 1
+    if graph is None:
+        try:
+            graph = CallGraph(plan, x)
+        except torch.OutOfMemoryError:
+            raise
+        except (RuntimeError, DeviceException) as e:
+            log.warning("spmv: %s not captured in a CUDA graph (%s); its "
+                        "calls run eagerly", type(plan).__name__, e,
+                        exc_info=True)
+            graph = False
+        cache[key] = (plan, graph)
+        replayed = 0    # the capture counted the launches once
+    y = graph(x) if graph else None
+    if y is None:
+        return _run(plan, x), 0
+    if replayed:
+        add_launch_counts(graph.launches)
+    return y, replayed
+
+
+def _execute(plan: Plan, x: torch.Tensor,
+             cache: dict | None = None) -> torch.Tensor:
+    """:func:`_run` for the dispatch, through the plan's CUDA graph
+    (:func:`_served`) where ``cache`` (the matrix's plan cache) is given,
+    ``x`` is on the card, the plan is :func:`graphable` and the caller is
+    not capturing a graph of its own (which then takes the eager launches).
+    A route that runs out of device memory, eagerly, at the capture or at a
+    replay, raises :class:`DeviceException` (``EXECUTION``), logged as a
     warning; no other route is tried.  Recorded as the span
-    ``spmv.launch``, whose count is the port's kernels launched in it
-    (:func:`~tpu_spmv_torch.kernels.launch_total`)."""
+    ``spmv.launch``, whose count is the port's kernels the call ran
+    (:func:`~tpu_spmv_torch.kernels.launch_total`, a replay's counted as
+    launched), and inside it, where the graph serves, the span
+    ``spmv.graph``, whose count is 1 where the call replayed the graph and
+    0 where it ran eagerly or captured it."""
     if profiling.on:
         span = profiling.begin("spmv.launch")
         launched = launch_total()
     try:
-        y = _run(plan, x)
+        if cache is not None and x.is_cuda and graphable(plan) \
+                and not torch.cuda.is_current_stream_capturing():
+            if profiling.on:
+                graph_span = profiling.begin("spmv.graph")
+            y, replayed = _served(plan, x, cache)
+            if profiling.on:
+                profiling.end(graph_span, replayed)
+        else:
+            y = _run(plan, x)
     except torch.OutOfMemoryError as e:
         log.warning("spmv: %s ran out of device memory (%s)",
                     type(plan).__name__, e)
@@ -477,7 +620,7 @@ def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
         result.plan_seconds = time.perf_counter() - t0
         if profiling.on:
             profiling.end(span, _packed_groups(plan))
-        result.y = _execute(plan, x)
+        result.y = _execute(plan, x, A._plan_cache)
     except SpMVException as e:
         result.error_code = int(e.code)
         return result
@@ -611,7 +754,7 @@ def spmv_ell(A: ELLMatrix | None, x, config: SpMVConfig | None = None,
         result.plan_seconds = time.perf_counter() - t0
         if profiling.on:
             profiling.end(span, _packed_groups(plan))
-        result.y = _execute(plan, x)
+        result.y = _execute(plan, x, A._plan_cache)
     except SpMVException as e:
         result.error_code = int(e.code)
         return result

@@ -43,7 +43,7 @@ PAGERANK = r"""
 import json, statistics, sys, time
 import numpy as np, torch
 from tpu_spmv_torch import PageRankConfig, pagerank
-from tpu_spmv_torch.spmv import _run
+from tpu_spmv_torch.spmv import run_plan
 from tpu_spmv_torch.utils.testing import (RandomGenerator, transition_matrix,
                                           web_graph_csr)
 n, iters = 262144, 30
@@ -76,7 +76,8 @@ for _ in range(CALLS):
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    it, _, _ = pr._iterate(lambda r: _run(plan, r)[:n], mask, r0, n, 0.85,
+    it, _, _ = pr._iterate(lambda r: run_plan(plan, r)[:n], mask, r0, n,
+                           0.85,
                            0.0, iters)
     stop.record()
     stop.synchronize()

@@ -300,7 +300,7 @@ def profile(label: str, A, x, changes: dict, calls: int, dev,
     from tpu_spmv_torch.kernels.reorder import ReorderedPlan
     from tpu_spmv_torch.kernels.window_ell import BandedPlan
     from tpu_spmv_torch.spmv import PatternPlan, launches_per_call
-    from tpu_spmv_torch.spmv import _run as run_plan
+    from tpu_spmv_torch.spmv import run_plan
 
     cfg = dataclasses.replace(spmv_auto_config(A), **changes)
     xd = torch.from_numpy(x).to(dev)
@@ -408,7 +408,7 @@ def sharded(calls: int, dev) -> None:
                                          shard_csr_packed, shard_csr_ring,
                                          spmv_csr_ring, spmv_csr_sharded,
                                          spmv_csr_sharded_packed)
-    from tpu_spmv_torch.spmv import _run as run_plan
+    from tpu_spmv_torch.spmv import run_plan
     from tpu_spmv_torch.spmv import launches_per_call
 
     A, x, twin, L, xl = cs.sharded_matrices()

@@ -830,11 +830,11 @@ def repeat_and_yardstick(what: str, res, xd, A, dev,
     yardstick only)."""
     import torch
 
-    from tpu_spmv_torch.spmv import _run
+    from tpu_spmv_torch.spmv import run_plan
     from tpu_spmv_torch.timing import time_turns
 
     plan = res.plan
-    again = _run(plan, xd)
+    again = run_plan(plan, xd)
     torch.cuda.synchronize()
     check(torch.equal(res.y, again),
           f"{what}: not bit-identical across two calls")
@@ -843,7 +843,7 @@ def repeat_and_yardstick(what: str, res, xd, A, dev,
         return
     M = cusparse(A, dev)
     us = [t * 1e6 for t in time_turns(
-        [lambda: _run(plan, xd), lambda: M @ xd], iters=ITERS,
+        [lambda: run_plan(plan, xd), lambda: M @ xd], iters=ITERS,
         samples=SAMPLES)]
     log(f"{what}: bit-identical across two calls; in turns {us[0]:.2f} "
         f"us/call, cuSPARSE {us[1]:.2f} us/call (a yardstick only)")
@@ -1344,7 +1344,7 @@ def phase_banded(dev, stream: float, A, x, rp):
 
     from tpu_spmv_torch import spmv_auto_config
     from tpu_spmv_torch.kernels.window_ell import BandedPlan
-    from tpu_spmv_torch.spmv import _run
+    from tpu_spmv_torch.spmv import run_plan
     from tpu_spmv_torch.timing import time_turns
     from tpu_spmv_torch.utils.testing import RandomGenerator, web_graph_csr
 
@@ -1354,8 +1354,8 @@ def phase_banded(dev, stream: float, A, x, rp):
     bp = res.plan
     check(len(bp.plans) >= 2, f"the natural mesh in {len(bp.plans)} band")
     hold_stack(bp, A, x, dev, "mesh natural")
-    us = [t * 1e6 for t in time_turns([lambda: _run(bp, xd),
-                                       lambda: _run(rp, xd)],
+    us = [t * 1e6 for t in time_turns([lambda: run_plan(bp, xd),
+                                       lambda: run_plan(rp, xd)],
                                       iters=ITERS, samples=SAMPLES)]
     log(f"mesh natural against reordered, in turns (median of {SAMPLES} x "
         f"{ITERS} calls): natural ({len(bp.plans)} bands, {bp.n_groups} "
@@ -1388,7 +1388,7 @@ def phase_pagerank_1m(dev, stream: float, W) -> None:
     from tpu_spmv_torch import PageRankConfig, pagerank
     from tpu_spmv_torch import kernels as tk
     from tpu_spmv_torch.kernels.window_ell import BandedPlan
-    from tpu_spmv_torch.spmv import _run
+    from tpu_spmv_torch.spmv import run_plan
     from tpu_spmv_torch.timing import time_cuda
     from tpu_spmv_torch.utils.testing import transition_matrix
 
@@ -1440,7 +1440,7 @@ def phase_pagerank_1m(dev, stream: float, W) -> None:
     log("PageRank 1M plan: " + json.dumps(describe(pp)))
     actual = pp.stream_bytes / (ms_iter / 1e3) / 1e9
     check(actual <= 1.02 * stream, f"physics guard: PageRank 1M {actual:.1f}")
-    spmv_us = time_cuda(lambda: _run(pp, res.ranks), iters=ITERS,
+    spmv_us = time_cuda(lambda: run_plan(pp, res.ranks), iters=ITERS,
                         samples=SAMPLES) * 1e6
     log(f"PageRank 1M SpMV alone (the pattern-banded plan, its scale "
         f"multiply and join): {spmv_us:.2f} us/call over CUDA events "
@@ -1557,7 +1557,7 @@ def phase_ell(dev, stream: float, A, x) -> None:
                                 spmv_auto_config, spmv_csr)
     from tpu_spmv_torch.kernels.strips import StripPlan
     from tpu_spmv_torch.kernels.window_ell import WindowEllPlan
-    from tpu_spmv_torch.spmv import PatternPlan, _run
+    from tpu_spmv_torch.spmv import PatternPlan, run_plan
     from tpu_spmv_torch.utils.testing import (RandomGenerator,
                                               spmv_matches, stencil_csr)
 
@@ -1596,7 +1596,7 @@ def phase_ell(dev, stream: float, A, x) -> None:
     best = WindowEllPlan.autotune(A, x, split_rows=128, widths=(128, 384),
                                   device=dev, report=report)
     tune_s = time.perf_counter() - t0
-    y = _run(best, xd).cpu().numpy()
+    y = run_plan(best, xd).cpu().numpy()
     check(spmv_matches(y, A, x, rel_tol=REL_TOL),
           "autotune's winner vs the CPU oracle")
     log("autotune (headline, split_rows=128): "
@@ -1647,7 +1647,7 @@ def plan_file_round_trip(what: str, plan, xd, tmp: str) -> None:
     import torch
 
     from tpu_spmv_torch import load_plan, save_plan
-    from tpu_spmv_torch.spmv import _run
+    from tpu_spmv_torch.spmv import run_plan
 
     path = os.path.join(tmp, what + ".npz")
     t0 = time.perf_counter()
@@ -1658,7 +1658,7 @@ def plan_file_round_trip(what: str, plan, xd, tmp: str) -> None:
     t2 = time.perf_counter()
     check(type(loaded) is type(plan) and loaded is not plan,
           f"{what}: load_plan gave a {type(loaded).__name__}")
-    y, y_loaded = _run(plan, xd), _run(loaded, xd)
+    y, y_loaded = run_plan(plan, xd), run_plan(loaded, xd)
     torch.cuda.synchronize()
     check(y_loaded.device == xd.device and torch.equal(y, y_loaded),
           f"{what}: the loaded plan's output differs from the saved plan's")
@@ -2065,7 +2065,7 @@ def phase_sharded(dev) -> None:
                                          shard_csr_packed, shard_csr_ring,
                                          spmv_csr_ring, spmv_csr_sharded,
                                          spmv_csr_sharded_packed)
-    from tpu_spmv_torch.spmv import PatternPlan, _run
+    from tpu_spmv_torch.spmv import PatternPlan, run_plan
     from tpu_spmv_torch.utils.testing import (RandomGenerator,
                                               transition_matrix,
                                               web_graph_csr)
@@ -2083,7 +2083,7 @@ def phase_sharded(dev) -> None:
     res = spmv_csr(A, xd, cfg, device=dev)
     check(res.error_code == 0, f"sharded: the single plan, error "
           f"{res.error_code}")
-    single = lambda: _run(res.plan, xd)  # noqa: E731
+    single = lambda: run_plan(res.plan, xd)  # noqa: E731
     log(f"sharded: the single plan ({type(res.plan).__name__}) in "
         f"{res.plan_seconds:.2f} s")
 

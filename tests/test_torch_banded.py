@@ -35,6 +35,7 @@ from tpu_spmv_torch import (KernelType, PageRankConfig,  # noqa: E402
                             SpMVConfig)
 from tpu_spmv_torch.errors import InvalidFormatError  # noqa: E402
 from tpu_spmv_torch.kernels import plan as tplan  # noqa: E402
+from tpu_spmv_torch.kernels.reorder import HostReordered  # noqa: E402
 from tpu_spmv_torch.kernels import window_ell as twe  # noqa: E402
 from tpu_spmv_torch.pagerank import column_scale_factor  # noqa: E402
 from tpu_spmv_torch.spmv import PatternPlan  # noqa: E402
@@ -288,8 +289,8 @@ def test_dispatch_bands_oversized_plans_as_jax(absorb_helper, monkeypatch,
     assert isinstance(res.plan, twe.BandedPlan) and len(res.plan.plans) >= 2
     fn, jplan = jA._plan_cache[(int(kernel_type), 8, False, None)]
     assert fn is jwe.spmv_banded
-    host, order = A._plan_cache[("host", int(kernel_type), 8, False, None)]
-    assert order is None
+    host = A._plan_cache[("host", int(kernel_type), 8, False, None)]
+    assert not isinstance(host, HostReordered)
     assert_banded_equal(jplan, host)
     assert_row_bound(res.y_host(), np.asarray(jres.y), A, x)
     assert spmv_matches(res.y_host(), A, x, rel_tol=ROW_TOL)

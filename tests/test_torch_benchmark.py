@@ -126,8 +126,8 @@ def test_benchmark_csr_times_the_dispatch_plan(kt):
                                      / 1e9)
     # the plan the harness timed is the one spmv_csr serves (cached on A)
     res = tpu_spmv_torch.spmv_csr(A, x, cfg, device=CPU)
-    assert res.plan is tspmv._resolve_csr_kernel(A, KernelType[kt], cfg,
-                                                 torch.device(CPU))
+    assert res.plan is tspmv.resolve_csr(A, KernelType[kt], cfg,
+                                         torch.device(CPU))
 
 
 def test_benchmark_csr_bf16_checks_at_its_rounding():
@@ -162,8 +162,8 @@ def test_benchmark_ell(pattern):
 def test_correct_reports_a_wrong_plan(monkeypatch):
     A = power_law()
     x = RandomGenerator(7).vector(A.num_cols)
-    real = tbench._run
-    monkeypatch.setattr(tbench, "_run", lambda p, v: real(p, v) * 1.001)
+    real = tbench.run_plan
+    monkeypatch.setattr(tbench, "run_plan", lambda p, v: real(p, v) * 1.001)
     assert not tpu_spmv_torch.benchmark_csr(A, x, bench_config=FAST,
                                             device=CPU).correct
 

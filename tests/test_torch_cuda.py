@@ -769,13 +769,13 @@ def test_stacked_spmv_on_card_matches_plain_route(cuda_device, monkeypatch,
     route on the CPU (under the row bound) and the oracle; two calls on the
     card agree bit for bit; the launches are the plan's
     (``launches_per_call``)."""
-    from tpu_spmv_torch.spmv import _run, launches_per_call
+    from tpu_spmv_torch.spmv import launches_per_call, run_plan
 
     upload, A, x = stack_case(name, monkeypatch)
     plan, cpu_plan = upload(cuda_device), upload("cpu")
     xd = torch.from_numpy(x).to(cuda_device)
     tk.reset_launch_counts()
-    y = _run(plan, xd)
+    y = run_plan(plan, xd)
     torch.cuda.synchronize()
     counts = tk.launch_counts()
     want = launches_per_call(plan)
@@ -784,11 +784,11 @@ def test_stacked_spmv_on_card_matches_plain_route(cuda_device, monkeypatch,
                                    "permute_chunks")} \
         == {k: want[k] for k in ("section_epilogue", "unpermute",
                                  "permute_chunks")}
-    again = _run(plan, xd)
+    again = run_plan(plan, xd)
     torch.cuda.synchronize()
     assert torch.equal(y, again)
     y = y.cpu().numpy()
-    y_plain = _run(cpu_plan, torch.from_numpy(x)).numpy()
+    y_plain = run_plan(cpu_plan, torch.from_numpy(x)).numpy()
     bound = ROW_TOL * np.maximum(abs_row_scale(A, x), 1.0)
     assert np.all(np.abs(y - y_plain) <= bound)
     assert spmv_matches(y, A, x, rel_tol=ROW_TOL)
@@ -847,20 +847,20 @@ def test_stacked_call_is_captured_in_a_cuda_graph(cuda_device, monkeypatch,
     a reordered banded stack) captured in a CUDA graph and replayed gives
     the eager call's output bit for bit: nothing in it syncs with the host
     or allocates from a size read back from the card."""
-    from tpu_spmv_torch.spmv import _run
+    from tpu_spmv_torch.spmv import run_plan
 
     upload, A, x = stack_case(name, monkeypatch)
     plan = upload(cuda_device)
     xd = torch.from_numpy(x).to(cuda_device)
-    eager = _run(plan, xd)
+    eager = run_plan(plan, xd)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        _run(plan, xd)
+        run_plan(plan, xd)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = _run(plan, xd)
+        out = run_plan(plan, xd)
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, eager)
@@ -911,14 +911,14 @@ def graph_case(name: str, monkeypatch, dev):
     through ``spmv_csr`` (one window-ELL plan), a banded stack, and the
     reordered banded mesh."""
     from tpu_spmv_torch import profiling
-    from tpu_spmv_torch.spmv import _execute, _resolve_csr_kernel
+    from tpu_spmv_torch.spmv import _execute, resolve_csr
 
     if name == "headline":
         A = RandomGenerator(42).power_law_csr(8192, 2048, 12.0, 1.6)
         cfg = spmv_auto_config(A)
         # the plan the calls will serve, resolved (and cached) without a
         # call, so that the first call is the plan's first
-        plan = _resolve_csr_kernel(A, KernelType(cfg.kernel_type), cfg, dev)
+        plan = resolve_csr(A, KernelType(cfg.kernel_type), cfg, dev)
 
         def call(x):
             res = spmv_csr(A, x, cfg)
@@ -946,11 +946,11 @@ def test_replayed_call_equals_eager_bit_for_bit(cuda_device, monkeypatch,
     second captured, the rest replayed) equal the plan's eager run bit for
     bit; each call returns a tensor of its own, and every earlier ``y``
     keeps its values through 16 later calls."""
-    from tpu_spmv_torch.spmv import _run
+    from tpu_spmv_torch.spmv import run_plan
 
     call, plan, A, xs = graph_case(name, monkeypatch, cuda_device)
     ys = [call(x) for x in xs]
-    eager = [_run(plan, x) for x in xs]
+    eager = [run_plan(plan, x) for x in xs]
     more = [call(x) for x in reversed(xs)]
     torch.cuda.synchronize()
     assert len({y.data_ptr() for y in ys + more}) == 2 * len(xs)
@@ -992,7 +992,7 @@ def test_a_call_on_another_stream_runs_eagerly(cuda_device, monkeypatch,
     capture's runs the plan eagerly there (``spmv.graph`` counts 0) and is
     correct; the next call on the capture's stream replays."""
     from tpu_spmv_torch import profiling
-    from tpu_spmv_torch.spmv import _run
+    from tpu_spmv_torch.spmv import run_plan
 
     call, plan, A, xs = graph_case(name, monkeypatch, cuda_device)
     call(xs[0])
@@ -1009,7 +1009,7 @@ def test_a_call_on_another_stream_runs_eagerly(cuda_device, monkeypatch,
     counts = [s.count for s in profiling.spans() if s.name == "spmv.graph"]
     profiling.clear()
     assert counts == [0, 1]
-    assert torch.equal(y, again) and torch.equal(y, _run(plan, xs[2]))
+    assert torch.equal(y, again) and torch.equal(y, run_plan(plan, xs[2]))
     assert spmv_matches(y.cpu().numpy(), A, xs[2].cpu().numpy(),
                         rel_tol=ROW_TOL)
 
@@ -1051,10 +1051,10 @@ def test_threads_sharing_a_captured_plan_get_their_own_products(
     flight share the graph's static buffers), and some calls replayed."""
     import threading
 
-    from tpu_spmv_torch.spmv import CallGraph, _run
+    from tpu_spmv_torch.spmv import CallGraph, run_plan
 
     call, plan, A, xs = graph_case("headline", monkeypatch, cuda_device)
-    want = [_run(plan, x) for x in xs]
+    want = [run_plan(plan, x) for x in xs]
     call(xs[0])
     call(xs[1])
     served = []
@@ -1204,7 +1204,7 @@ def test_plan_saved_and_loaded_on_card_is_bit_identical(cuda_device,
     and tile maps derived again from the stored arrays) gives the saved
     plan's output bit for bit."""
     from tpu_spmv_torch import load_plan, save_plan
-    from tpu_spmv_torch.spmv import _run
+    from tpu_spmv_torch.spmv import run_plan
 
     if kind in ("banded", "strips"):
         upload, A, x = stack_case(kind, monkeypatch)
@@ -1225,7 +1225,7 @@ def test_plan_saved_and_loaded_on_card_is_bit_identical(cuda_device,
     loaded = load_plan(path)
     assert type(loaded) is type(plan)
     xd = torch.from_numpy(x).to(cuda_device)
-    y, y_loaded = _run(plan, xd), _run(loaded, xd)
+    y, y_loaded = run_plan(plan, xd), run_plan(loaded, xd)
     torch.cuda.synchronize()
     assert y_loaded.device.type == "cuda" and torch.equal(y, y_loaded)
 

@@ -76,10 +76,10 @@ def oom() -> torch.OutOfMemoryError:
 
 
 def fail_port(monkeypatch, failing: set, error=None) -> list:
-    """The port's ``_run`` raising ``error`` (an injected out-of-memory
+    """The port's ``run_plan`` raising ``error`` (an injected out-of-memory
     error by default) on the routes in ``failing``; returns the list of
     routes tried, filled as the call goes."""
-    tried, real = [], tspmv._run
+    tried, real = [], tspmv.run_plan
 
     def run(plan, x):
         tried.append(route(plan))
@@ -87,7 +87,7 @@ def fail_port(monkeypatch, failing: set, error=None) -> list:
             raise error if error is not None else oom()
         return real(plan, x)
 
-    monkeypatch.setattr(tspmv, "_run", run)
+    monkeypatch.setattr(tspmv, "run_plan", run)
     return tried
 
 

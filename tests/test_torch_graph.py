@@ -21,7 +21,7 @@ from tpu_spmv_torch.kernels import plan as tplan  # noqa: E402
 from tpu_spmv_torch.kernels import reorder as tr  # noqa: E402
 from tpu_spmv_torch.kernels import strips as ts  # noqa: E402
 from tpu_spmv_torch.kernels import window_ell as twe  # noqa: E402
-from tpu_spmv_torch.spmv import (PatternPlan, _run, _served,  # noqa: E402
+from tpu_spmv_torch.spmv import (PatternPlan, _served, run_plan,  # noqa: E402
                                  graphable)
 from tpu_spmv_torch.utils.testing import (RandomGenerator,  # noqa: E402
                                           scrambled_banded_csr,
@@ -146,7 +146,7 @@ class StandIn:
         if not StandIn.serve:
             return None
         self.calls += 1
-        return _run(self.plan, x)
+        return run_plan(self.plan, x)
 
 
 @pytest.fixture

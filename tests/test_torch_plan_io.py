@@ -34,10 +34,11 @@ from tpu_spmv_torch import CSRMatrix, load_plan, save_plan  # noqa: E402
 from tpu_spmv_torch.errors import (DeviceAllocError,  # noqa: E402
                                    FileIOError, InvalidFormatError)
 from tpu_spmv_torch.kernels import plan as tplan  # noqa: E402
+from tpu_spmv_torch.kernels import upload  # noqa: E402
 from tpu_spmv_torch.kernels import reorder as tr  # noqa: E402
 from tpu_spmv_torch.kernels import strips as tst  # noqa: E402
 from tpu_spmv_torch.kernels import window_ell as twe  # noqa: E402
-from tpu_spmv_torch.spmv import _run  # noqa: E402
+from tpu_spmv_torch.spmv import run_plan  # noqa: E402
 from tpu_spmv_torch.utils.testing import (RandomGenerator,  # noqa: E402
                                           abs_row_scale, spmv_matches,
                                           web_graph_csr)
@@ -119,10 +120,10 @@ KINDS = {
                 None),
     "banded": (lambda: web_graph_csr(RandomGenerator(42), 6000, 2100,
                                      avg_nnz=9),
-               lambda A: twe.upload(tplan.build_banded(
+               lambda A: upload(tplan.build_banded(
                    A, sup=1024, n_bands=3, spill_beta=2.6, step_groups=S),
                    CPU), None),
-    "composite": (power_law, lambda A: twe.upload(split_composite(A), CPU),
+    "composite": (power_law, lambda A: upload(split_composite(A), CPU),
                   None),
     "strips": (lambda: web_graph_csr(RandomGenerator(42), 3000, 4096,
                                      avg_nnz=9),
@@ -174,8 +175,8 @@ def test_round_trip_is_bit_identical(kind, tmp_path):
     assert type(loaded) is type(plan)
     assert_same(plan, loaded)
     x = torch.from_numpy(RandomGenerator(7).vector(A.num_cols))
-    y = _run(plan, x)
-    assert torch.equal(y, _run(loaded, x))
+    y = run_plan(plan, x)
+    assert torch.equal(y, run_plan(loaded, x))
     tol = 8e-3 if kind == "bf16" else ROW_TOL
     assert spmv_matches(y.numpy(), (computes or (lambda M: M))(A),
                         x.numpy(), rel_tol=tol)
@@ -200,11 +201,11 @@ def test_host_plan_saves_as_its_upload(kind, tmp_path):
     path = str(tmp_path / "host.npz")
     save_plan(host, path)
     up = tst.strips_from_host(host, CPU) if kind == "HostStrips" \
-        else twe.upload(host, CPU)
+        else upload(host, CPU)
     loaded = load_plan(path, CPU)
     assert_same(up, loaded)
     x = torch.from_numpy(RandomGenerator(7).vector(A.num_cols))
-    assert torch.equal(_run(up, x), _run(loaded, x))
+    assert torch.equal(run_plan(up, x), run_plan(loaded, x))
 
 
 def assert_row_bound(y, y_ref, A, x):
@@ -244,7 +245,7 @@ def test_jax_file_loads_in_the_port(absorb_helper, kind, tmp_path):
     jio.save_plan(jplan, path)
     plan = load_plan(path, CPU)
     x = RandomGenerator(7).vector(A.num_cols)
-    y = _run(plan, torch.from_numpy(x)).numpy()
+    y = run_plan(plan, torch.from_numpy(x)).numpy()
     y_jax = np.asarray(jfn(jplan, jnp.asarray(x)))[:A.num_rows]
     tol = 8e-3 if kind == "bf16" else ROW_TOL
     if kind == "bf16":
@@ -274,7 +275,7 @@ def test_port_file_loads_in_jax(kind, tmp_path):
     save_plan(plan, path)
     jplan = jio.load_plan(path)
     x = RandomGenerator(7).vector(A.num_cols)
-    y = _run(plan, torch.from_numpy(x)).numpy()
+    y = run_plan(plan, torch.from_numpy(x)).numpy()
     y_jax = np.asarray(PORT_TO_JAX[kind](jplan, jnp.asarray(x)))
     assert_row_bound(y_jax[:A.num_rows], y, (computes or (lambda M: M))(A),
                      x)
@@ -365,7 +366,7 @@ def test_t_base_round_trip_and_legacy_default(tmp_path):
     old = twe.WindowEllPlan.load(legacy, CPU)
     assert old.tb == tplan.T_BASE == jio.load_plan(legacy).tb
     x = torch.from_numpy(RandomGenerator(7).vector(A.num_cols))
-    assert torch.equal(_run(old, x), _run(plan8, x))
+    assert torch.equal(run_plan(old, x), run_plan(plan8, x))
 
 
 def test_load_without_a_card_raises(tmp_path, monkeypatch):

@@ -186,7 +186,7 @@ def test_a_failed_launch_closes_its_spans(case, monkeypatch, cap):
     def out_of_memory(plan, x):
         raise torch.OutOfMemoryError("planted")
 
-    monkeypatch.setattr(tspmv, "_run", out_of_memory)
+    monkeypatch.setattr(tspmv, "run_plan", out_of_memory)
     if cap is not None:
         monkeypatch.setattr(profiling, "SPAN_CAP", cap)
     A, x, cfg = case

@@ -39,6 +39,7 @@ from tpu_spmv_torch import (CSRMatrix, DeviceCSR, KernelType,  # noqa: E402
                             PageRankConfig, SpMVConfig)
 from tpu_spmv_torch.errors import InvalidFormatError  # noqa: E402
 from tpu_spmv_torch.kernels import plan as tplan  # noqa: E402
+from tpu_spmv_torch.kernels.reorder import HostReordered  # noqa: E402
 from tpu_spmv_torch.kernels import strips as tst  # noqa: E402
 from tpu_spmv_torch.kernels import window_ell as twe  # noqa: E402
 from tpu_spmv_torch.kernels.scalar import spmv_csr_scalar  # noqa: E402
@@ -320,9 +321,8 @@ def test_wide_columns_route_to_composite_as_jax(absorb_helper):
     assert isinstance(res.plan, twe.CompositePlan)
     fn, jcp = jA._plan_cache[(int(KernelType.MERGE_PATH), 8, False, None)]
     assert fn is jwe.spmv_composite
-    host, order = A._plan_cache[("host", int(KernelType.MERGE_PATH), 8, False,
-                                 None)]
-    assert order is None
+    host = A._plan_cache[("host", int(KernelType.MERGE_PATH), 8, False, None)]
+    assert not isinstance(host, HostReordered)
     assert_composite_equal(jcp, host)
     assert_row_bound(res.y_host(), np.asarray(jres.y), A, x)
     assert spmv_matches(res.y_host(), A, x, rel_tol=ROW_TOL)
@@ -360,7 +360,7 @@ def test_guard_rejection_serves_composite_as_jax(absorb_helper, monkeypatch):
     reject_build_auto(monkeypatch)
     kt = KernelType.MERGE_PATH
     cfg = SpMVConfig(kernel_type=kt, block_size=16)
-    plan = tspmv._resolve_csr_kernel(A, kt, cfg, torch.device(CPU))
+    plan = tspmv.resolve_csr(A, kt, cfg, torch.device(CPU))
     assert isinstance(plan, twe.CompositePlan)
     jA = to_jax(A)
     fn, (jcp,) = jspmv._resolve_csr_kernel(
@@ -369,7 +369,7 @@ def test_guard_rejection_serves_composite_as_jax(absorb_helper, monkeypatch):
                             block_size=16))
     assert fn is jwe.spmv_composite
     assert_composite_equal(jcp, A._plan_cache[("host", int(kt), 8, False,
-                                               None)][0])
+                                               None)])
     res = tpu_spmv_torch.spmv_csr(A, x, cfg, device=CPU)
     assert res.error_code == 0 and res.plan is plan
     assert spmv_matches(res.y_host(), A, x, rel_tol=ROW_TOL)

@@ -57,7 +57,7 @@ from .kernels.scalar import spmv_csr_scalar
 from .kernels.window_ell import plan_from_host, spmv_pattern, spmv_window_ell
 from .pagerank import PageRankConfig, pagerank
 from .selector import spmv_auto_config
-from .spmv import (MERGE_SPLIT_ROWS, KernelType, _run, spmv_csr,
+from .spmv import (MERGE_SPLIT_ROWS, KernelType, run_plan, spmv_csr,
                    spmv_ell)
 from .timing import time_cuda, time_runs
 from .utils.testing import (RandomGenerator, spmv_matches, stencil_csr,
@@ -257,7 +257,7 @@ def stencil_gb_s(g: int, xe: np.ndarray, clock: Clock, iters: int) -> float:
         secs = r.elapsed_ms / 1e3
     else:
         xd = guarded_upload(xe, clock.device)
-        secs = clock.seconds(lambda: _run(r.plan, xd), iters)
+        secs = clock.seconds(lambda: run_plan(r.plan, xd), iters)
     gbs = _ell_bytes(n, n, E.max_nnz_per_row) / secs / 1e9
     log(f"ELL 5-pt stencil {g}^2: {secs*1e6:.1f} us -> {gbs:.1f} GB/s "
         "(ELL byte model)")
@@ -280,7 +280,7 @@ def web_gb_s(W: CSRMatrix, xw: np.ndarray, clock: Clock) -> float:
         secs = r.elapsed_ms / 1e3
     else:
         xd = guarded_upload(xw, clock.device)
-        secs = clock.seconds(lambda: _run(r.plan, xd), WEB_ITERS)
+        secs = clock.seconds(lambda: run_plan(r.plan, xd), WEB_ITERS)
     gbs = model_bytes(W.num_rows, W.num_cols, W.nnz) / secs / 1e9
     log(f"web graph {W.num_rows}: {secs*1e3:.3f} ms -> {gbs:.1f} GB/s "
         f"(byte model), {type(r.plan).__name__}, total "

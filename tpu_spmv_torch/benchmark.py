@@ -31,10 +31,9 @@ from .bandwidth import compute_bandwidth_csr, compute_bandwidth_ell
 from .csr import CSRMatrix
 from .ell import ELLMatrix
 from .errors import guarded_upload, target_device
-from .kernels.plan import WindowEllOverflow
 from .ops import spmv_cpu_csr
-from .spmv import (KernelType, SpMVConfig, _ell_csr, _resolve_csr_kernel,
-                   _resolve_ell_kernel, _run)
+from .spmv import (KernelType, SpMVConfig, ell_csr, resolve_csr, resolve_ell,
+                   run_plan)
 from .timing import time_runs
 from .utils.testing import spmv_matches
 
@@ -131,11 +130,11 @@ def _time(name: str, plan, x, csr: CSRMatrix, tol: float, device,
     the rounding of the terms is not small against the row's sum."""
     x_host = np.asarray(x, np.float32)
     xd = guarded_upload(x_host, device)
-    y = _run(plan, xd).cpu().numpy()
+    y = run_plan(plan, xd).cpu().numpy()
     correct = bool(np.all(np.isfinite(y))
                    and spmv_matches(y, csr, x_host, rel_tol=tol))
-    times = time_runs(lambda: _run(plan, xd), device, num_runs=bc.num_runs,
-                      iters_per_run=bc.iters_per_run,
+    times = time_runs(lambda: run_plan(plan, xd), device,
+                      num_runs=bc.num_runs, iters_per_run=bc.iters_per_run,
                       warmup_runs=1 if bc.num_warmup_runs else 0)
     r = _stats(name, [t * 1e3 for t in times], nnz, bandwidth_fn)
     r.correct = correct
@@ -153,11 +152,7 @@ def benchmark_csr(A: CSRMatrix, x, config: SpMVConfig | None = None,
     bc = bench_config or BenchmarkConfig()
     cfg = config or SpMVConfig()
     t0 = time.perf_counter()
-    try:
-        plan = _resolve_csr_kernel(A, KernelType(cfg.kernel_type), cfg,
-                                   device)
-    except WindowEllOverflow:
-        plan = _resolve_csr_kernel(A, KernelType.SCALAR_CSR, cfg, device)
+    plan = resolve_csr(A, KernelType(cfg.kernel_type), cfg, device)
     plan_ms = (time.perf_counter() - t0) * 1e3
     tol = CORRECT_REL_TOL_BF16 if cfg.bf16_values else CORRECT_REL_TOL
     peak = _peak(device)
@@ -176,10 +171,10 @@ def benchmark_ell(A: ELLMatrix, x, config: SpMVConfig | None = None,
     device = target_device(device, "benchmark")
     bc = bench_config or BenchmarkConfig()
     t0 = time.perf_counter()
-    plan = _resolve_ell_kernel(A, config, device)
+    plan = resolve_ell(A, config, device)
     plan_ms = (time.perf_counter() - t0) * 1e3
     nnz, peak = A.nnz, _peak(device)
-    return _time(name, plan, x, _ell_csr(A), CORRECT_REL_TOL, device, bc,
+    return _time(name, plan, x, ell_csr(A), CORRECT_REL_TOL, device, bc,
                  plan_ms, nnz,
                  lambda ms: compute_bandwidth_ell(A.num_rows, A.num_cols,
                                                   A.max_nnz_per_row, ms,

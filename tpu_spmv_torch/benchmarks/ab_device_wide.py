@@ -22,9 +22,10 @@ import time
 
 from ..bench import model_bytes
 from ..errors import guarded_upload
+from ..kernels import upload
 from ..kernels.plan import WindowEllOverflow, build, build_auto, build_banded
 from ..soak import env
-from ..spmv import _run, _upload
+from ..spmv import run_plan
 from ..utils.testing import RandomGenerator, web_graph_csr
 from . import checked_seconds, device_main, occupancy
 
@@ -57,9 +58,9 @@ def ab(csr, x, clock, configs=CONFIGS, iters: int = ITERS) -> list:
             print(f"{label}: no packed layout ({e})", flush=True)
             rows.append({"label": label, "overflow": True})
             continue
-        p = _upload(hp, clock.device)
+        p = upload(hp, clock.device)
         build_s = time.time() - t0
-        s = checked_seconds(label, lambda: _run(p, xd), csr, x,
+        s = checked_seconds(label, lambda: run_plan(p, xd), csr, x,
                             p.stream_bytes, clock, iters)
         n_plans = len(getattr(hp, "plans", (1,)))
         rows.append({"label": label, "kind": f"{type(hp).__name__}/{n_plans}",

@@ -27,11 +27,12 @@ import numpy as np
 from ..bench import model_bytes
 from ..errors import guarded_upload
 from ..kernels.plan import WindowEllOverflow, build_auto
+from ..kernels import upload
 from ..kernels.reorder import (block_order, build_reordered_host,
                                maybe_reorder, reorder_gain,
                                reordered_from_host)
 from ..kernels.window_ell import permute_chunks
-from ..spmv import _run, _upload
+from ..spmv import run_plan
 from ..utils.testing import (RandomGenerator, clustered_csr,
                              scrambled_banded_csr, web_graph_csr)
 from . import checked_seconds, device_main, occupancy
@@ -78,12 +79,12 @@ def reorder_case(name: str, csr, x: np.ndarray, clock,
             print(f"[{name}] {label}: no packed layout ({e})", flush=True)
             rows.append({"label": f"{name} {label}", "overflow": True})
             continue
-        plan = _upload(inner, clock.device) if label == "natural" \
+        plan = upload(inner, clock.device) if label == "natural" \
             else reordered_from_host(inner, order, csr.num_rows,
                                      csr.num_cols, clock.device)
         build_s = time.time() - t0
-        s = checked_seconds(f"[{name}] {label}", lambda: _run(plan, xd), csr,
-                            x, plan.stream_bytes, clock, iters)
+        s = checked_seconds(f"[{name}] {label}", lambda: run_plan(plan, xd),
+                            csr, x, plan.stream_bytes, clock, iters)
         n_plans = len(getattr(inner, "plans", (1,)))
         rows.append({"label": f"{name} {label}", "probe": probe is not None,
                      "model_ratio": prm_c / nat_c,

@@ -34,10 +34,11 @@ from ..bench import Clock, log, model_bytes
 from ..csr import CSRMatrix
 from ..ell import ELLMatrix
 from ..errors import guarded_upload, target_device
+from ..kernels import upload
 from ..kernels.plan import build, build_composite
 from ..kernels.scalar import spmv_csr_scalar
 from ..kernels.strips import build_strips_host
-from ..spmv import _run, _upload, spmv_ell
+from ..spmv import run_plan, spmv_ell
 from ..utils.testing import RandomGenerator, spmv_matches
 
 REL_TOL = 1e-5
@@ -73,7 +74,7 @@ def wide_ell(rng: RandomGenerator, rows: int, cols: int,
 def timed_upload(host, device: torch.device) -> tuple:
     """``(device plan, seconds)``: the copy, synchronised on the card."""
     t0 = time.perf_counter()
-    plan = _upload(host, device)
+    plan = upload(host, device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return plan, time.perf_counter() - t0
@@ -99,8 +100,9 @@ def packed_row(A: CSRMatrix, x: np.ndarray, make, clock: Clock,
     build_s = time.perf_counter() - t0
     plan, up_s = timed_upload(host, clock.device)
     xd = guarded_upload(x, clock.device)
-    ok = spmv_matches(_run(plan, xd).cpu().numpy(), A, x, rel_tol=REL_TOL)
-    s = clock.seconds(lambda: _run(plan, xd), iters)
+    ok = spmv_matches(run_plan(plan, xd).cpu().numpy(), A, x,
+                      rel_tol=REL_TOL)
+    s = clock.seconds(lambda: run_plan(plan, xd), iters)
     row = {"correct": bool(ok), "t_us": s * 1e6,
            "gb_s": model_bytes(A.num_rows, A.num_cols, A.nnz) / s / 1e9,
            "build_s": build_s, "upload_s": up_s}
@@ -140,7 +142,7 @@ def ell_wide(E: ELLMatrix, x: np.ndarray, clock: Clock,
         s = r.elapsed_ms / 1e3
     else:
         xd = guarded_upload(x, clock.device)
-        s = clock.seconds(lambda: _run(r.plan, xd), iters)
+        s = clock.seconds(lambda: run_plan(r.plan, xd), iters)
     return {"nnz": int(A.nnz), "correct": bool(ok), "t_us": s * 1e6,
             "gb_s": model_bytes(E.num_rows, E.num_cols, A.nnz) / s / 1e9,
             "e2e_s": e2e, "error_code": int(r.error_code)}

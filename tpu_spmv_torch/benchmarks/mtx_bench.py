@@ -31,7 +31,7 @@ from ..csr import CSRMatrix
 from ..errors import guarded_upload, target_device
 from ..io import load_matrix_market, save_matrix_market
 from ..selector import spmv_auto_config
-from ..spmv import _run, spmv_csr
+from ..spmv import run_plan, spmv_csr
 from ..utils.testing import (RandomGenerator, clustered_csr,
                              scrambled_banded_csr, spmv_matches)
 
@@ -101,7 +101,7 @@ def serve(m: CSRMatrix, x: np.ndarray, clock: Clock) -> dict:
           f"error code {r.error_code}, or the oracle failed")
     bm = model_bytes(m.num_rows, m.num_cols, m.nnz)
     xd = guarded_upload(x, clock.device)
-    secs = clock.guarded(lambda: _run(r.plan, xd), bm, ITERS, "mtx")
+    secs = clock.guarded(lambda: run_plan(r.plan, xd), bm, ITERS, "mtx")
     reordered = any(k[0] == "_reorder" and v is not None
                     for k, v in m._plan_cache.items()
                     if isinstance(k, tuple))

@@ -11,7 +11,7 @@
   100 at least 70% of the uniform matrix's (``requirements.md:68``).
 
 Each matrix is served by the plan the dispatch resolves for it
-(``spmv._resolve_csr_kernel``), checked against the CPU oracle at rel 1e-5
+(``spmv.resolve_csr``), checked against the CPU oracle at rel 1e-5
 (a failure ends the run) and timed under the physics guard against STREAM
 (the JAX script's floor of 4 B a nonzero at the v5e's HBM rate does not
 apply to the card).  One JSON object on stdout, the JAX script's keys,
@@ -31,7 +31,7 @@ import numpy as np
 from ..bench import Clock, check, log
 from ..csr import CSRMatrix
 from ..errors import guarded_upload, target_device
-from ..spmv import KernelType, SpMVConfig, _resolve_csr_kernel, _run
+from ..spmv import KernelType, SpMVConfig, resolve_csr, run_plan
 from ..utils.testing import RandomGenerator
 from . import checked_seconds
 
@@ -85,14 +85,13 @@ def _measure_gnnz(csr: CSRMatrix, kernel_type: KernelType,
     """``(Gnnz/s, seconds a call)`` of the plan the dispatch resolves for
     ``csr``, after the oracle check (:class:`~tpu_spmv_torch.bench.
     BenchFailure` where it fails), timed under the guard."""
-    plan = _resolve_csr_kernel(csr, kernel_type,
-                               SpMVConfig(kernel_type=kernel_type),
-                               clock.device)
+    plan = resolve_csr(csr, kernel_type, SpMVConfig(kernel_type=kernel_type),
+                       clock.device)
     x = rng.vector(csr.num_cols)
     xd = guarded_upload(x, clock.device)
     secs = checked_seconds(f"{kernel_type.name} ({type(plan).__name__})",
-                           lambda: _run(plan, xd), csr, x, plan.stream_bytes,
-                           clock, iters, REL_TOL)
+                           lambda: run_plan(plan, xd), csr, x,
+                           plan.stream_bytes, clock, iters, REL_TOL)
     return csr.nnz / secs / 1e9, secs
 
 

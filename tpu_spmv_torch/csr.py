@@ -236,6 +236,20 @@ class CSRMatrix:
         )
 
 
+def column_scale_factor(adj: CSRMatrix) -> np.ndarray | None:
+    """Per-column scale ``s`` when ``A = B·diag(s)`` for a 0/1 pattern ``B``
+    (every stored value of a column the same), as a column-normalised
+    transition matrix is (values ``1/outdeg(col)``); ``None`` when the
+    factorisation does not hold exactly."""
+    if adj.nnz == 0:
+        return np.zeros(adj.num_cols, np.float32)
+    scale = np.zeros(adj.num_cols, np.float32)
+    scale[adj.col_indices] = adj.values       # the last value per column
+    if not np.array_equal(adj.values, scale[adj.col_indices]):
+        return None
+    return scale
+
+
 @dataclasses.dataclass(frozen=True)
 class DeviceCSR:
     """A CSR matrix as tensors on one device (the JAX ``DeviceCSR``,

@@ -3,7 +3,8 @@
 set-up, which is the chunk permute, the fold and the epilogues) and the
 banded and composite stacks of plans, column strips (:mod:`.strips`), block
 reordering (:mod:`.reorder`: the probe in NumPy, the reordered plan), and
-the flat path (:mod:`.scalar`, plain PyTorch ops).
+the flat path (:mod:`.scalar`, plain PyTorch ops).  :func:`upload` makes
+the device plan of a host plan of any kind.
 
 Each kernel counts its launches in an attribute of a wrapper, ``launches``
 (for K1's fold a dict per value stream); :func:`launch_counts` reads them
@@ -11,11 +12,15 @@ all, :func:`launch_total` sums them, :func:`add_launch_counts` adds the
 launches a replayed CUDA graph made, and :func:`reset_launch_counts` sets
 them to 0."""
 
-from .reorder import ReorderedPlan, build_reordered, spmv_reordered
+from .plan import HostBanded, HostComposite
+from .reorder import (HostReordered, ReorderedPlan, build_reordered,
+                      reordered_from_host, spmv_reordered)
 from .scalar import spmv_csr_scalar
-from .strips import StripPlan, build_strips, spmv_strips
+from .strips import (HostStrips, StripPlan, build_strips, spmv_strips,
+                     strips_from_host)
 from .window_ell import (FOLD_VARIANTS, BandedPlan, CompositePlan,
-                         WindowEllPlan, permute_chunks, section_epilogue,
+                         WindowEllPlan, banded_from_host, composite_from_host,
+                         permute_chunks, plan_from_host, section_epilogue,
                          spmv_banded, spmv_composite, spmv_pattern_banded,
                          spmv_window_ell, unpermute, window_ell_fold)
 
@@ -25,8 +30,24 @@ __all__ = [
     "build_strips", "spmv_strips", "ReorderedPlan", "build_reordered",
     "spmv_reordered", "spmv_csr_scalar", "FOLD_VARIANTS", "permute_chunks",
     "section_epilogue", "unpermute", "window_ell_fold", "launch_counts",
-    "launch_total", "add_launch_counts", "reset_launch_counts",
+    "launch_total", "add_launch_counts", "reset_launch_counts", "upload",
 ]
+
+
+def upload(host, device="cuda"):
+    """The device plan of a port-built host plan of any kind, on the card
+    unless the caller names another device: a single plan, a banded stack,
+    a composite plan, column strips, or a reordered plan with its order."""
+    if isinstance(host, HostBanded):
+        return banded_from_host(host, device)
+    if isinstance(host, HostComposite):
+        return composite_from_host(host, device)
+    if isinstance(host, HostStrips):
+        return strips_from_host(host, device)
+    if isinstance(host, HostReordered):
+        return reordered_from_host(host.inner, host.order, host.num_rows,
+                                   host.num_cols, device)
+    return plan_from_host(host, device)
 
 
 def reset_launch_counts() -> None:

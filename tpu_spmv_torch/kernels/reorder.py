@@ -340,6 +340,18 @@ def reordered_from_arrays(inner_leaves: dict, inner_aux: dict,
                          guarded_upload(row_src, device), num_rows, num_cols)
 
 
+@dataclasses.dataclass(frozen=True)
+class HostReordered:
+    """The host form of a :class:`ReorderedPlan`: the inner host plan (or
+    banded stack) and the block order of :func:`build_reordered_host`, and
+    the dims of the matrix it serves."""
+
+    inner: HostPlan | HostBanded
+    order: np.ndarray
+    num_rows: int
+    num_cols: int
+
+
 def reordered_from_host(inner: HostPlan | HostBanded, order: np.ndarray,
                         num_rows: int, num_cols: int,
                         device="cuda") -> ReorderedPlan:

@@ -17,9 +17,9 @@ import numpy as np
 import torch
 
 from ..csr import CSRMatrix
-from .plan import build_auto
-from .window_ell import (BandedPlan, PlanFile, spmv_banded, spmv_window_ell,
-                         upload)
+from .plan import HostBanded, build_auto
+from .window_ell import (BandedPlan, PlanFile, banded_from_host,
+                         plan_from_host, spmv_banded, spmv_window_ell)
 
 # widest strip: one gather table of the JAX package's VMEM-resident x
 # (spmv.VMEM_X_MAX_COLS; a test holds the two equal)
@@ -107,7 +107,9 @@ def build_strips_host(csr: CSRMatrix, strip_cols: int = STRIP_MAX_COLS,
 def strips_from_host(hs: HostStrips, device="cuda") -> StripPlan:
     """The device plan of a :class:`HostStrips` (on the card unless the
     caller names another device)."""
-    return StripPlan(tuple(upload(p, device) for p in hs.plans),
+    return StripPlan(tuple((banded_from_host if isinstance(p, HostBanded)
+                            else plan_from_host)(p, device)
+                           for p in hs.plans),
                      hs.num_rows, hs.num_cols, tuple(hs.bounds))
 
 

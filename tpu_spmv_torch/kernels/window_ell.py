@@ -1230,17 +1230,6 @@ def composite_from_host(hc: HostComposite, device="cuda") -> CompositePlan:
         hc.num_rows, hc.num_cols)
 
 
-def upload(host: HostPlan | HostBanded | HostComposite,
-           device="cuda") -> WindowEllPlan | BandedPlan | CompositePlan:
-    """The device plan of a port-built host plan of any of these types (on
-    the card unless the caller names another device)."""
-    if isinstance(host, HostBanded):
-        return banded_from_host(host, device)
-    if isinstance(host, HostComposite):
-        return composite_from_host(host, device)
-    return plan_from_host(host, device)
-
-
 def spmv_composite(cp: CompositePlan, x: torch.Tensor) -> torch.Tensor:
     """``y = A @ x`` over a composite plan (``spmv_composite``,
     ``window_ell.py:1705-1719``): the levels' SpMVs added in level order,

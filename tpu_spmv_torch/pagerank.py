@@ -35,10 +35,10 @@ import numpy as np
 import torch
 
 from . import profiling
-from .csr import CSRMatrix
+# column_scale_factor lives beside the matrix; callers import it from here
+from .csr import CSRMatrix, column_scale_factor  # noqa: F401
 from .errors import SpMVError, SpMVException, guarded_upload
-from .kernels.plan import WindowEllOverflow
-from .spmv import KernelType, SpMVConfig, _resolve_csr_kernel, _run
+from .spmv import KernelType, SpMVConfig, cached, resolve_csr, run_plan
 
 
 @dataclasses.dataclass
@@ -84,20 +84,6 @@ def find_dangling_mask(adj: CSRMatrix) -> np.ndarray:
     if adj.nnz:
         np.add.at(col_sums, adj.col_indices, adj.values)
     return (col_sums == 0.0).astype(np.float32)
-
-
-def column_scale_factor(adj: CSRMatrix) -> np.ndarray | None:
-    """Per-column scale ``s`` when ``A = B·diag(s)`` for a 0/1 pattern ``B``
-    (every stored value of a column the same), as a column-normalised
-    transition matrix is (values ``1/outdeg(col)``); ``None`` when the
-    factorisation does not hold exactly."""
-    if adj.nnz == 0:
-        return np.zeros(adj.num_cols, np.float32)
-    scale = np.zeros(adj.num_cols, np.float32)
-    scale[adj.col_indices] = adj.values       # the last value per column
-    if not np.array_equal(adj.values, scale[adj.col_indices]):
-        return None
-    return scale
 
 
 def _iterate(spmv, mask: torch.Tensor, r: torch.Tensor, n: int,
@@ -163,23 +149,6 @@ def _iterate(spmv, mask: torch.Tensor, r: torch.Tensor, n: int,
     return it, ranks, float(residual)
 
 
-def _dangling_mask(A: CSRMatrix, device: torch.device) -> tuple:
-    """``find_dangling_mask(A)`` on ``device``, cached on the matrix as its
-    plans are: the host array under ``"_dangling"``, its device copy under
-    ``("_dangling", str(device))``.  Returns the device mask and 1 where
-    this call made the device copy (and the host array, if it was not
-    cached), 0 where it came from the cache."""
-    dkey = ("_dangling", str(device))
-    mask = A._plan_cache.get(dkey)
-    if mask is not None:
-        return mask, 0
-    if "_dangling" not in A._plan_cache:
-        A._plan_cache["_dangling"] = find_dangling_mask(A)
-    mask = guarded_upload(A._plan_cache["_dangling"], device)
-    A._plan_cache[dkey] = mask
-    return mask, 1
-
-
 @profiling.call_span("pagerank.call")
 def pagerank(adj_matrix: CSRMatrix | None,
              config: PageRankConfig | None = None, initial_ranks=None,
@@ -195,14 +164,16 @@ def pagerank(adj_matrix: CSRMatrix | None,
     ``SpMVConfig(pattern=True)`` and ``config.kernel_type``: a pattern plan
     (or banded stack) for column-scaled values, else the f32 plan, banded
     stack or composite; where the packed layout rejects the matrix,
-    SCALAR_CSR's (``tpu_spmv/pagerank.py:163-169``).
+    SCALAR_CSR's (``tpu_spmv/pagerank.py:163-169``), resolved by
+    :func:`~tpu_spmv_torch.spmv.resolve_csr` and run eagerly.
 
     The dangling mask is worked out on the first call for a matrix and
-    device and cached on the matrix with its plans (the span
-    ``pagerank.mask`` counts 1 where the call made it, 0 where it was
-    cached); as with the plans, a matrix changed in place needs
-    :meth:`~tpu_spmv_torch.csr.CSRMatrix.free_device` before the next
-    call."""
+    device and cached on the matrix with its plans: the host array under
+    ``"_dangling"``, its device copy under ``("_dangling", str(device))``
+    (the span ``pagerank.mask`` counts 1 where the call made the device
+    copy, 0 where it was cached); as with the plans, a matrix changed in
+    place needs :meth:`~tpu_spmv_torch.csr.CSRMatrix.free_device` before
+    the next call."""
     result = PageRankResult()
     if adj_matrix is None:
         return result
@@ -221,16 +192,13 @@ def pagerank(adj_matrix: CSRMatrix | None,
         result.ranks = torch.zeros(0, dtype=torch.float32, device=device)
         return result
     try:
-        try:
-            plan = _resolve_csr_kernel(
-                adj_matrix, KernelType(config.kernel_type),
-                SpMVConfig(pattern=True), device)
-        except WindowEllOverflow:
-            plan = _resolve_csr_kernel(adj_matrix, KernelType.SCALAR_CSR,
-                                       SpMVConfig(), device)
+        plan = resolve_csr(adj_matrix, KernelType(config.kernel_type),
+                           SpMVConfig(pattern=True), device)
         if profiling.on:
             span = profiling.begin("pagerank.mask")
-        mask, built = _dangling_mask(adj_matrix, device)
+        built = int(("_dangling", str(device)) not in adj_matrix._plan_cache)
+        mask = cached(adj_matrix, "_dangling", device,
+                      lambda: find_dangling_mask(adj_matrix), guarded_upload)
         if profiling.on:
             profiling.end(span, built)
         if initial_ranks is not None:
@@ -241,7 +209,7 @@ def pagerank(adj_matrix: CSRMatrix | None,
             r0 = torch.full((n,), 1.0 / n, dtype=torch.float32,
                             device=device)
         it, ranks, residual = _iterate(
-            lambda r: _run(plan, r)[:n], mask, r0, n,
+            lambda r: run_plan(plan, r)[:n], mask, r0, n,
             float(config.damping_factor), float(config.tolerance),
             int(config.max_iterations))
     except SpMVException as e:

@@ -48,7 +48,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..csr import CSRMatrix, DeviceCSR
+from ..csr import CSRMatrix, DeviceCSR, column_scale_factor
 from ..errors import (DeviceAllocError, InvalidArgumentError,
                       InvalidDimensionError, InvalidFormatError, SpMVError,
                       guarded_upload)
@@ -390,14 +390,12 @@ def shard_csr_packed(A: CSRMatrix, mesh: RowMesh,
     :func:`shard_csr`.
 
     ``pattern=True`` needs ``A = B·diag(s)`` (every column's stored values
-    equal, :func:`tpu_spmv_torch.pagerank.column_scale_factor`), else
+    equal, :func:`tpu_spmv_torch.csr.column_scale_factor`), else
     :class:`InvalidFormatError`; the plans then stream no values.
     ``permute_rows`` levels each shard's rows onto lanes; ``values_dtype``
     is float32 or bfloat16."""
     col_scale = None
     if pattern:
-        from ..pagerank import column_scale_factor
-
         col_scale = column_scale_factor(A)
         if col_scale is None:
             raise InvalidFormatError(

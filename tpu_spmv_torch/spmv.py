@@ -20,6 +20,12 @@ no-throw contract). The routes, in the JAX order:
 * the flat path (:mod:`.kernels.scalar`) for ELL_KERNEL on a CSR, for
   ``use_vmem_x=False``, and for a structure every packed layout rejects.
 
+Besides the two entries, other modules reach plans through four names:
+:func:`resolve_csr` and :func:`resolve_ell` give the plan that serves a
+matrix, :func:`run_plan` runs one SpMV through a plan eagerly, and
+:func:`cached` keeps what is derived from a matrix in its plan cache, on
+the host and per device.
+
 A call whose packed route overflows is served as SCALAR_CSR, as the JAX
 dispatch does.  A route that runs out of device memory
 (``torch.OutOfMemoryError``: the per-call gather table, output or partial
@@ -72,26 +78,24 @@ import torch
 
 from .bandwidth import (BandwidthMetrics, compute_bandwidth_csr,
                         compute_bandwidth_ell)
-from .csr import CSRMatrix, DeviceCSR
+from .csr import CSRMatrix, DeviceCSR, column_scale_factor
 from .ell import DeviceELL, ELLMatrix
 from . import profiling
 from .errors import (DeviceException, SpMVError, SpMVException,
                      guarded_upload)
-from .kernels import add_launch_counts, launch_counts, launch_total
+from .kernels import add_launch_counts, launch_counts, launch_total, upload
 from .kernels.plan import (WindowEllOverflow, _choose_sup, build,
                            build_auto, build_composite)
 from .kernels.ell_kernel import spmv_ell_device
-from .kernels.reorder import (ReorderedPlan, build_reordered_host,
-                              maybe_reorder, reordered_from_host,
+from .kernels.reorder import (HostReordered, ReorderedPlan,
+                              build_reordered_host, maybe_reorder,
                               spmv_reordered, standalone_permutes)
 from .kernels.scalar import spmv_csr_scalar
 from .kernels.strips import (STRIP_MAX_COLS, HostStrips, StripPlan,
-                             build_strips_host, spmv_strips,
-                             strips_from_host)
+                             build_strips_host, spmv_strips)
 from .kernels.window_ell import (BandedPlan, CompositePlan, WindowEllPlan,
                                  spmv_banded, spmv_composite, spmv_pattern,
-                                 spmv_pattern_banded, spmv_window_ell,
-                                 upload)
+                                 spmv_pattern_banded, spmv_window_ell)
 from .kernels.window_ell import _current_stream
 
 # the JAX package's column caps (TPU VMEM limits), kept so both packages
@@ -189,82 +193,61 @@ def _split(kernel_type: KernelType) -> int | None:
         else None
 
 
-def _upload(host, device: torch.device):
-    """The device plan of a host plan of any type."""
-    return strips_from_host(host, device) if isinstance(host, HostStrips) \
-        else upload(host, device)
+def _memo(A: CSRMatrix | ELLMatrix, key, make):
+    """What ``A``'s plan cache holds under ``key``, ``make()`` on a miss."""
+    if key not in A._plan_cache:
+        A._plan_cache[key] = make()
+    return A._plan_cache[key]
 
 
-def _cached(A: CSRMatrix, key: tuple, device: torch.device, make):
-    """The device plan cached on ``A`` under ``(key, device)``, made from
-    the host plan cached under ``key`` (``make()`` on a miss; ``None``
-    remembers a rejection and gives ``None``)."""
+def cached(A: CSRMatrix | ELLMatrix, key, device: torch.device, make, put):
+    """The device artefact cached on ``A`` under ``(key, str(device))``:
+    ``put(host, device)`` of the host artefact cached under ``key``
+    (``make()`` on a miss; ``None`` remembers a rejection and gives
+    ``None``).  Every plan the dispatch serves is cached so, and PageRank's
+    dangling mask; ``free_device()`` drops them all."""
     dkey = (key, str(device))
     if dkey not in A._plan_cache:
-        if key not in A._plan_cache:
-            A._plan_cache[key] = make()
-        host = A._plan_cache[key]
-        A._plan_cache[dkey] = None if host is None else _upload(host, device)
+        host = _memo(A, key, make)
+        A._plan_cache[dkey] = None if host is None else put(host, device)
     return A._plan_cache[dkey]
 
 
 def _host_plan(A: CSRMatrix, split: int | None, config: SpMVConfig):
     """The host plan for ``A`` in the order of ``tpu_spmv/spmv.py:156-205``:
-    up to ``VMEM_X_MAX_COLS`` columns the reorder probe (once a matrix; the
-    port's probe, unlike the JAX one, does not ask the superblock choice),
-    the reordered build where the probe applies and the permuted matrix
-    packs, else ``build_auto``'s plan or banded stack at the superblock
-    choice (once per ``split``); past that width, or where that overflows,
-    the composite plan (its levels f32, as in the JAX package).  Returns
-    ``(plan, block order)``: the order is ``None`` for a plan of ``A``'s own
-    rows."""
+    up to ``VMEM_X_MAX_COLS`` columns the reorder probe (O(nnz), once a
+    matrix; the port's probe, unlike the JAX one, does not ask the
+    superblock choice), the reordered build where the probe applies and the
+    permuted matrix packs, else ``build_auto``'s plan or banded stack at the
+    superblock choice (a sampled O(nnz) model, once per ``split``); past
+    that width, or where that overflows, the composite plan (its levels
+    f32, as in the JAX package).  A reordered build comes as a
+    :class:`HostReordered`.  Raises :class:`WindowEllOverflow` where no
+    composite level packs the matrix."""
     vdt = "bfloat16" if config.bf16_values else "float32"
     if A.num_cols <= VMEM_X_MAX_COLS:
         if config.reorder is not False:
-            rkey = ("_reorder", bool(config.reorder))
-            if rkey not in A._plan_cache:   # O(nnz) probe — cache
-                A._plan_cache[rkey] = maybe_reorder(
-                    A, force=config.reorder is True)
-            order = A._plan_cache[rkey]
+            order = _memo(A, ("_reorder", bool(config.reorder)),
+                          lambda: maybe_reorder(A,
+                                                force=config.reorder is True))
             if order is not None:
                 try:
-                    return build_reordered_host(A, order, split,
-                                                config.step_groups,
-                                                values_dtype=vdt)
+                    return HostReordered(*build_reordered_host(
+                        A, order, split, config.step_groups,
+                        values_dtype=vdt), A.num_rows, A.num_cols)
                 except WindowEllOverflow:
                     pass   # the permuted matrix packs in no layout
-        skey = ("_sup", split)
-        if skey not in A._plan_cache:   # O(nnz) sampled model — cache
-            A._plan_cache[skey] = _choose_sup(A, with_groups=True,
-                                              split_rows=split)
+        choice = _memo(A, ("_sup", split),
+                       lambda: _choose_sup(A, with_groups=True,
+                                           split_rows=split))
         try:
             return build_auto(A, step_groups=config.step_groups,
-                              split_rows=split, choice=A._plan_cache[skey],
-                              values_dtype=vdt), None
+                              split_rows=split, choice=choice,
+                              values_dtype=vdt)
         except WindowEllOverflow:
             pass
     return build_composite(A, step_groups=config.step_groups,
-                           split_rows=split), None
-
-
-def _plan_for(A: CSRMatrix, kernel_type: KernelType, config: SpMVConfig,
-              device: torch.device):
-    """The packed plan for ``A`` on ``device`` (``tpu_spmv/spmv.py:137-206``),
-    cached on the matrix under the JAX package's key (kernel type, step
-    width, bf16 flag, reorder flag).  Raises :class:`WindowEllOverflow`
-    where no composite level packs the matrix."""
-    hkey = ("host", int(kernel_type), config.step_groups,
-            bool(config.bf16_values), config.reorder)
-    dkey = (hkey, str(device))
-    if dkey in A._plan_cache:
-        return A._plan_cache[dkey]
-    if hkey not in A._plan_cache:
-        A._plan_cache[hkey] = _host_plan(A, _split(kernel_type), config)
-    host, order = A._plan_cache[hkey]
-    plan = _upload(host, device) if order is None \
-        else reordered_from_host(host, order, A.num_rows, A.num_cols, device)
-    A._plan_cache[dkey] = plan
-    return plan
+                           split_rows=split)
 
 
 def _resolve_pattern(A: CSRMatrix, kernel_type: KernelType,
@@ -276,33 +259,25 @@ def _resolve_pattern(A: CSRMatrix, kernel_type: KernelType,
     are not column-scaled, the pattern plan overflows, or
     ``TPU_SPMV_NO_PATTERN`` is set.  The scale is cached under
     ``"_cscale"``, the host plan (or ``None`` for a rejection) under
-    ``("pat", kernel type, step width)``, the device plan under that key and
-    the device, and the :class:`PatternPlan` under ``"_pattern"``, that key
-    and the device."""
-    from .pagerank import column_scale_factor
-
-    if os.environ.get("TPU_SPMV_NO_PATTERN"):
-        return None
-    if "_cscale" not in A._plan_cache:
-        A._plan_cache["_cscale"] = column_scale_factor(A)
-    scale = A._plan_cache["_cscale"]
-    if scale is None or A.num_cols > VMEM_X_MAX_COLS:
+    ``("pat", kernel type, step width)``, and the :class:`PatternPlan` under
+    that key and the device."""
+    if os.environ.get("TPU_SPMV_NO_PATTERN") \
+            or A.num_cols > VMEM_X_MAX_COLS:
         return None
 
     def make():
+        if _memo(A, "_cscale", lambda: column_scale_factor(A)) is None:
+            return None
         try:
             return build_auto(A, step_groups=config.step_groups,
                               split_rows=_split(kernel_type), pattern=True)
         except WindowEllOverflow:
             return None
 
-    key = ("pat", int(kernel_type), config.step_groups)
-    pkey = ("_pattern", key, str(device))
-    if pkey not in A._plan_cache:
-        plan = _cached(A, key, device, make)
-        A._plan_cache[pkey] = None if plan is None \
-            else PatternPlan(plan, guarded_upload(scale, device))
-    return A._plan_cache[pkey]
+    return cached(A, ("pat", int(kernel_type), config.step_groups), device,
+                  make, lambda host, dev: PatternPlan(
+                      upload(host, dev),
+                      guarded_upload(A._plan_cache["_cscale"], dev)))
 
 
 def _strips_host(A: CSRMatrix, kernel_type: KernelType,
@@ -321,8 +296,9 @@ def _resolve_strips(A: CSRMatrix, kernel_type: KernelType,
                     device: torch.device) -> StripPlan | None:
     """Column strips (``tpu_spmv/spmv.py:399-420``), or ``None`` where a
     strip rejects every packed layout; the rejection is cached too."""
-    return _cached(A, ("strips", int(kernel_type), config.step_groups, None),
-                   device, lambda: _strips_host(A, kernel_type, config))
+    return cached(A, ("strips", int(kernel_type), config.step_groups, None),
+                  device, lambda: _strips_host(A, kernel_type, config),
+                  upload)
 
 
 def _resolve_naive(A: CSRMatrix, config: SpMVConfig,
@@ -338,10 +314,10 @@ def _resolve_naive(A: CSRMatrix, config: SpMVConfig,
         except WindowEllOverflow:
             return None
 
-    return _cached(A, ("naive", config.step_groups), device, make)
+    return cached(A, ("naive", config.step_groups), device, make, upload)
 
 
-def _run(plan: Plan, x: torch.Tensor) -> torch.Tensor:
+def run_plan(plan: Plan, x: torch.Tensor) -> torch.Tensor:
     """``y = A @ x`` through the resolved plan, by its type."""
     if isinstance(plan, ReorderedPlan):
         return spmv_reordered(plan, x)
@@ -363,7 +339,7 @@ def _run(plan: Plan, x: torch.Tensor) -> torch.Tensor:
 
 
 def launches_per_call(plan: Plan) -> dict:
-    """The port's kernel launches one :func:`_run` of ``plan`` makes, as
+    """The port's kernel launches one :func:`run_plan` of ``plan`` makes, as
     ``{"fold", "section_epilogue", "unpermute", "permute_chunks"}`` (K1's
     fold in whichever value stream the plan has): per window-ELL plan one
     table set-up (K3), one fold per section, a section epilogue after each
@@ -411,7 +387,7 @@ def _packed_groups(plan: Plan) -> int | None:
 
 def graphable(plan: Plan) -> bool:
     """Whether the dispatch captures ``plan``'s call in a CUDA graph: a
-    plan whose whole :func:`_run` is the port's kernels and torch ops that
+    plan whose whole :func:`run_plan` is the port's kernels and torch ops that
     never wait on the host, by its type (a window-ELL plan, a banded stack,
     a pattern plan over either, a reordered plan over either).  The flat
     paths, column strips and composite plans run eagerly."""
@@ -425,7 +401,7 @@ def graphable(plan: Plan) -> bool:
 class CallGraph:
     """One call of ``plan`` captured in a CUDA graph on ``x``'s device.
 
-    The capture runs :func:`_run` on a side stream into the graph's private
+    The capture runs :func:`run_plan` on a side stream into the graph's private
     memory pool, over a static ``x`` of ``x``'s shape, and keeps the call's
     output, the port's kernels it launched (``launches``, as
     :func:`~tpu_spmv_torch.kernels.launch_counts` gives them; the wrappers
@@ -449,7 +425,7 @@ class CallGraph:
                 try:
                     self.x = torch.empty(x.shape, dtype=x.dtype,
                                          device=x.device)
-                    self.y = _run(plan, self.x)
+                    self.y = run_plan(plan, self.x)
                 except BaseException:
                     with contextlib.suppress(RuntimeError):
                         graph.capture_end()
@@ -497,7 +473,7 @@ def _served(plan: Plan, x: torch.Tensor, cache: dict) -> tuple:
     held = cache.get(key)
     if held is None or held[0] is not plan:
         cache[key] = (plan, None)
-        return _run(plan, x), 0
+        return run_plan(plan, x), 0
     graph, replayed = held[1], 1
     if graph is None:
         try:
@@ -513,7 +489,7 @@ def _served(plan: Plan, x: torch.Tensor, cache: dict) -> tuple:
         replayed = 0    # the capture counted the launches once
     y = graph(x) if graph else None
     if y is None:
-        return _run(plan, x), 0
+        return run_plan(plan, x), 0
     if replayed:
         add_launch_counts(graph.launches)
     return y, replayed
@@ -521,7 +497,7 @@ def _served(plan: Plan, x: torch.Tensor, cache: dict) -> tuple:
 
 def _execute(plan: Plan, x: torch.Tensor,
              cache: dict | None = None) -> torch.Tensor:
-    """:func:`_run` for the dispatch, through the plan's CUDA graph
+    """:func:`run_plan` for the dispatch, through the plan's CUDA graph
     (:func:`_served`) where ``cache`` (the matrix's plan cache) is given,
     ``x`` is on the card, the plan is :func:`graphable` and the caller is
     not capturing a graph of its own (which then takes the eager launches).
@@ -545,7 +521,7 @@ def _execute(plan: Plan, x: torch.Tensor,
             if profiling.on:
                 profiling.end(graph_span, replayed)
         else:
-            y = _run(plan, x)
+            y = run_plan(plan, x)
     except torch.OutOfMemoryError as e:
         log.warning("spmv: %s ran out of device memory (%s)",
                     type(plan).__name__, e)
@@ -555,11 +531,17 @@ def _execute(plan: Plan, x: torch.Tensor,
     return y
 
 
-def _resolve_csr_kernel(A: CSRMatrix, kernel_type: KernelType,
-                        config: SpMVConfig, device: torch.device) -> Plan:
-    """The plan that serves ``A`` (``tpu_spmv/spmv.py:353-396``).  Raises
-    :class:`WindowEllOverflow` where the packed route's composite plan
-    finds no level that packs."""
+def resolve_csr(A: CSRMatrix, kernel_type: KernelType, config: SpMVConfig,
+                device: torch.device) -> Plan:
+    """The plan that serves ``A`` on ``device`` (``tpu_spmv/spmv.py:137-206``,
+    ``:353-396``), cached on the matrix: the one resolution
+    :func:`spmv_csr`, PageRank and the benchmark harness share.  The packed
+    plan is cached under the JAX package's key (kernel type, step width,
+    bf16 flag, reorder flag).  Where its composite plan finds no level that
+    packs (:class:`WindowEllOverflow`), SCALAR_CSR's plan serves, as in the
+    JAX dispatch; that plan reads only ``use_vmem_x`` and the step width of
+    ``config``, so PageRank's ``SpMVConfig(pattern=True)`` gets the plan
+    that the JAX PageRank's retry under ``SpMVConfig()`` gets."""
     if kernel_type in (KernelType.VECTOR_CSR, KernelType.MERGE_PATH) \
             and config.use_vmem_x:
         if A.num_cols <= PACKED_MAX_COLS:
@@ -567,10 +549,19 @@ def _resolve_csr_kernel(A: CSRMatrix, kernel_type: KernelType,
                 resolved = _resolve_pattern(A, kernel_type, config, device)
                 if resolved is not None:
                     return resolved
-            return _plan_for(A, kernel_type, config, device)
-        resolved = _resolve_strips(A, kernel_type, config, device)
-        if resolved is not None:
-            return resolved
+            try:
+                return cached(A, ("host", int(kernel_type),
+                                  config.step_groups,
+                                  bool(config.bf16_values), config.reorder),
+                              device, lambda: _host_plan(
+                                  A, _split(kernel_type), config), upload)
+            except WindowEllOverflow:
+                # too adversarial for the packed layout: SCALAR_CSR
+                kernel_type = KernelType.SCALAR_CSR
+        else:
+            resolved = _resolve_strips(A, kernel_type, config, device)
+            if resolved is not None:
+                return resolved
     if kernel_type == KernelType.SCALAR_CSR and config.use_vmem_x \
             and A.num_cols <= VMEM_X_MAX_COLS:
         resolved = _resolve_naive(A, config, device)
@@ -600,36 +591,13 @@ def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
     other device: ``MEASURE_WARMUP`` warm-up calls, then the median of
     ``measure_samples`` runs of ``measure_iters`` calls of the plan that
     served the call) and fills the time, GFLOP/s and byte-model GB/s."""
-    result, x, device = _begin(A, x, vec_size, device)
-    if result.error_code or result.y is not None:
-        return result
-    if config is None:
-        config = SpMVConfig()
-    kernel_type = KernelType(config.kernel_type)
-    try:
-        x = guarded_upload(x, device).float()
-        if profiling.on:
-            span = profiling.begin("spmv.resolve")
-        t0 = time.perf_counter()
-        try:
-            plan = _resolve_csr_kernel(A, kernel_type, config, device)
-        except WindowEllOverflow:
-            # structure too adversarial for the packed layout: SCALAR_CSR
-            plan = _resolve_csr_kernel(A, KernelType.SCALAR_CSR, config,
-                                       device)
-        result.plan_seconds = time.perf_counter() - t0
-        if profiling.on:
-            profiling.end(span, _packed_groups(plan))
-        result.y = _execute(plan, x, A._plan_cache)
-    except SpMVException as e:
-        result.error_code = int(e.code)
-        return result
-    result.plan = plan
-    if measure:
-        _measure(result, x, device, measure_iters, measure_samples, A.nnz,
+    config = config or SpMVConfig()
+    return _call(A, x, vec_size, device,
+                 lambda dev: resolve_csr(A, KernelType(config.kernel_type),
+                                         config, dev),
                  lambda ms, peak: compute_bandwidth_csr(
-                     A.num_rows, A.num_cols, A.nnz, ms, peak))
-    return result
+                     A.num_rows, A.num_cols, A.nnz, ms, peak),
+                 measure, measure_iters, measure_samples)
 
 
 def _begin(A, x, vec_size: int | None, device) -> tuple:
@@ -659,6 +627,36 @@ def _begin(A, x, vec_size: int | None, device) -> tuple:
     return result, x, device
 
 
+def _call(A, x, vec_size: int | None, device, resolve, model, measure: bool,
+          iters: int, samples: int) -> SpMVResult:
+    """The body of both entry points: :func:`_begin`'s checks; ``x`` on the
+    device; the plan ``resolve(device)`` gives, recorded as the span
+    ``spmv.resolve`` (its count :func:`_packed_groups`) and timed into
+    ``plan_seconds``; :func:`_execute` through the matrix's cache; an
+    :class:`SpMVException`'s code into ``error_code``; and with
+    ``measure``, :func:`_measure` under the byte model ``model``."""
+    result, x, device = _begin(A, x, vec_size, device)
+    if result.error_code or result.y is not None:
+        return result
+    try:
+        x = guarded_upload(x, device).float()
+        if profiling.on:
+            span = profiling.begin("spmv.resolve")
+        t0 = time.perf_counter()
+        plan = resolve(device)
+        result.plan_seconds = time.perf_counter() - t0
+        if profiling.on:
+            profiling.end(span, _packed_groups(plan))
+        result.y = _execute(plan, x, A._plan_cache)
+    except SpMVException as e:
+        result.error_code = int(e.code)
+        return result
+    result.plan = plan
+    if measure:
+        _measure(result, x, device, iters, samples, A.nnz, model)
+    return result
+
+
 def _measure(result: SpMVResult, x: torch.Tensor, device: torch.device,
              iters: int, samples: int, nnz: int, model) -> None:
     """Fill ``result``'s time, GFLOP/s (2·``nnz`` a call) and byte-model
@@ -670,7 +668,7 @@ def _measure(result: SpMVResult, x: torch.Tensor, device: torch.device,
     from .timing import time_cuda
 
     plan = result.plan
-    secs = time_cuda(lambda: _run(plan, x), iters=iters, samples=samples,
+    secs = time_cuda(lambda: run_plan(plan, x), iters=iters, samples=samples,
                      warmup=MEASURE_WARMUP, device=device)
     result.elapsed_ms = secs * 1e3
     result.gflops = 2.0 * nnz / secs / 1e9 if secs > 0 else 0.0
@@ -683,16 +681,14 @@ def _measure(result: SpMVResult, x: torch.Tensor, device: torch.device,
 
 # ---- ELL ----
 
-def _ell_csr(A: ELLMatrix) -> CSRMatrix:
-    """``A``'s CSR form, which the packed routes plan (cached under
-    ``"_csr"``, the JAX key)."""
-    if "_csr" not in A._plan_cache:
-        A._plan_cache["_csr"] = A.to_csr()
-    return A._plan_cache["_csr"]
+def ell_csr(A: ELLMatrix) -> CSRMatrix:
+    """``A``'s CSR form, which the packed routes plan and the benchmark
+    harness checks against (cached under ``"_csr"``, the JAX key)."""
+    return _memo(A, "_csr", A.to_csr)
 
 
-def _resolve_ell_kernel(A: ELLMatrix, config: SpMVConfig | None,
-                        device: torch.device) -> Plan:
+def resolve_ell(A: ELLMatrix, config: SpMVConfig | None,
+                device: torch.device) -> Plan:
     """The plan that serves ``A`` (``tpu_spmv/spmv.py:557-591``), shared by
     :func:`spmv_ell` and the benchmark harness so that both run the same
     plan.  Cached on ``A`` under the JAX keys and the device: the host
@@ -706,24 +702,25 @@ def _resolve_ell_kernel(A: ELLMatrix, config: SpMVConfig | None,
     cfg = config or SpMVConfig()
     if A.num_cols <= VMEM_X_MAX_COLS:
         if cfg.pattern:
-            resolved = _resolve_pattern(_ell_csr(A), KernelType.VECTOR_CSR,
+            resolved = _resolve_pattern(ell_csr(A), KernelType.VECTOR_CSR,
                                         cfg, device)
             if resolved is not None:
                 return resolved
 
         def make():
             try:
-                return build(_ell_csr(A))
+                return build(ell_csr(A))
             except WindowEllOverflow:
                 return None
 
-        plan = _cached(A, "plan", device, make)
+        plan = cached(A, "plan", device, make, upload)
         if plan is not None:
             return plan
     elif A.num_cols <= PACKED_MAX_COLS:
-        plan = _cached(A, ("strips", cfg.step_groups), device,
-                       lambda: _strips_host(_ell_csr(A),
-                                            KernelType.VECTOR_CSR, cfg))
+        plan = cached(A, ("strips", cfg.step_groups), device,
+                      lambda: _strips_host(ell_csr(A),
+                                           KernelType.VECTOR_CSR, cfg),
+                      upload)
         if plan is not None:
             return plan
     return A.to_device(device)
@@ -742,25 +739,8 @@ def spmv_ell(A: ELLMatrix | None, x, config: SpMVConfig | None = None,
     nonzeros (the reference's host recount, ``spmv_kernels.cu:399-405``)
     and the ELL byte model's GB/s.  A route that runs out of device memory
     ends the call with ``EXECUTION``, as in :func:`spmv_csr`."""
-    result, x, device = _begin(A, x, vec_size, device)
-    if result.error_code or result.y is not None:
-        return result
-    try:
-        x = guarded_upload(x, device).float()
-        if profiling.on:
-            span = profiling.begin("spmv.resolve")
-        t0 = time.perf_counter()
-        plan = _resolve_ell_kernel(A, config, device)
-        result.plan_seconds = time.perf_counter() - t0
-        if profiling.on:
-            profiling.end(span, _packed_groups(plan))
-        result.y = _execute(plan, x, A._plan_cache)
-    except SpMVException as e:
-        result.error_code = int(e.code)
-        return result
-    result.plan = plan
-    if measure:
-        _measure(result, x, device, measure_iters, measure_samples, A.nnz,
+    return _call(A, x, vec_size, device,
+                 lambda dev: resolve_ell(A, config, dev),
                  lambda ms, peak: compute_bandwidth_ell(
-                     A.num_rows, A.num_cols, A.max_nnz_per_row, ms, peak))
-    return result
+                     A.num_rows, A.num_cols, A.max_nnz_per_row, ms, peak),
+                 measure, measure_iters, measure_samples)

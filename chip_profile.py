@@ -4,6 +4,7 @@
                             [--cells headline,mesh,banded,ab,levers,pagerank]
                             [--cells web,pagerank1m,wide,floors,ablation,ell]
                             [--cells sharded]
+                            [--cells graph500]
 
 For ``chip_smoke.py``'s matrices (``headline``: the merge-path power-law
 matrix; ``mesh``: the scrambled 2^20 mesh, served reordered; ``banded``:
@@ -23,7 +24,12 @@ ELL_KERNEL, the flat path; ``ell``: the 5-point stencils of
 1024 stencil column-scaled on the pattern route), each plan is resolved
 through ``spmv_csr`` (``spmv_ell`` for ``ell``; the auto configuration,
 with the cell's changes) and warmed up, then ``--calls`` calls are traced
-with ``torch.profiler``.
+with ``torch.profiler``.  These cells hold K1's routes: they run with the
+dispatch's K4 rule (``spmv.merge_route``) declining every matrix, as before
+the rule.  ``graph500`` (not in the default cells) profiles the route the
+rule takes: the benchmark's ``graph500s20`` matrix (f32, auto
+configuration) and its transition matrix on PageRank's pattern route, both
+served by K4 (its two launches a call held to ``launches_per_call``).
 Per plan it prints:
 
 * the fold schedule of each section (in launch order) before and after
@@ -76,6 +82,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 
@@ -85,12 +92,14 @@ FOLD_KERNEL = "fold_chunk"
 EPILOGUE_KERNEL = "section_epilogue"
 K2_KERNEL = "unpermute_kernel"
 K3_KERNEL = "permute_chunks_kernel"
+K4_KERNELS = ("merge_csr", "merge_fixup")   # K4 and its fix-up
 
 
 def window_plans(plan) -> list:
     """The window-ELL plans one call of ``plan`` runs, in launch order
-    (none on the flat path)."""
+    (none on the flat path or K4's)."""
     from tpu_spmv_torch import DeviceCSR, DeviceELL
+    from tpu_spmv_torch.kernels.merge_csr import MergePlan
     from tpu_spmv_torch.kernels.reorder import ReorderedPlan
     from tpu_spmv_torch.kernels.strips import StripPlan
     from tpu_spmv_torch.kernels.window_ell import BandedPlan, CompositePlan
@@ -102,23 +111,28 @@ def window_plans(plan) -> list:
         return window_plans(plan.inner)
     if isinstance(plan, (BandedPlan, StripPlan, CompositePlan)):
         return [q for p in plan.plans for q in window_plans(p)]
-    return [] if isinstance(plan, (DeviceCSR, DeviceELL)) else [plan]
+    return [] if isinstance(plan, (DeviceCSR, DeviceELL, MergePlan)) \
+        else [plan]
 
 
 def other_launches(plan) -> int | None:
     """Launches per call besides the port's kernels, by plan type: each
     window-ELL plan's output zero-fill, the join of a banded stack of two
     bands or more, the add after each strip or level but the first, and a
-    pattern plan's scale multiply (K3 writes the whole gather table).
+    pattern plan's scale multiply (K3 writes the whole gather table; K4
+    writes every row of its output and needs no fill).
     ``None`` where the call runs a flat path (a composite's tail, or the
     matrix itself, CSR or ELL): those are PyTorch's own ops, counted but not
     held to a number."""
     from tpu_spmv_torch import DeviceCSR, DeviceELL
+    from tpu_spmv_torch.kernels.merge_csr import MergePlan
     from tpu_spmv_torch.kernels.reorder import ReorderedPlan
     from tpu_spmv_torch.kernels.strips import StripPlan
     from tpu_spmv_torch.kernels.window_ell import BandedPlan, CompositePlan
     from tpu_spmv_torch.spmv import PatternPlan
 
+    if isinstance(plan, MergePlan):
+        return 0
     if isinstance(plan, PatternPlan):
         return other_launches(plan.plan) + 1
     if isinstance(plan, ReorderedPlan):
@@ -284,7 +298,7 @@ def split_bands(kern: list, calls: int, n_bands: int):
     return bands, join
 
 
-OURS = (FOLD_KERNEL, EPILOGUE_KERNEL, K2_KERNEL, K3_KERNEL)
+OURS = (FOLD_KERNEL, EPILOGUE_KERNEL, K2_KERNEL, K3_KERNEL) + K4_KERNELS
 
 
 def profile(label: str, A, x, changes: dict, calls: int, dev,
@@ -315,6 +329,7 @@ def profile(label: str, A, x, changes: dict, calls: int, dev,
     inner = plan.inner if isinstance(plan, ReorderedPlan) \
         else plan.plan if isinstance(plan, PatternPlan) else plan
     parts = window_plans(plan)
+    want = launches_per_call(plan)
     # the plan is cached on A: calls run it
     kern = trace(call, calls)
     cs.check(len(kern) > 0, f"{label}: the trace holds no device time")
@@ -324,7 +339,9 @@ def profile(label: str, A, x, changes: dict, calls: int, dev,
            + (f", {parts[0].values} values, sup "
               f"{'/'.join(str(p.sup) for p in parts)}, "
               f"{sum(p.n_groups for p in parts)} groups, tb {parts[0].tb}, "
-              f"S {parts[0].step_groups}" if parts else ", the flat path")
+              f"S {parts[0].step_groups}" if parts
+              else ", K4 (merge-path CSR)" if want["merge_csr"]
+              else ", the flat path")
            + f"; device {total:.2f} us/call over {calls} calls, "
            f"{len(kern) / calls:g} launches/call")
     span = device_span(kern, calls)
@@ -342,7 +359,9 @@ def profile(label: str, A, x, changes: dict, calls: int, dev,
              f"{label}: {len(other) / calls:g} launches per call besides "
              f"the port's kernels: {sorted(set(other))}")
     setups = [e for e in kern if K3_KERNEL in e.name]
-    want = launches_per_call(plan)
+    k4 = sum(any(k in e.name for k in K4_KERNELS) for e in kern)
+    cs.check(k4 == calls * want["merge_csr"],
+             f"{label}: {k4} K4 launches traced over {calls} calls")
     cs.check(len(setups) == calls * want["permute_chunks"],
              f"{label}: {len(setups)} table set-ups (K3) traced over "
              f"{calls} calls")
@@ -487,6 +506,23 @@ def ablation(A, calls: int, dev) -> None:
         print_kernels(kern, calls)
 
 
+def graph500_matrix(dev):
+    """The benchmark's ``graph500s20`` matrix (its structure, values from
+    seed 12345) as the port's CSR."""
+    import json
+    import os
+
+    from spmvbench.generators import graph500
+    from tpu_spmv_torch import CSRMatrix
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "spmvbench", "configs", "graph500s20.json")
+    with open(path) as f:
+        m = graph500.generate(json.load(f), 12345, dev)
+    return CSRMatrix(m.num_rows, m.num_cols, m.values, m.col_indices,
+                     m.row_ptrs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--calls", type=int, default=20)
@@ -544,9 +580,14 @@ def main() -> int:
         runs.append(("power_law_csr", cs.HEADLINE, [
             {"kernel_type": KernelType.SCALAR_CSR},
             {"kernel_type": KernelType.ELL_KERNEL}]))
+    if "graph500" in cells:
+        runs.append(("graph500", (), [{}, {
+            "pattern": True, "kernel_type": KernelType.VECTOR_CSR}]))
     for name, a, arms in runs:
         rng = tt.RandomGenerator(42)
-        if name == "power_law_csr":
+        if name == "graph500":
+            A = graph500_matrix(dev)
+        elif name == "power_law_csr":
             A = rng.power_law_csr(*a)
         elif name == "web_graph_csr" and len(a) == 2:
             A = tt.transition_matrix(tt.web_graph_csr(rng, a[0], a[0],
@@ -567,12 +608,16 @@ def main() -> int:
                     .astype(np.float32)
                 M = CSRMatrix(A.num_rows, A.num_cols, s[A.col_indices],
                               A.col_indices, A.row_ptrs)
-            elif changes.get("pattern") and name == "web_graph_1m":
+            elif changes.get("pattern") and name in ("web_graph_1m",
+                                                     "graph500"):
                 M = tt.transition_matrix(A)
-            profile(f"{name}{a} {changes}", M, x, changes, args.calls, dev,
-                    ell=name == "stencil_csr")
+            with contextlib.nullcontext() if name == "graph500" \
+                    else cs.window_ell_route():
+                profile(f"{name}{a} {changes}", M, x, changes, args.calls,
+                        dev, ell=name == "stencil_csr")
         if name == "web_graph_csr" and "ablation" in cells:
-            ablation(A, args.calls, dev)
+            with cs.window_ell_route():
+                ablation(A, args.calls, dev)
     return 0
 
 

@@ -180,8 +180,19 @@ Phases (each raises on failure; nothing is caught and passed over):
     ``scaling`` (its defaults: one row on one card, which prices no
     scaling), ``perf_properties`` (its defaults) and ``tune --quick``;
     each JSON names the card and every ``correct`` in it is true.
+19. K4, the merge-path CSR kernel, at the Graph500 cells' shapes (the
+    benchmark's ``graph500s20`` structure, ``spmvbench/generators``):
+    ``spmv_csr`` under the auto configuration and the pattern route of its
+    transition matrix (PageRank's) must be served by K4's plan, two
+    launches a call; each checked against the oracle, measured, held to
+    the physics guard, bit-identical across two calls and timed in turns
+    with cuSPARSE; K4 held to its plain version under the row bound and
+    timed beside it, its bound and cuSPARSE.
 
-The phases run in the order 1-6, 13, 14, 7, 14's mesh plan file, 10, 9,
+Phases 8-11 hold K1's routes (bands, pattern plans at sup 4096, the
+natural arm of the A/B): they run with the dispatch's K4 rule
+(``spmv.merge_route``) declining every matrix, as before the rule.  The
+phases run in the order 1-6, 19, 13, 14, 7, 14's mesh plan file, 10, 9,
 11, 12, 8, 15, 16, 17, 18, each new matrix made once and dropped when its
 phases end; each phase's seconds are printed after it.
 
@@ -205,13 +216,15 @@ Everything before the last line is diagnostics.  The line before the
 ``nvidia-smi`` line is one JSON object with a record per kernel (K1's f32
 variant, K1's section epilogue, K2, K3 as the mesh's table set-up, the
 probes P4, P2, P3, P5, K1's
-bf16 and pattern variants, P1); the last line is ``{"ok": true, "device":
+bf16 and pattern variants, P1, K4 f32 and pattern); the last line is
+``{"ok": true, "device":
 {...}}``.  Exits non-zero, and prints no result, where no CUDA device is
 available.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -486,6 +499,7 @@ def hold_kernels(plan, xd, A, x, what: str, timed: bool,
     from tpu_spmv_torch.kernels import FOLD_VARIANTS
     from tpu_spmv_torch.kernels import reorder as tr
     from tpu_spmv_torch.kernels import window_ell as twe
+    from tpu_spmv_torch.kernels.merge_csr import MergePlan
     from tpu_spmv_torch.spmv import PatternPlan
     from tpu_spmv_torch.timing import time_cuda, time_turns
     from tpu_spmv_torch.utils.testing import spmv_matches
@@ -493,6 +507,8 @@ def hold_kernels(plan, xd, A, x, what: str, timed: bool,
     rp = plan if isinstance(plan, tr.ReorderedPlan) else None
     pp = plan if isinstance(plan, PatternPlan) else None
     inner = rp.inner if rp else pp.plan if pp else plan
+    if isinstance(inner, MergePlan):
+        return hold_merge(plan, xd, A, x, what, timed, stream)
     dev = xd.device
     held, parts = {}, []
 
@@ -651,6 +667,8 @@ KERNEL_SOURCES = {
                          "tpu_spmv/kernels/window_ell.py:1313"),
     "unpermute": ("unpermute.cu", "tpu_spmv/kernels/window_ell.py:1463"),
     "permute_chunks": ("permute.cu", "tpu_spmv/kernels/reorder.py:225"),
+    "merge_csr": ("merge_csr.cu", "none (the merge-path CSR SpMV)"),
+    "merge_csr_pattern": ("merge_csr.cu", "none (the merge-path CSR SpMV)"),
 }
 
 
@@ -664,6 +682,71 @@ def record(name: str, source: str, replaces: str, launches: int,
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def hold_merge(plan, xd, A, x, what: str, timed: bool,
+               stream: float | None = None) -> dict:
+    """K4 of ``plan`` (K4's plan, or a pattern plan over one, fed ``scale *
+    x`` as the dispatch feeds it) against its plain version under the row
+    bound, and bit-identical across two calls; with ``timed``, timed in
+    turns with cuSPARSE on ``A`` (the library call that computes the same
+    product; the port never calls it), beside its plain version and its
+    bound over ``stream`` (each nonzero's column and value, the row ends,
+    x and y once).  Returns ``{"merge_csr" or "merge_csr_pattern":
+    [record]}`` as :func:`hold_kernels` does."""
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch.kernels import merge_csr as km
+    from tpu_spmv_torch.spmv import PatternPlan
+    from tpu_spmv_torch.timing import time_cuda, time_turns
+
+    pp = plan if isinstance(plan, PatternPlan) else None
+    k4 = pp.plan if pp else plan
+    xin = pp.scale * xd if pp else xd
+    got, again = km.spmv_merge(k4, xin), km.spmv_merge(k4, xin)
+    ref = km.spmv_merge_plain(k4, xin)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again),
+          f"K4 is not bit-identical across two calls ({what})")
+    y, y_ref = got.cpu().numpy(), ref.cpu().numpy()
+    exc = max_row_excess(y, y_ref, A, x)
+    check(exc <= 0, f"K4 vs its plain version, row bound ({what})")
+    name = "merge_csr_pattern" if k4.pat else "merge_csr"
+    rec = {"err": float(np.abs(y - y_ref).max()) if y.size else 0.0,
+           "ms": None, "plain_ms": None, "library_ms": None,
+           "nbytes": k4.stream_bytes, "ops": 2.0 * k4.nnz}
+    line = f"kernels vs plain, {what}: K4 row-bound excess {exc:.3g}, " \
+        f"max|Δ| {rec['err']:.3g}, bit-identical across two calls"
+    if timed:
+        M = cusparse(A, xd.device)
+        times = time_turns([lambda: km.spmv_merge(k4, xin), lambda: M @ xd],
+                           iters=ITERS, samples=SAMPLES)
+        rec["ms"], rec["library_ms"] = times[0] * 1e3, times[1] * 1e3
+        rec["plain_ms"] = time_cuda(lambda: km.spmv_merge_plain(k4, xin),
+                                    iters=PLAIN_ITERS, samples=SAMPLES,
+                                    warmup=2) * 1e3
+        least = "" if stream is None else f", bound " \
+            f"{bound(rec['nbytes'], rec['ops'], stream)[0] * 1e3:.2f} us"
+        line += (f"; {rec['ms'] * 1e3:.2f} us (plain "
+                 f"{rec['plain_ms'] * 1e3:.2f} us, library (cuSPARSE) "
+                 f"{rec['library_ms'] * 1e3:.2f} us{least})")
+    log(line)
+    return {name: [rec]}
+
+
+@contextlib.contextmanager
+def window_ell_route():
+    """The dispatch's window-ELL route for every matrix inside the block:
+    its K4 rule (``spmv.merge_route``) declines them all, as before the
+    rule, so the phases that hold K1's stacked routes keep them."""
+    spmv = sys.modules["tpu_spmv_torch.spmv"]
+    rule = spmv.merge_route
+    spmv.merge_route = lambda *a, **k: False
+    try:
+        yield
+    finally:
+        spmv.merge_route = rule
 
 
 def kernel_record(name: str, held: dict, launches: int,
@@ -681,6 +764,7 @@ def describe(plan) -> dict:
     """A plan's shape for the log: its type, and per band, level or strip
     the superblock height, groups and sections; a composite's flat tail."""
     from tpu_spmv_torch import DeviceCSR, DeviceELL
+    from tpu_spmv_torch.kernels.merge_csr import MergePlan
     from tpu_spmv_torch.kernels.reorder import ReorderedPlan
     from tpu_spmv_torch.kernels.strips import StripPlan
     from tpu_spmv_torch.kernels.window_ell import BandedPlan, CompositePlan
@@ -695,6 +779,10 @@ def describe(plan) -> dict:
         return {"type": "DeviceELL (flat ELL path)",
                 "slots": int(plan.values.shape[0]),
                 "rows_pad": plan.rows_pad}
+    if isinstance(plan, MergePlan):
+        return {"type": "MergePlan (K4)", "nnz": plan.nnz,
+                "ctas": plan.n_ctas, "tiles": plan.tiles,
+                "pattern": plan.pat}
     d = {"type": type(plan).__name__, "groups": plan.n_groups,
          "occupancy": round(plan.occupancy, 4)}
     if isinstance(plan, BandedPlan):
@@ -715,15 +803,15 @@ def describe(plan) -> dict:
 def check_launches(counts: dict, plan, calls: int, what: str) -> None:
     """The launches of ``calls`` calls of ``plan`` are the plan's own
     (``launches_per_call``: per band, level or strip one table set-up, a
-    fold per section, the epilogues), and one of each kernel of the path at
-    least."""
+    fold per section, the epilogues; K4 and its fix-up), and one of each
+    kernel of the path at least."""
     from tpu_spmv_torch.kernels import FOLD_VARIANTS
     from tpu_spmv_torch.spmv import launches_per_call
 
     want = launches_per_call(plan)
     folds = sum(counts[k] for k in FOLD_VARIANTS.values())
     got = {"fold": folds, **{k: counts[k] for k in (
-        "section_epilogue", "unpermute", "permute_chunks")}}
+        "section_epilogue", "unpermute", "permute_chunks", "merge_csr")}}
     check(got == {k: calls * v for k, v in want.items()},
           f"{what}: launches {got} over {calls} calls, the plan's "
           f"{want} a call")
@@ -1803,6 +1891,53 @@ def phase_levers(dev, stream: float, A, x) -> dict:
                          counts16["window_ell_fold_bf16"], stream)
 
 
+def phase_k4(dev, stream: float) -> list:
+    """Phase 19: K4 at the Graph500 cells' shapes.  Returns its f32 and
+    pattern records (their launches from each path's measured run)."""
+    import torch
+
+    from spmvbench.generators import graph500
+    from spmvbench.reference.matrix import transition_matrix
+    from tpu_spmv_torch import (CSRMatrix, KernelType, SpMVConfig,
+                                spmv_auto_config)
+    from tpu_spmv_torch import kernels as tk
+    from tpu_spmv_torch.kernels.merge_csr import MergePlan
+    from tpu_spmv_torch.spmv import PatternPlan
+    from tpu_spmv_torch.utils.testing import RandomGenerator
+
+    t0 = time.perf_counter()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "spmvbench", "configs", "graph500s20.json")
+    with open(path) as f:
+        config = json.load(f)
+    m = graph500.generate(config, 12345, dev)
+    torch.cuda.synchronize()
+    log(f"Graph500 SCALE {config['scale']}: {m.num_rows} vertices, {m.nnz} "
+        f"nnz (generated on the card in {time.perf_counter() - t0:.1f} s)")
+    x = RandomGenerator(7).vector(m.num_cols)
+    records = []
+    for what, mat, cfg, kind in (
+            ("graph500s20 (auto configuration)", m, None, MergePlan),
+            ("graph500s20 pattern (PageRank's route)",
+             transition_matrix(m), SpMVConfig(
+                 kernel_type=KernelType.VECTOR_CSR, pattern=True),
+             PatternPlan)):
+        A = CSRMatrix(mat.num_rows, mat.num_cols, mat.values,
+                      mat.col_indices, mat.row_ptrs)
+        res, xd = run_cell(what, A, x, cfg or spmv_auto_config(A), dev,
+                           stream, kind)
+        launches = tk.launch_counts()["merge_csr"]
+        check(isinstance(res.plan, MergePlan) or isinstance(
+            res.plan.plan, MergePlan), f"{what}: not served by K4")
+        repeat_and_yardstick(what, res, xd, A, dev)
+        held = hold_merge(res.plan, xd, A, x, what, timed=True,
+                          stream=stream)
+        name, = held
+        records.append(kernel_record(name, held, launches, stream))
+        del A, res, xd
+    return records
+
+
 def power_iteration(A, iters: int, damping: float = 0.85):
     """PageRank's update in float64 on the host, ``iters`` times from the
     uniform vector, renormalised: the reference of phase 9."""
@@ -1988,7 +2123,7 @@ def sharded_launches(sh) -> dict:
     from tpu_spmv_torch.spmv import launches_per_call
 
     want = dict.fromkeys(("section_epilogue", "unpermute", "permute_chunks",
-                          *FOLD_VARIANTS.values()), 0)
+                          "merge_csr", *FOLD_VARIANTS.values()), 0)
     for p in shard_plans(sh):
         per = launches_per_call(p)
         want[FOLD_VARIANTS[p.values]] += per.pop("fold")
@@ -2380,6 +2515,7 @@ def main() -> int:
     probe_records = run(phase_probes, dev, stream)
     kernels, A, x = run(phase_main, dev, stream)
     lever_record = run(phase_levers, dev, stream, A, x)
+    k4_records = run(phase_k4, dev, stream)
     run(phase_floors, dev, stream, A, x)
     run(phase_ell, dev, stream, A, x)
     del A, x
@@ -2388,18 +2524,21 @@ def main() -> int:
     kernels.append(k3_record)
     kernels += probe_records[:-1]
     kernels.append(lever_record)
-    W = run(phase_banded, dev, stream, A, x, rp)
-    del A, x, rp
-    kernels.append(run(phase_pagerank, dev, stream))
-    kernels.append(probe_records[-1])
-    run(phase_pagerank_1m, dev, stream, W)
-    del W
+    with window_ell_route():
+        W = run(phase_banded, dev, stream, A, x, rp)
+        del A, x, rp
+        kernels.append(run(phase_pagerank, dev, stream))
+        kernels.append(probe_records[-1])
+        run(phase_pagerank_1m, dev, stream, W)
+        del W
     run(phase_wide, dev, stream)
-    run(phase_reorder_ab, dev)
+    with window_ell_route():
+        run(phase_reorder_ab, dev)
     run(phase_sharded, dev)
     run(phase_soak, dev)
     run(phase_bench)
     run(phase_benchmarks)
+    kernels += k4_records
     check("jax" not in sys.modules, "JAX was imported")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -20,6 +20,8 @@ define; the tests bind the port's copy into the JAX module for their
 duration (``monkeypatch``), so no file of the JAX package changes.
 """
 
+import sys
+
 import numpy as np
 import pytest
 
@@ -45,6 +47,14 @@ from tpu_spmv_torch.utils.testing import (RandomGenerator,  # noqa: E402
 
 ROW_TOL = 1e-5
 CPU = "cpu"
+
+
+def window_ell_route(monkeypatch) -> None:
+    """The dispatch's window-ELL route for matrices that its K4 rule
+    (``spmv.merge_route``) would serve through the merge-path kernel: the
+    JAX dispatch, which these tests hold it to, has no K4."""
+    monkeypatch.setattr(sys.modules["tpu_spmv_torch.spmv"], "merge_route",
+                        lambda *a, **k: False)
 
 
 @pytest.fixture
@@ -301,6 +311,7 @@ def test_pattern_dispatch_serves_a_banded_pattern_plan(absorb_helper,
     A = transition_matrix(web(6000, 6000))
     x = RandomGenerator(7).vector(A.num_cols)
     set_max_groups(monkeypatch, natural_groups(A) - 8)
+    window_ell_route(monkeypatch)
     cfg = SpMVConfig(kernel_type=KernelType.VECTOR_CSR, pattern=True,
                      block_size=16)
     res = tpu_spmv_torch.spmv_csr(A, x, cfg, device=CPU)
@@ -333,6 +344,7 @@ def test_pagerank_over_banded_plans_matches_jax(absorb_helper, monkeypatch,
     A = transition_matrix(web(6000, 6000, seed=7))
     set_max_groups(monkeypatch, natural_groups(A) - 8)
     interpret_step_width(monkeypatch)
+    window_ell_route(monkeypatch)
     cfg = PageRankConfig(max_iterations=8, tolerance=tolerance)
     res = tpu_spmv_torch.pagerank(A, cfg, device=CPU)
     jres = tpu_spmv.pagerank(to_jax(A), tpu_spmv.PageRankConfig(

@@ -35,7 +35,10 @@ the fuzz slice (``tpu_spmv_torch.soak.LEVER_CASES``) runs K1-K3 held to the
 plain versions on the CPU under the row bound and to the oracle; and
 PageRank's loop at tolerance 0 reads nothing back inside the loop and
 stops on a NaN residual (fault F10), and a second call on one matrix
-takes the dangling mask the first uploaded.  The dispatch's captured call
+takes the dangling mask the first uploaded.  K4 (the merge-path CSR
+kernel) matches its plain version under the row bound and repeats bit for
+bit, its route replays its graph bit for bit, and PageRank over it stops
+with the float64 iteration.  The dispatch's captured call
 (the headline-class matrix, a banded stack, the reordered banded mesh)
 equals the eager call bit for bit over 16 ``x``, returns a tensor of its
 own each call, counts the plan's launches on its first, second and tenth
@@ -302,7 +305,8 @@ def test_spmv_launches_and_is_bit_identical(matrix, cuda_device, cap,
     assert n == 3 and tk.launch_counts() == {
         "window_ell_fold": n, "window_ell_fold_bf16": 0,
         "window_ell_fold_pattern": 0, "section_epilogue": n - 1,
-        "unpermute": int(leveled or cap == 1), "permute_chunks": 1}
+        "unpermute": int(leveled or cap == 1), "permute_chunks": 1,
+        "merge_csr": 0}
     again = twe.spmv_window_ell(plan, xd)
     torch.cuda.synchronize()
     assert torch.equal(y, again)
@@ -468,7 +472,7 @@ def test_reordered_spmv_csr_on_card_matches_oracle(cuda_device):
         "window_ell_fold": len(res.plan.inner.sections),
         "window_ell_fold_bf16": 0, "window_ell_fold_pattern": 0,
         "section_epilogue": len(res.plan.inner.sections) - 1,
-        "unpermute": 1, "permute_chunks": 1}
+        "unpermute": 1, "permute_chunks": 1, "merge_csr": 0}
     assert spmv_matches(res.y.cpu().numpy(), A, x, rel_tol=ROW_TOL)
 
 
@@ -599,10 +603,15 @@ def test_measure_fills_device_metrics(matrix, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel_type", [KernelType.VECTOR_CSR,
                                          KernelType.MERGE_PATH])
-def test_pagerank_on_card_matches_float64(cuda_device, kernel_type):
+def test_pagerank_on_card_matches_float64(cuda_device, monkeypatch,
+                                          kernel_type):
     """PageRank on a small web graph's transition matrix runs on a pattern
-    plan on the card (K1's pattern variant and K2 each iteration) and
-    matches a float64 power iteration with the same update."""
+    plan on the card (K1's pattern variant and K2 each iteration; the
+    dispatch's K4 rule, which would serve this graph through K4, declines
+    it here) and matches a float64 power iteration with the same
+    update."""
+    monkeypatch.setattr(sys.modules["tpu_spmv_torch.spmv"], "merge_route",
+                        lambda *a, **k: False)
     A = transition_matrix(web_graph_csr(RandomGenerator(42), 8192, 8192,
                                         avg_nnz=15))
     cfg = PageRankConfig(max_iterations=30, tolerance=0.0,
@@ -973,7 +982,7 @@ def test_graph_calls_count_the_plans_launches(cuda_device, monkeypatch,
     expect = {"window_ell_fold": want["fold"], "window_ell_fold_bf16": 0,
               "window_ell_fold_pattern": 0,
               **{k: want[k] for k in ("section_epilogue", "unpermute",
-                                      "permute_chunks")}}
+                                      "permute_chunks", "merge_csr")}}
     assert expect["window_ell_fold"] > 0
     for k in range(1, 11):
         before = tk.launch_counts()
@@ -1619,3 +1628,133 @@ def test_bench_smoke_on_card(cuda_device, capsys):
                 "pagerank_262k_ms_per_iter", "bf16_spmv_gb_s",
                 "pattern_spmv_gb_s"):
         assert d[key] > 0, key
+
+
+# ---- K4: the merge-path CSR SpMV ----
+
+def k4_graph(scale: int = 13, edgefactor: int = 8):
+    """A Graph500-law graph (``rmat_csr``'s law, labels permuted) that the
+    dispatch serves through K4, as ``tests/test_torch_merge_csr.py``
+    draws it."""
+    from tpu_spmv_torch.benchmarks.mtx_bench import rmat_csr
+
+    gen = np.random.default_rng(42)
+    A = rmat_csr(gen, scale, edgefactor)
+    n = A.num_rows
+    p = gen.permutation(n)
+    r = p[np.repeat(np.arange(n), np.diff(A.row_ptrs))]
+    c = p[A.col_indices]
+    o = np.lexsort((c, r))
+    ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(r, minlength=n), out=ptr[1:])
+    return CSRMatrix(n, n, A.values[o], c[o].astype(np.int32), ptr)
+
+
+def k4_hubs() -> CSRMatrix:
+    """Hub rows spanning several CTAs among short and empty rows."""
+    rng = np.random.default_rng(7)
+    lens = np.concatenate([[90000], rng.integers(0, 4, 20000), [70000],
+                           [0] * 4000, rng.integers(0, 40, 3000), [50000]])
+    ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    nnz = int(ptr[-1])
+    return CSRMatrix(len(lens), 5000,
+                     rng.uniform(-1, 1, nnz).astype(np.float32),
+                     rng.integers(0, 5000, nnz).astype(np.int32), ptr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", [False, True])
+@pytest.mark.parametrize("case", ["graph500", "hubs", "one cta"])
+def test_merge_kernel_matches_plain_and_repeats(cuda_device, case, pattern):
+    """K4 against its plain version on the same plan, under the row bound;
+    two calls on one ``x`` bit-identical; each call two launches (K4 and
+    its fix-up), one on a plan of one CTA."""
+    from tpu_spmv_torch.kernels import merge_csr as km
+
+    A = k4_hubs() if case == "hubs" else k4_graph()
+    plan = km.merge_from_host(km.host_merge(A, pattern), cuda_device,
+                              n_ctas=1 if case == "one cta" else None)
+    if case != "one cta":
+        assert plan.n_ctas == min(km.card_ctas(cuda_device, pattern),
+                                  -(-(A.num_rows + A.nnz) // km.TILE))
+    x = RandomGenerator(3).vector(A.num_cols)
+    xd = torch.from_numpy(x).to(cuda_device)
+    before = tk.launch_counts()["merge_csr"]
+    y = km.spmv_merge(plan, xd)
+    again = km.spmv_merge(plan, xd)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["merge_csr"] - before \
+        == 2 * (1 + (plan.n_ctas > 1))
+    assert torch.equal(y, again)
+    y_plain = km.spmv_merge_plain(plan, xd).cpu().numpy()
+    vals = np.ones(A.nnz, np.float32) if pattern else A.values
+    ones = CSRMatrix(A.num_rows, A.num_cols, vals, A.col_indices,
+                     A.row_ptrs)
+    bound = ROW_TOL * np.maximum(abs_row_scale(ones, x), 1.0)
+    assert np.all(np.abs(y.cpu().numpy() - y_plain) <= bound)
+    assert spmv_matches(y.cpu().numpy(), ones, x, rel_tol=ROW_TOL)
+
+
+@pytest.mark.cuda
+def test_merge_route_replays_its_graph_bit_for_bit(cuda_device):
+    """``spmv_csr`` serves the Graph500-law graph through K4; from the
+    second call the captured graph replays (``spmv.graph`` 1) and every
+    call equals K4's eager run bit for bit; a call counts K4's two
+    launches."""
+    from tpu_spmv_torch import profiling
+    from tpu_spmv_torch.kernels import merge_csr as km
+    from tpu_spmv_torch.spmv import run_plan
+
+    A = k4_graph()
+    cfg = spmv_auto_config(A)
+    xs = [torch.from_numpy(RandomGenerator(100 + k).vector(A.num_cols)).to(
+        cuda_device) for k in range(8)]
+    profiling.clear()
+    try:
+        with profiling.recording():
+            ys = [spmv_csr(A, x, cfg) for x in xs]
+        spans = profiling.spans()
+    finally:
+        profiling.clear()
+    torch.cuda.synchronize()
+    plan = ys[0].plan
+    assert isinstance(plan, km.MergePlan)
+    assert [s.count for s in spans if s.name == "spmv.graph"] \
+        == [0, 0] + [1] * 6
+    assert {s.count for s in spans if s.name == "spmv.launch"} == {2}
+    for res, x in zip(ys, xs):
+        assert res.error_code == 0
+        assert torch.equal(res.y, run_plan(plan, x))
+    assert spmv_matches(ys[-1].y.cpu().numpy(), A, xs[-1].cpu().numpy(),
+                        rel_tol=ROW_TOL)
+
+
+@pytest.mark.cuda
+def test_pagerank_over_k4_on_card_matches_float64(cuda_device):
+    """PageRank on the Graph500-law graph's transition matrix runs its
+    SpMVs through K4's pattern plan and stops after as many iterations as
+    the float64 power iteration, at its ranks far inside ``rank_gap``'s
+    2e-4."""
+    from tpu_spmv_torch.kernels import merge_csr as km
+
+    A = transition_matrix(k4_graph())
+    res = pagerank(A, PageRankConfig())
+    torch.cuda.synchronize()
+    assert res.error_code == 0
+    assert isinstance(res.plan, PatternPlan)
+    assert isinstance(res.plan.plan, km.MergePlan)
+    n = A.num_rows
+    rows = np.repeat(np.arange(n), np.diff(A.row_ptrs))
+    dang = np.bincount(A.col_indices, minlength=n) == 0
+    r = np.full(n, 1.0 / n)
+    for it in range(1, 101):
+        Ar = np.bincount(rows, A.values.astype(np.float64)
+                         * r[A.col_indices], minlength=n)
+        new = 0.85 * Ar + 0.85 * r[dang].sum() / n + 0.15 / n
+        step = np.linalg.norm(new - r)
+        r = new
+        if step < 1e-6:
+            break
+    r /= r.sum()
+    assert res.iterations == it
+    assert np.max(np.abs(res.ranks_host() - r) / r) < 2e-6

@@ -364,7 +364,8 @@ def test_flat_ell_path_is_deterministic_and_masks_padding():
     with pytest.raises(ValueError):
         spmv_ell_device(d, torch.from_numpy(x[:-1]))
     assert launches_per_call(d) == dict.fromkeys(
-        ("fold", "section_epilogue", "unpermute", "permute_chunks"), 0)
+        ("fold", "section_epilogue", "unpermute", "permute_chunks",
+         "merge_csr"), 0)
 
 
 def test_measure_refuses_the_cpu():

@@ -208,9 +208,10 @@ def test_probe_verdict_equals_jax(absorb_helper, which):
 def test_spmv_csr_serves_the_narrow_scrambled_mesh_reordered():
     """At 2^18 points (1,834,952 nonzeros) the selector picks the narrow
     superblock for the scrambled mesh; ``spmv_csr`` under
-    ``spmv_auto_config`` still serves it through a ``ReorderedPlan``, which
-    streams fewer slots than the natural plan, and its output is within
-    the row bound of the benchmark's plain float64 product."""
+    ``spmv_auto_config`` still serves it through a ``ReorderedPlan`` (the
+    probe comes before the K4 rule), which streams fewer slots than the
+    natural window-ELL plan, and its output is within the row bound of the
+    benchmark's plain float64 product."""
     from spmvbench.reference import plain
 
     A, m = mesh_matrix(18)
@@ -220,9 +221,8 @@ def test_spmv_csr_serves_the_narrow_scrambled_mesh_reordered():
     x = torch.from_numpy(tt.RandomGenerator(7).vector(A.num_cols))
     res = tpu_spmv_torch.spmv_csr(A, x, cfg, device="cpu")
     assert res.error_code == 0 and isinstance(res.plan, tr.ReorderedPlan)
-    natural = tpu_spmv_torch.spmv_csr(A, x, SpMVConfig(
-        kernel_type=cfg.kernel_type, reorder=False), device="cpu").plan
-    assert not isinstance(natural, tr.ReorderedPlan)
+    natural = tplan.build_auto(A, split_rows=128, choice=tplan._choose_sup(
+        A, with_groups=True, split_rows=128))
     assert res.plan.n_groups < natural.n_groups
     op = plain.Operator(m, "cpu")
     y64, scale = op.matvec(x), op.matvec(x, absolute=True)

@@ -87,7 +87,8 @@ def test_no_module_but_the_dispatch_imports_its_private_names():
 def test_pagerank_serves_the_plan_resolve_csr_gives(monkeypatch, kernel_type,
                                                     route):
     """Where every packed layout rejects the matrix (pattern, single,
-    banded, reordered and composite), PageRank runs on SCALAR_CSR's plan
+    banded, reordered and composite) and the K4 rule declines it,
+    PageRank runs on SCALAR_CSR's plan
     (the naive plan, or the flat path where that overflows too): the very
     plan ``resolve_csr`` gives for PageRank's configuration, and the ranks
     of the packed route."""
@@ -107,6 +108,7 @@ def test_pagerank_serves_the_plan_resolve_csr_gives(monkeypatch, kernel_type,
                          (tspmv, "build_composite")] \
             + [(tspmv, "build")] * (route == "flat"):
         monkeypatch.setattr(module, name, overflow)
+    monkeypatch.setattr(tspmv, "merge_route", lambda *a, **k: False)
     res = tpu_spmv_torch.pagerank(A, cfg, device="cpu")
     assert res.error_code == 0 == packed.error_code
     assert res.plan is tspmv.resolve_csr(A, kernel_type,

@@ -136,7 +136,9 @@ def set_max_groups(monkeypatch, cap: int) -> None:
 
 def reject_build_auto(monkeypatch) -> None:
     """Both dispatches' ``build_auto`` rejects every matrix (the guard
-    rejection of ``tests/test_strips.py``)."""
+    rejection of ``tests/test_strips.py``), and the port's K4 rule
+    (``spmv.merge_route``) declines every matrix, as the JAX dispatch,
+    which has no K4, does."""
     def boom(*a, **k):
         raise jwe.WindowEllOverflow("forced guard rejection")
 
@@ -145,6 +147,7 @@ def reject_build_auto(monkeypatch) -> None:
 
     monkeypatch.setattr(jwe, "build_auto", boom)
     monkeypatch.setattr(tspmv, "build_auto", boom_port)
+    monkeypatch.setattr(tspmv, "merge_route", lambda *a, **k: False)
 
 
 def wide_cols_matrix(cols: int, rows: int = 1024, k: int = 6):

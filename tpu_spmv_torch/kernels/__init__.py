@@ -2,16 +2,18 @@
 (:mod:`.window_ell`, CUDA through :mod:`._build`: the gather table's
 set-up, which is the chunk permute, the fold and the epilogues) and the
 banded and composite stacks of plans, column strips (:mod:`.strips`), block
-reordering (:mod:`.reorder`: the probe in NumPy, the reordered plan), and
-the flat path (:mod:`.scalar`, plain PyTorch ops).  :func:`upload` makes
-the device plan of a host plan of any kind.
+reordering (:mod:`.reorder`: the probe in NumPy, the reordered plan), the
+merge-path CSR kernel K4 (:mod:`.merge_csr`), and the flat path
+(:mod:`.scalar`, plain PyTorch ops).  :func:`upload` makes the device plan
+of a host plan of any kind.
 
 Each kernel counts its launches in an attribute of a wrapper, ``launches``
-(for K1's fold a dict per value stream); :func:`launch_counts` reads them
-all, :func:`launch_total` sums them, :func:`add_launch_counts` adds the
-launches a replayed CUDA graph made, and :func:`reset_launch_counts` sets
-them to 0."""
+(for K1's fold a dict per value stream; K4's counts its fix-up too);
+:func:`launch_counts` reads them all, :func:`launch_total` sums them,
+:func:`add_launch_counts` adds the launches a replayed CUDA graph made, and
+:func:`reset_launch_counts` sets them to 0."""
 
+from .merge_csr import HostMerge, MergePlan, merge_from_host, spmv_merge
 from .plan import HostBanded, HostComposite
 from .reorder import (HostReordered, ReorderedPlan, build_reordered,
                       reordered_from_host, spmv_reordered)
@@ -31,13 +33,17 @@ __all__ = [
     "spmv_reordered", "spmv_csr_scalar", "FOLD_VARIANTS", "permute_chunks",
     "section_epilogue", "unpermute", "window_ell_fold", "launch_counts",
     "launch_total", "add_launch_counts", "reset_launch_counts", "upload",
+    "MergePlan", "spmv_merge",
 ]
 
 
 def upload(host, device="cuda"):
     """The device plan of a port-built host plan of any kind, on the card
     unless the caller names another device: a single plan, a banded stack,
-    a composite plan, column strips, or a reordered plan with its order."""
+    a composite plan, column strips, a reordered plan with its order, or
+    K4's plan."""
+    if isinstance(host, HostMerge):
+        return merge_from_host(host, device)
     if isinstance(host, HostBanded):
         return banded_from_host(host, device)
     if isinstance(host, HostComposite):
@@ -51,7 +57,7 @@ def upload(host, device="cuda"):
 
 
 def reset_launch_counts() -> None:
-    for fn in (section_epilogue, unpermute, permute_chunks):
+    for fn in (section_epilogue, unpermute, permute_chunks, spmv_merge):
         fn.launches = 0
     window_ell_fold.launches = dict.fromkeys(FOLD_VARIANTS, 0)
 
@@ -60,13 +66,15 @@ def launch_counts() -> dict:
     """``{kernel name: launches}``: K1's fold once per variant (f32, bf16
     and pattern value streams) and its section epilogue (one launch after
     each section but the last of an SpMV), then K2 (the SpMV's final
-    epilogue) and K3 (the gather table's set-up, once a call, and the
-    public ``permute_chunks``)."""
+    epilogue), K3 (the gather table's set-up, once a call, and the public
+    ``permute_chunks``) and K4 (``merge_csr``: the kernel and its fix-up,
+    counted on ``spmv_merge``)."""
     counts = {name: window_ell_fold.launches[v]
               for v, name in FOLD_VARIANTS.items()}
     counts.update(section_epilogue=section_epilogue.launches,
                   unpermute=unpermute.launches,
-                  permute_chunks=permute_chunks.launches)
+                  permute_chunks=permute_chunks.launches,
+                  merge_csr=spmv_merge.launches)
     return counts
 
 
@@ -75,7 +83,7 @@ def launch_total() -> int:
     dict (the dispatch reads it on each side of a recorded launch)."""
     return (sum(window_ell_fold.launches.values())
             + section_epilogue.launches + unpermute.launches
-            + permute_chunks.launches)
+            + permute_chunks.launches + spmv_merge.launches)
 
 
 def add_launch_counts(counts: dict) -> None:
@@ -87,3 +95,4 @@ def add_launch_counts(counts: dict) -> None:
     section_epilogue.launches += counts["section_epilogue"]
     unpermute.launches += counts["unpermute"]
     permute_chunks.launches += counts["permute_chunks"]
+    spmv_merge.launches += counts["merge_csr"]

@@ -33,6 +33,7 @@ import torch
 from .csr import CSRMatrix, DeviceCSR, _bucket
 from .errors import (FileIOError, InvalidFormatError, guarded_upload,
                      target_device)
+from .kernels.merge_csr import HostMerge, MergePlan
 from .kernels.plan import (AUX, LEAVES, T_BASE, HostBanded, HostComposite,
                            HostPlan)
 from .kernels.reorder import (ReorderedPlan, _check_maps,
@@ -147,7 +148,10 @@ def save_plan(plan, path: str) -> None:
     :class:`WindowEllPlan`, :class:`BandedPlan`, :class:`CompositePlan`,
     :class:`StripPlan` or :class:`ReorderedPlan` on any device, or a host
     ``HostPlan``, ``HostBanded``, ``HostComposite`` or ``HostStrips``.
-    Raises :class:`InvalidFormatError` for any other type and
+    Raises :class:`InvalidFormatError` for any other type (K4's
+    :class:`~.kernels.merge_csr.MergePlan` among them: the JAX format has
+    no such kind, and the matrix's own CSR file, ``csr_serialize``, holds
+    all it is made from) and
     :class:`FileIOError` where the file cannot be written."""
     arrays: dict = {}
     meta: dict = {"version": _VERSION}
@@ -195,6 +199,11 @@ def save_plan(plan, path: str) -> None:
         else:
             meta["inner_kind"] = "window_ell"
             _window_entry(plan.inner, "p_", arrays, meta)
+    elif isinstance(plan, (MergePlan, HostMerge)):
+        raise InvalidFormatError(
+            "save_plan: K4's merge-path plan has no plan file (the JAX "
+            "format has no such kind); save the matrix itself "
+            "(csr_serialize), from which the plan is made in milliseconds")
     else:
         raise InvalidFormatError(
             f"save_plan: unsupported plan type {type(plan).__name__}")

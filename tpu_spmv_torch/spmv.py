@@ -9,13 +9,15 @@ caller names another device, and reports errors through
 no-throw contract). The routes, in the JAX order:
 
 * VECTOR_CSR and MERGE_PATH: the pattern plan of the 0/1 structure where
-  ``SpMVConfig.pattern`` is set and the values are column-scaled (a single
-  plan or a row-banded stack); else, up to ``VMEM_X_MAX_COLS`` columns,
-  the block-reordered plan where the reorder probe applies, else
-  ``build_auto``'s single plan or row-banded stack (with an f32 or bf16
-  value stream); past that width, or where ``build_auto`` overflows, the
-  composite plan (f32 levels and a flat tail); past ``PACKED_MAX_COLS``,
-  column strips;
+  ``SpMVConfig.pattern`` is set and the values are column-scaled (K4's
+  plan where :func:`merge_route` says so, else a single plan or a
+  row-banded stack); else, up to ``VMEM_X_MAX_COLS`` columns, the
+  block-reordered plan where the reorder probe applies, else K4's plan
+  (the merge-path CSR kernel, an f32 value stream) where
+  :func:`merge_route` says so, else ``build_auto``'s single plan or
+  row-banded stack (with an f32 or bf16 value stream); past that width, or
+  where ``build_auto`` overflows, the composite plan (f32 levels and a flat
+  tail); past ``PACKED_MAX_COLS``, column strips;
 * SCALAR_CSR: the naive plan (no row splits, no spill), where it fits;
 * the flat path (:mod:`.kernels.scalar`) for ELL_KERNEL on a CSR, for
   ``use_vmem_x=False``, and for a structure every packed layout rejects.
@@ -42,11 +44,12 @@ error, propagates.
 On the card the dispatch replays a plan's call as one CUDA graph
 (:class:`CallGraph`) wherever the plan's whole call is the port's kernels
 and torch ops that never wait on the host (:func:`graphable`: a window-ELL
-plan, a banded stack, a pattern plan over either, a reordered plan over
-either).  A matrix's first call on such a plan runs eagerly, the second
-captures it, and every later call copies ``x`` in, replays the graph and
-copies ``y`` out into a tensor of its own: the same kernels in the same
-order, so the output is the eager call's bit for bit.  The graph is cached
+plan, a banded stack, K4's plan, a pattern plan over any of them, a
+reordered plan over the first two).  A matrix's first call on such a plan
+runs eagerly, the second captures it, and every later call copies ``x``
+in, replays the graph and copies ``y`` out into a tensor of its own: the
+same kernels in the same order, so the output is the eager call's bit for
+bit.  The graph is cached
 on the matrix beside its plan (``free_device()`` drops both).  A call on
 another stream than the capture's, or while another thread holds the
 graph's buffers, runs eagerly; a plan whose capture fails runs eagerly
@@ -84,8 +87,11 @@ from . import profiling
 from .errors import (DeviceException, SpMVError, SpMVException,
                      guarded_upload)
 from .kernels import add_launch_counts, launch_counts, launch_total, upload
-from .kernels.plan import (WindowEllOverflow, _choose_sup, build,
-                           build_auto, build_composite)
+from .kernels.merge_csr import (GROUP_SLOTS, MergePlan, host_merge,
+                                spmv_merge)
+from .kernels.plan import (K1_SLOT_PS, K4_NNZ_PS, K4_ROW_PS,
+                           WindowEllOverflow, _choose_sup, build, build_auto,
+                           build_composite)
 from .kernels.ell_kernel import spmv_ell_device
 from .kernels.reorder import (HostReordered, ReorderedPlan,
                               build_reordered_host, maybe_reorder,
@@ -145,11 +151,12 @@ class SpMVConfig:
 @dataclasses.dataclass(frozen=True)
 class PatternPlan:
     """The pattern fast path's plan: a pattern plan (or row-banded stack of
-    them) of the 0/1 structure B of ``A = B·diag(scale)`` and the column
-    scale, both on one device (the JAX dispatch's ``(spmv_pattern, (plan,
-    scale))`` or ``(spmv_pattern_banded, ...)``)."""
+    them, or K4's pattern plan) of the 0/1 structure B of ``A =
+    B·diag(scale)`` and the column scale, both on one device (the JAX
+    dispatch's ``(spmv_pattern, (plan, scale))`` or
+    ``(spmv_pattern_banded, ...)``)."""
 
-    plan: WindowEllPlan | BandedPlan
+    plan: WindowEllPlan | BandedPlan | MergePlan
     scale: torch.Tensor       # f32 (num_cols,)
 
     @property
@@ -162,7 +169,7 @@ class PatternPlan:
 # what serves an SpMV: a packed plan or stack of them, or the matrix itself
 # on a flat path
 Plan = (WindowEllPlan | BandedPlan | CompositePlan | StripPlan | ReorderedPlan
-        | PatternPlan | DeviceCSR | DeviceELL)
+        | MergePlan | PatternPlan | DeviceCSR | DeviceELL)
 
 
 @dataclasses.dataclass
@@ -213,17 +220,45 @@ def cached(A: CSRMatrix | ELLMatrix, key, device: torch.device, make, put):
     return A._plan_cache[dkey]
 
 
+def _sup_choice(A: CSRMatrix, split: int | None) -> tuple:
+    """The superblock choice and its estimated groups for ``A`` (a sampled
+    O(nnz) model), once per ``split``, cached under ``("_sup", split)``."""
+    return _memo(A, ("_sup", split),
+                 lambda: _choose_sup(A, with_groups=True, split_rows=split))
+
+
+def merge_route(A: CSRMatrix, split: int | None, pattern: bool) -> bool:
+    """Whether K4 (the merge-path CSR kernel) serves ``A`` in place of a
+    window-ELL plan: where its predicted device time, ``nnz`` and ``rows``
+    at ``K4_NNZ_PS`` and ``K4_ROW_PS``, is below K1's, the superblock
+    choice's estimated groups (a sampled O(nnz) model, once per ``split``,
+    memoized for the build) × 1,024 slots at ``K1_SLOT_PS``, of the f32
+    or the pattern value stream (``kernels/plan.py``).  An estimate of 0
+    groups (unknown: the dense-narrow class) or one below the nonzeros
+    prices K1 at one slot a nonzero, its least.  It reads the matrix
+    alone."""
+    _, groups = _sup_choice(A, split)
+    slots = max(groups, -(-A.nnz // GROUP_SLOTS)) * GROUP_SLOTS
+    v = "pattern" if pattern else "float32"
+    return A.nnz * K4_NNZ_PS[v] + A.num_rows * K4_ROW_PS[v] \
+        < slots * K1_SLOT_PS[v]
+
+
 def _host_plan(A: CSRMatrix, split: int | None, config: SpMVConfig):
     """The host plan for ``A`` in the order of ``tpu_spmv/spmv.py:156-205``:
     up to ``VMEM_X_MAX_COLS`` columns the reorder probe (O(nnz), once a
     matrix; the port's probe, unlike the JAX one, does not ask the
     superblock choice), the reordered build where the probe applies and the
-    permuted matrix packs, else ``build_auto``'s plan or banded stack at the
-    superblock choice (a sampled O(nnz) model, once per ``split``); past
-    that width, or where that overflows, the composite plan (its levels
-    f32, as in the JAX package).  A reordered build comes as a
-    :class:`HostReordered`.  Raises :class:`WindowEllOverflow` where no
-    composite level packs the matrix."""
+    permuted matrix packs, else K4's plan of an f32 stream where
+    :func:`merge_route` prefers it, else ``build_auto``'s plan or banded
+    stack at the superblock choice (a sampled O(nnz) model, once per
+    ``split``); past that width, or where that overflows, the composite
+    plan (its levels f32, as in the JAX package).  A reordered build comes
+    as a :class:`HostReordered`, K4's as a
+    :class:`~.kernels.merge_csr.HostMerge`; a bf16 value stream stays on
+    window-ELL (K4 has no bf16 instance).  Raises
+    :class:`WindowEllOverflow` where no composite level packs the
+    matrix."""
     vdt = "bfloat16" if config.bf16_values else "float32"
     if A.num_cols <= VMEM_X_MAX_COLS:
         if config.reorder is not False:
@@ -237,12 +272,11 @@ def _host_plan(A: CSRMatrix, split: int | None, config: SpMVConfig):
                         values_dtype=vdt), A.num_rows, A.num_cols)
                 except WindowEllOverflow:
                     pass   # the permuted matrix packs in no layout
-        choice = _memo(A, ("_sup", split),
-                       lambda: _choose_sup(A, with_groups=True,
-                                           split_rows=split))
+        if not config.bf16_values and merge_route(A, split, pattern=False):
+            return host_merge(A, pattern=False)
         try:
             return build_auto(A, step_groups=config.step_groups,
-                              split_rows=split, choice=choice,
+                              split_rows=split, choice=_sup_choice(A, split),
                               values_dtype=vdt)
         except WindowEllOverflow:
             pass
@@ -254,9 +288,10 @@ def _resolve_pattern(A: CSRMatrix, kernel_type: KernelType,
                      config: SpMVConfig,
                      device: torch.device) -> PatternPlan | None:
     """The pattern fast path (``tpu_spmv/spmv.py:423-455``): a pattern plan
-    (or banded stack) of the 0/1 structure plus the factored-out column
-    scale.  Returns ``None`` (the f32 packed path serves) when the values
-    are not column-scaled, the pattern plan overflows, or
+    (K4's where :func:`merge_route` prefers it, else a window-ELL plan or
+    banded stack) of the 0/1 structure plus the factored-out column scale.
+    Returns ``None`` (the f32 packed path serves) when the values are not
+    column-scaled, the pattern plan overflows, or
     ``TPU_SPMV_NO_PATTERN`` is set.  The scale is cached under
     ``"_cscale"``, the host plan (or ``None`` for a rejection) under
     ``("pat", kernel type, step width)``, and the :class:`PatternPlan` under
@@ -268,9 +303,13 @@ def _resolve_pattern(A: CSRMatrix, kernel_type: KernelType,
     def make():
         if _memo(A, "_cscale", lambda: column_scale_factor(A)) is None:
             return None
+        split = _split(kernel_type)
+        if merge_route(A, split, pattern=True):
+            return host_merge(A, pattern=True)
         try:
             return build_auto(A, step_groups=config.step_groups,
-                              split_rows=_split(kernel_type), pattern=True)
+                              split_rows=split, pattern=True,
+                              choice=_sup_choice(A, split))
         except WindowEllOverflow:
             return None
 
@@ -322,9 +361,13 @@ def run_plan(plan: Plan, x: torch.Tensor) -> torch.Tensor:
     if isinstance(plan, ReorderedPlan):
         return spmv_reordered(plan, x)
     if isinstance(plan, PatternPlan):
+        if isinstance(plan.plan, MergePlan):
+            return spmv_merge(plan.plan, plan.scale * x)
         if isinstance(plan.plan, BandedPlan):
             return spmv_pattern_banded(plan.plan, plan.scale, x)
         return spmv_pattern(plan.plan, plan.scale, x)
+    if isinstance(plan, MergePlan):
+        return spmv_merge(plan, x)
     if isinstance(plan, BandedPlan):
         return spmv_banded(plan, x)
     if isinstance(plan, CompositePlan):
@@ -340,17 +383,22 @@ def run_plan(plan: Plan, x: torch.Tensor) -> torch.Tensor:
 
 def launches_per_call(plan: Plan) -> dict:
     """The port's kernel launches one :func:`run_plan` of ``plan`` makes, as
-    ``{"fold", "section_epilogue", "unpermute", "permute_chunks"}`` (K1's
-    fold in whichever value stream the plan has): per window-ELL plan one
-    table set-up (K3), one fold per section, a section epilogue after each
-    but the last, and K2 where the plan is leveled, its last section split
-    a superblock, or a reordered plan maps its tiles; summed over the
-    bands, levels or strips of a stack, with two public chunk permutes
-    around a reordered banded stack; none on a flat path (CSR or ELL)."""
+    ``{"fold", "section_epilogue", "unpermute", "permute_chunks",
+    "merge_csr"}`` (K1's fold in whichever value stream the plan has): per
+    window-ELL plan one table set-up (K3), one fold per section, a section
+    epilogue after each but the last, and K2 where the plan is leveled, its
+    last section split a superblock, or a reordered plan maps its tiles;
+    summed over the bands, levels or strips of a stack, with two public
+    chunk permutes around a reordered banded stack; K4 and its fix-up (none
+    where the plan has one CTA) for K4's plan; none on a flat path (CSR or
+    ELL)."""
     counts = dict.fromkeys(("fold", "section_epilogue", "unpermute",
-                            "permute_chunks"), 0)
+                            "permute_chunks", "merge_csr"), 0)
 
     def add(p, mapped=False):
+        if isinstance(p, MergePlan):
+            counts["merge_csr"] += 1 + (p.n_ctas > 1)
+            return
         if isinstance(p, (BandedPlan, CompositePlan, StripPlan)):
             for q in p.plans:
                 add(q)
@@ -375,8 +423,9 @@ def launches_per_call(plan: Plan) -> dict:
 
 def _packed_groups(plan: Plan) -> int | None:
     """The packed groups (1,024 slots each) ``plan`` streams a call, summed
-    over the bands, levels or strips of a stack; ``None`` on a flat path
-    (CSR or ELL).  The dispatch gives it to its ``spmv.resolve`` span as
+    over the bands, levels or strips of a stack (K4's plan: its nonzeros
+    over 1,024, rounded up, as it pads none); ``None`` on a flat path (CSR
+    or ELL).  The dispatch gives it to its ``spmv.resolve`` span as
     the span's count."""
     if isinstance(plan, (DeviceCSR, DeviceELL)):
         return None
@@ -389,13 +438,14 @@ def graphable(plan: Plan) -> bool:
     """Whether the dispatch captures ``plan``'s call in a CUDA graph: a
     plan whose whole :func:`run_plan` is the port's kernels and torch ops that
     never wait on the host, by its type (a window-ELL plan, a banded stack,
-    a pattern plan over either, a reordered plan over either).  The flat
-    paths, column strips and composite plans run eagerly."""
+    K4's plan, a pattern plan over any of them, a reordered plan over the
+    first two).  The flat paths, column strips and composite plans run
+    eagerly."""
     if isinstance(plan, PatternPlan):
         plan = plan.plan
     elif isinstance(plan, ReorderedPlan):
         plan = plan.inner
-    return isinstance(plan, (WindowEllPlan, BandedPlan))
+    return isinstance(plan, (WindowEllPlan, BandedPlan, MergePlan))
 
 
 class CallGraph:

@@ -96,7 +96,7 @@ def test_only_the_profilers_recording_step_records(case):
         call(case)
         prof.step()
     assert by_name(profiling.spans()) == {"spmv.call": 1, "spmv.resolve": 1,
-                                          "spmv.launch": 1}
+                                          "spmv.plan": 1, "spmv.launch": 1}
 
 
 @pytest.mark.parametrize("entry", ["csr", "ell"])
@@ -106,17 +106,22 @@ def test_a_call_records_its_resolve_and_launch(case, entry):
         call(case, entry)
     spans = profiling.spans()
     assert [s.name for s in spans] == ["spmv.call", "spmv.resolve",
-                                       "spmv.launch"] * 2
-    for k in (0, 3):
-        root, resolve, launch = spans[k:k + 3]
+                                       "spmv.plan", "spmv.launch"] * 2
+    for k in (0, 4):
+        root, resolve, plan, launch = spans[k:k + 4]
         assert root.parent == -1
         assert resolve.parent == launch.parent == k
-        assert root.call == resolve.call == launch.call
-        assert root.start_ns <= resolve.start_ns <= resolve.end_ns \
-            <= launch.start_ns <= launch.end_ns <= root.end_ns
+        assert plan.parent == k + 1
+        assert root.call == resolve.call == plan.call == launch.call
+        assert root.start_ns <= resolve.start_ns <= plan.start_ns \
+            <= plan.end_ns <= resolve.end_ns <= launch.start_ns \
+            <= launch.end_ns <= root.end_ns
         # the CPU runs the kernels' plain versions, which count no launch
         assert launch.count == 0 and root.count is None
-    assert spans[0].call != spans[3].call
+    assert spans[0].call != spans[4].call
+    # the CSR matrix's second call hits its plan; each ELL call is on a
+    # new matrix, so each builds one
+    assert spans[6].count == (1 if entry == "ell" else 0)
 
 
 @pytest.mark.parametrize("tolerance, steps, readbacks",
@@ -151,7 +156,7 @@ def test_spans_share_the_profilers_clock(case):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         spmv_csr(A, x, cfg, device=CPU)
     t0 = prof.profiler.kineto_results.trace_start_ns()
-    root, _, launch = profiling.spans()
+    root, _, _, launch = profiling.spans()
     lo, hi = (root.start_ns - t0) * 1e-3, (root.end_ns - t0) * 1e-3
     ops = [e for e in prof.events() if e.name.startswith("aten::")]
     assert ops
@@ -169,9 +174,9 @@ def test_the_bounded_list_counts_what_it_drops(case, monkeypatch):
         for _ in range(3):
             call(case)
     spans = profiling.spans()
-    assert len(spans) == 4 and profiling.dropped() == 9 - 4
+    assert len(spans) == 4 and profiling.dropped() == 12 - 4
     assert [s.name for s in spans] == ["spmv.call", "spmv.resolve",
-                                       "spmv.launch", "spmv.call"]
+                                       "spmv.plan", "spmv.launch"]
     assert all(s.end_ns for s in spans)
     profiling.clear()
     assert profiling.spans() == [] and profiling.dropped() == 0
@@ -195,7 +200,7 @@ def test_a_failed_launch_closes_its_spans(case, monkeypatch, cap):
             res = spmv_csr(A, x, cfg, device=CPU)
             assert res.error_code != 0 and not profiling.on
     spans = profiling.spans()
-    names = ["spmv.call", "spmv.resolve", "spmv.launch"] * 2
+    names = ["spmv.call", "spmv.resolve", "spmv.plan", "spmv.launch"] * 2
     stored = len(names) if cap is None else cap
     assert [s.name for s in spans] == names[:stored]
     assert profiling.dropped() == len(names) - stored
@@ -223,7 +228,8 @@ def test_annotate_records_and_appears_in_the_chrome_trace(case, tmp_path):
     assert "solver-step" in names
     spans = profiling.spans()
     assert [s.name for s in spans] == ["solver-step", "spmv.call",
-                                       "spmv.resolve", "spmv.launch"]
+                                       "spmv.resolve", "spmv.plan",
+                                       "spmv.launch"]
     assert spans[0].parent == -1 and spans[1].parent == 0
     assert len({s.call for s in spans}) == 1
 
@@ -291,9 +297,10 @@ def test_a_reordered_call_records_its_permutes(banded_mesh, monkeypatch,
         res = reordered_call(banded_mesh, monkeypatch, banded)
     spans = profiling.spans()
     assert [s.name for s in spans] == ["spmv.call", "spmv.resolve",
-                                       "spmv.launch", "spmv.reorder"]
-    launch, reorder = spans[2:]
-    assert reorder.parent == 2 and reorder.call == launch.call
+                                       "spmv.plan", "spmv.launch",
+                                       "spmv.reorder"]
+    launch, reorder = spans[3:]
+    assert reorder.parent == 3 and reorder.call == launch.call
     assert launch.start_ns <= reorder.start_ns <= reorder.end_ns \
         <= launch.end_ns
     # K3 launches a table set-up a window-ELL plan, and the permutes

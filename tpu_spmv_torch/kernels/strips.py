@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import profiling
 from ..csr import CSRMatrix
 from .plan import HostBanded, build_auto
 from .window_ell import (BandedPlan, PlanFile, banded_from_host,
@@ -126,12 +127,18 @@ def build_strips(csr: CSRMatrix, strip_cols: int = STRIP_MAX_COLS,
 def spmv_strips(sp: StripPlan, x: torch.Tensor) -> torch.Tensor:
     """``y = A @ x`` over a strip plan (``spmv_strips``,
     ``strips.py:140-152``): each strip's SpMV on its slice of x, added in
-    strip order.  Returns ``(num_rows,)`` f32."""
+    strip order.  Returns ``(num_rows,)`` f32.  Recorded as the span
+    ``spmv.strips`` around the partial products and their sum, whose
+    count is the strips run."""
+    if profiling.on:
+        span = profiling.begin("spmv.strips")
     y = None
     for p, (lo, hi) in zip(sp.plans, sp.bounds):
         fn = spmv_banded if isinstance(p, BandedPlan) else spmv_window_ell
         yk = fn(p, x[lo:hi])
         y = yk if y is None else y + yk
+    if profiling.on:
+        profiling.end(span, len(sp.plans))
     if y is None:
         return torch.zeros(sp.num_rows, dtype=torch.float32, device=x.device)
     return y

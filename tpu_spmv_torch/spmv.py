@@ -118,6 +118,9 @@ MEASURE_WARMUP = 10
 
 log = logging.getLogger("tpu_spmv_torch")
 
+# host artefacts made by cached(), a count for the spmv.plan span
+_host_builds = 0
+
 
 class KernelType(enum.IntEnum):
     """Reference ``SpMVConfig::KernelType`` (``spmv.h:12-17``)."""
@@ -210,11 +213,15 @@ def _memo(A: CSRMatrix | ELLMatrix, key, make):
 def cached(A: CSRMatrix | ELLMatrix, key, device: torch.device, make, put):
     """The device artefact cached on ``A`` under ``(key, str(device))``:
     ``put(host, device)`` of the host artefact cached under ``key``
-    (``make()`` on a miss; ``None`` remembers a rejection and gives
-    ``None``).  Every plan the dispatch serves is cached so, and PageRank's
-    dangling mask; ``free_device()`` drops them all."""
+    (``make()`` on a miss, counted in ``_host_builds``; ``None``
+    remembers a rejection and gives ``None``).  Every plan the dispatch
+    serves is cached so, and PageRank's dangling mask; ``free_device()``
+    drops them all."""
+    global _host_builds
     dkey = (key, str(device))
     if dkey not in A._plan_cache:
+        if key not in A._plan_cache:
+            _host_builds += 1
         host = _memo(A, key, make)
         A._plan_cache[dkey] = None if host is None else put(host, device)
     return A._plan_cache[dkey]
@@ -256,9 +263,8 @@ def _host_plan(A: CSRMatrix, split: int | None, config: SpMVConfig):
     plan (its levels f32, as in the JAX package).  A reordered build comes
     as a :class:`HostReordered`, K4's as a
     :class:`~.kernels.merge_csr.HostMerge`; a bf16 value stream stays on
-    window-ELL (K4 has no bf16 instance).  Raises
-    :class:`WindowEllOverflow` where no composite level packs the
-    matrix."""
+    window-ELL (K4 has no bf16 instance).  ``None`` where no composite
+    level packs the matrix (:class:`WindowEllOverflow`)."""
     vdt = "bfloat16" if config.bf16_values else "float32"
     if A.num_cols <= VMEM_X_MAX_COLS:
         if config.reorder is not False:
@@ -280,8 +286,11 @@ def _host_plan(A: CSRMatrix, split: int | None, config: SpMVConfig):
                               values_dtype=vdt)
         except WindowEllOverflow:
             pass
-    return build_composite(A, step_groups=config.step_groups,
-                           split_rows=split)
+    try:
+        return build_composite(A, step_groups=config.step_groups,
+                               split_rows=split)
+    except WindowEllOverflow:
+        return None
 
 
 def _resolve_pattern(A: CSRMatrix, kernel_type: KernelType,
@@ -589,9 +598,11 @@ def resolve_csr(A: CSRMatrix, kernel_type: KernelType, config: SpMVConfig,
     plan is cached under the JAX package's key (kernel type, step width,
     bf16 flag, reorder flag).  Where its composite plan finds no level that
     packs (:class:`WindowEllOverflow`), SCALAR_CSR's plan serves, as in the
-    JAX dispatch; that plan reads only ``use_vmem_x`` and the step width of
-    ``config``, so PageRank's ``SpMVConfig(pattern=True)`` gets the plan
-    that the JAX PageRank's retry under ``SpMVConfig()`` gets."""
+    JAX dispatch; the rejection is cached under that key as ``None``, so
+    the composite is tried once a matrix, not once a call.  That plan
+    reads only ``use_vmem_x`` and the step width of ``config``, so
+    PageRank's ``SpMVConfig(pattern=True)`` gets the plan that the JAX
+    PageRank's retry under ``SpMVConfig()`` gets."""
     if kernel_type in (KernelType.VECTOR_CSR, KernelType.MERGE_PATH) \
             and config.use_vmem_x:
         if A.num_cols <= PACKED_MAX_COLS:
@@ -599,15 +610,15 @@ def resolve_csr(A: CSRMatrix, kernel_type: KernelType, config: SpMVConfig,
                 resolved = _resolve_pattern(A, kernel_type, config, device)
                 if resolved is not None:
                     return resolved
-            try:
-                return cached(A, ("host", int(kernel_type),
+            resolved = cached(A, ("host", int(kernel_type),
                                   config.step_groups,
                                   bool(config.bf16_values), config.reorder),
                               device, lambda: _host_plan(
                                   A, _split(kernel_type), config), upload)
-            except WindowEllOverflow:
-                # too adversarial for the packed layout: SCALAR_CSR
-                kernel_type = KernelType.SCALAR_CSR
+            if resolved is not None:
+                return resolved
+            # too adversarial for the packed layout: SCALAR_CSR
+            kernel_type = KernelType.SCALAR_CSR
         else:
             resolved = _resolve_strips(A, kernel_type, config, device)
             if resolved is not None:
@@ -681,7 +692,9 @@ def _call(A, x, vec_size: int | None, device, resolve, model, measure: bool,
           iters: int, samples: int) -> SpMVResult:
     """The body of both entry points: :func:`_begin`'s checks; ``x`` on the
     device; the plan ``resolve(device)`` gives, recorded as the span
-    ``spmv.resolve`` (its count :func:`_packed_groups`) and timed into
+    ``spmv.resolve`` (its count :func:`_packed_groups`), and inside it the
+    span ``spmv.plan`` (its count the host plans the call built or
+    rejected, ``cached``'s misses: 1 on a miss, 0 on a hit), and timed into
     ``plan_seconds``; :func:`_execute` through the matrix's cache; an
     :class:`SpMVException`'s code into ``error_code``; and with
     ``measure``, :func:`_measure` under the byte model ``model``."""
@@ -692,10 +705,13 @@ def _call(A, x, vec_size: int | None, device, resolve, model, measure: bool,
         x = guarded_upload(x, device).float()
         if profiling.on:
             span = profiling.begin("spmv.resolve")
+            plan_span = profiling.begin("spmv.plan")
+            built = _host_builds
         t0 = time.perf_counter()
         plan = resolve(device)
         result.plan_seconds = time.perf_counter() - t0
         if profiling.on:
+            profiling.end(plan_span, _host_builds - built)
             profiling.end(span, _packed_groups(plan))
         result.y = _execute(plan, x, A._plan_cache)
     except SpMVException as e:

@@ -1,19 +1,23 @@
 """Where one SpMV's device time goes, kernel by kernel, on one NVIDIA GPU.
 
     python3 chip_profile.py [--calls 20]
-                            [--cells headline,mesh,banded,ab,levers,pagerank]
+                            [--cells served,headline,mesh,banded,ab,levers]
+                            [--cells pagerank]
                             [--cells web,pagerank1m,wide,floors,ablation,ell]
                             [--cells sharded]
                             [--cells graph500]
 
-For ``chip_smoke.py``'s matrices (``headline``: the merge-path power-law
-matrix; ``mesh``: the scrambled 2^20 mesh, served reordered; ``banded``:
-the same mesh with ``reorder=False``, its natural arm, served by a
-row-banded stack of plans; ``ab``: the planted banded and clustered
-matrices at 131,072 rows, natural and reordered; ``levers``: the headline
-with a bf16 value stream and, column-scaled, on the pattern path;
-``pagerank``: one PageRank SpMV of the 262,144-node web graph, on its
-pattern plan; and, not in the default
+For ``served``: the merge-path power-law matrix and the ``mesh1m`` cell's
+scrambled 2^20-point Delaunay mesh (``spmvbench/configs/mesh1m.json``),
+each through the dispatch's own route (its K4 rule and second opinion on:
+K4 on both); and for ``chip_smoke.py``'s matrices (``headline``: the
+merge-path power-law matrix on K1's route; ``mesh``: the scrambled 2^20
+mesh, served reordered; ``banded``: the same mesh with ``reorder=False``,
+its natural arm, served by a row-banded stack of plans; ``ab``: the
+planted banded and clustered matrices at 131,072 rows, natural and
+reordered; ``levers``: the headline with a bf16 value stream and,
+column-scaled, on the pattern path; ``pagerank``: one PageRank SpMV of the
+262,144-node web graph, on its pattern plan; and, not in the default
 cells, ``web``: the 1M-node web graph, a banded stack; ``pagerank1m``:
 PageRank's SpMV on it column-normalised, a banded pattern stack; ``wide``:
 the 1M x 4M web graph on column strips, the headline's law with 1.5M
@@ -24,12 +28,14 @@ ELL_KERNEL, the flat path; ``ell``: the 5-point stencils of
 1024 stencil column-scaled on the pattern route), each plan is resolved
 through ``spmv_csr`` (``spmv_ell`` for ``ell``; the auto configuration,
 with the cell's changes) and warmed up, then ``--calls`` calls are traced
-with ``torch.profiler``.  These cells hold K1's routes: they run with the
-dispatch's K4 rule (``spmv.merge_route``) declining every matrix, as before
-the rule.  ``graph500`` (not in the default cells) profiles the route the
-rule takes: the benchmark's ``graph500s20`` matrix (f32, auto
-configuration) and its transition matrix on PageRank's pattern route, both
-served by K4 (its two launches a call held to ``launches_per_call``).
+with ``torch.profiler``.  The cells but ``served`` and ``graph500`` hold
+K1's routes: they run with the dispatch's K4 rule (``spmv.merge_route``)
+declining every matrix and its timed second opinion off
+(``chip_smoke.window_ell_route``), as before either.  ``graph500`` (not in
+the default cells) profiles the route the rule takes: the benchmark's
+``graph500s20`` matrix (f32, auto configuration) and its transition
+matrix on PageRank's pattern route, both served by K4 (its two launches a
+call held to ``launches_per_call``).
 Per plan it prints:
 
 * the fold schedule of each section (in launch order) before and after
@@ -40,12 +46,14 @@ Per plan it prints:
   between launches, and the time of one call replayed from a CUDA graph
   (the device's own time, launch gaps included, without the host's);
 * device µs per call for each kernel name, with its launches per call,
-  and the launches per call in all; the headline's must be 8 (the gather
+  and the launches per call in all; K1's headline call must be 8 (the gather
   table's set-up, K3, the output's zero-fill, three folds, two section
   epilogues and K2), every call must set up its table with one K3 launch,
   and a call may launch nothing besides the port's kernels but the
-  output's zero-fill (and a pattern plan's scale multiply): no zero-fill
-  or copy of the table, no publish copy, no table clone, no permute pass.
+  output's zero-fill (and a pattern plan's scale multiply), and where the
+  dispatch replays the plan's captured call, its copy of x in and of y
+  out: no zero-fill or copy of the table, no publish copy, no table
+  clone, no permute pass.
   A banded call sets up, fills and folds per band, and may add one join
   (``other_launches``);
 * K1's device µs per section, in section order: the chunked fold plus its
@@ -313,8 +321,8 @@ def profile(label: str, A, x, changes: dict, calls: int, dev,
                                 spmv_ell)
     from tpu_spmv_torch.kernels.reorder import ReorderedPlan
     from tpu_spmv_torch.kernels.window_ell import BandedPlan
-    from tpu_spmv_torch.spmv import PatternPlan, launches_per_call
-    from tpu_spmv_torch.spmv import run_plan
+    from tpu_spmv_torch.spmv import (PatternPlan, graphable,
+                                     launches_per_call, run_plan)
 
     cfg = dataclasses.replace(spmv_auto_config(A), **changes)
     xd = torch.from_numpy(x).to(dev)
@@ -355,6 +363,8 @@ def profile(label: str, A, x, changes: dict, calls: int, dev,
     print_kernels(kern, calls)
     other = [e.name for e in kern if not any(k in e.name for k in OURS)]
     cap = other_launches(plan)
+    if cap is not None and graphable(plan):
+        cap += 2    # the replayed call's copy of x in and of y out
     cs.check(cap is None or len(other) <= cap * calls,
              f"{label}: {len(other) / calls:g} launches per call besides "
              f"the port's kernels: {sorted(set(other))}")
@@ -523,11 +533,28 @@ def graph500_matrix(dev):
                      m.row_ptrs)
 
 
+def mesh1m_matrix():
+    """The benchmark's ``mesh1m`` matrix as the port's CSR."""
+    import json
+    import os
+
+    from spmvbench.generators import delaunay
+    from tpu_spmv_torch import CSRMatrix
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "spmvbench", "configs", "mesh1m.json")
+    with open(path) as f:
+        m = delaunay.generate(json.load(f))
+    return CSRMatrix(m.num_rows, m.num_cols, m.values, m.col_indices,
+                     m.row_ptrs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--calls", type=int, default=20)
     ap.add_argument("--cells",
-                    default="headline,mesh,banded,ab,levers,pagerank")
+                    default="served,headline,mesh,banded,ab,levers,"
+                    "pagerank")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -542,6 +569,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     cells = args.cells.split(",")
     runs = []
+    if "served" in cells:
+        runs += [("served", cs.HEADLINE, [{}]), ("mesh1m", (), [{}])]
     if "headline" in cells or "levers" in cells:
         arms = [{"reorder": None}] if "headline" in cells else []
         if "levers" in cells:
@@ -587,7 +616,9 @@ def main() -> int:
         rng = tt.RandomGenerator(42)
         if name == "graph500":
             A = graph500_matrix(dev)
-        elif name == "power_law_csr":
+        elif name == "mesh1m":
+            A = mesh1m_matrix()
+        elif name in ("served", "power_law_csr"):
             A = rng.power_law_csr(*a)
         elif name == "web_graph_csr" and len(a) == 2:
             A = tt.transition_matrix(tt.web_graph_csr(rng, a[0], a[0],
@@ -611,7 +642,8 @@ def main() -> int:
             elif changes.get("pattern") and name in ("web_graph_1m",
                                                      "graph500"):
                 M = tt.transition_matrix(A)
-            with contextlib.nullcontext() if name == "graph500" \
+            with contextlib.nullcontext() \
+                    if name in ("served", "mesh1m", "graph500") \
                     else cs.window_ell_route():
                 profile(f"{name}{a} {changes}", M, x, changes, args.calls,
                         dev, ell=name == "stencil_csr")

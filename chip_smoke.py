@@ -38,11 +38,23 @@ Phases (each raises on failure; nothing is caught and passed over):
    at that size, timed beside it, with its share of the bound.
 6. The main path at the headline size: merge-path ``spmv_csr`` on
    ``power_law_csr(262144, 4096, avg 40, alpha 1.6)`` (about 10.3M nnz)
-   with the auto-selected configuration, checked against the CPU oracle,
-   timed with CUDA events, and held to the physics guard (streamed bytes /
-   time must not exceed 1.02 × measured STREAM).  Each kernel is then
-   compared with, and timed beside, its plain version at the plan's shapes
-   (the gather table's set-up, K3 in order, exactly; K1 held whole under
+   with the auto-selected configuration, as the dispatch serves it: the
+   card's second opinion runs once, in the first call's resolve, and must
+   serve K4 (the merge-path CSR kernel's ``MergePlan``); then the
+   ``mesh1m`` cell's scrambled 2^20-point Delaunay mesh
+   (``spmvbench/configs/mesh1m.json``) the same way, its reorder probe's
+   plan timed against K4 and K4 served.  Each is checked against the CPU
+   oracle, timed with CUDA events, its launches counted from 0 just before
+   the measured call (K4 and its fix-up a call), held to the physics guard
+   (streamed bytes / time must not exceed 1.02 × measured STREAM),
+   bit-identical across two calls and timed in turns with cuSPARSE; K4 is
+   held to its plain version under the row bound and timed beside it and
+   its bound.
+6b. K1's route on the headline, pinned (the dispatch's K4 rule and second
+   opinion off): checked against the CPU oracle, timed with CUDA events,
+   and held to the physics guard.  Each kernel is then compared with, and
+   timed beside, its plain version at the plan's shapes (the gather
+   table's set-up, K3 in order, exactly; K1 held whole under
    the row bound and bit for bit across two calls, and timed as the SpMV
    runs it, ``fold_sections``; its section epilogue on random partial
    tiles of the non-last section with the most, the table's tail
@@ -189,10 +201,12 @@ Phases (each raises on failure; nothing is caught and passed over):
     with cuSPARSE; K4 held to its plain version under the row bound and
     timed beside it, its bound and cuSPARSE.
 
-Phases 8-11 hold K1's routes (bands, pattern plans at sup 4096, the
+Phases 2-5, 6b-11 and 13-14 hold K1's routes (K1's route on the
+headline, the reordered mesh, bands, pattern plans at sup 4096, the
 natural arm of the A/B): they run with the dispatch's K4 rule
-(``spmv.merge_route``) declining every matrix, as before the rule.  The
-phases run in the order 1-6, 19, 13, 14, 7, 14's mesh plan file, 10, 9,
+(``spmv.merge_route``) declining every matrix and its timed second opinion
+off, as before either.  Phases 6 and 19 run the dispatch's own route.  The
+phases run in the order 1-6, 6b, 19, 13, 14, 7, 14's mesh plan file, 10, 9,
 11, 12, 8, 15, 16, 17, 18, each new matrix made once and dropped when its
 phases end; each phase's seconds are printed after it.
 
@@ -738,15 +752,17 @@ def hold_merge(plan, xd, A, x, what: str, timed: bool,
 @contextlib.contextmanager
 def window_ell_route():
     """The dispatch's window-ELL route for every matrix inside the block:
-    its K4 rule (``spmv.merge_route``) declines them all, as before the
-    rule, so the phases that hold K1's stacked routes keep them."""
+    its K4 rule (``spmv.merge_route``) declines them all and its timed
+    second opinion (``spmv._timer``) is off, as before either, so the
+    phases that hold K1's routes keep them."""
     spmv = sys.modules["tpu_spmv_torch.spmv"]
-    rule = spmv.merge_route
+    rule, timer = spmv.merge_route, spmv._timer
     spmv.merge_route = lambda *a, **k: False
+    spmv._timer = lambda device: None
     try:
         yield
     finally:
-        spmv.merge_route = rule
+        spmv.merge_route, spmv._timer = rule, timer
 
 
 def kernel_record(name: str, held: dict, launches: int,
@@ -1189,19 +1205,14 @@ def phase_probes(dev, stream: float) -> list:
 
 
 def phase_main(dev, stream: float) -> tuple:
-    """Phase 6, the headline.  Returns ``(K1 and K2 records, A, x)``."""
-    import numpy as np
-    import torch
-
-    from tpu_spmv_torch import (KernelType, SpMVConfig, spmv_auto_config,
-                                spmv_csr)
+    """Phase 6, the main path.  Returns ``(A, x)`` of the headline."""
+    from spmvbench.generators import delaunay
+    from tpu_spmv_torch import CSRMatrix, KernelType, spmv_auto_config
     from tpu_spmv_torch import kernels as tk
-    from tpu_spmv_torch.bandwidth import get_gpu_peak_bandwidth
-    from tpu_spmv_torch.kernels import window_ell as twe
-    from tpu_spmv_torch.spmv import MEASURE_WARMUP
-    from tpu_spmv_torch.timing import time_cuda
-    from tpu_spmv_torch.utils.testing import RandomGenerator, spmv_matches
+    from tpu_spmv_torch.kernels.merge_csr import MergePlan
+    from tpu_spmv_torch.utils.testing import RandomGenerator
 
+    spmv = sys.modules["tpu_spmv_torch.spmv"]
     t0 = time.perf_counter()
     rng = RandomGenerator(42)
     A = rng.power_law_csr(*HEADLINE)
@@ -1214,9 +1225,55 @@ def phase_main(dev, stream: float) -> tuple:
     cfg = spmv_auto_config(A)
     log(f"auto-selector: {KernelType(cfg.kernel_type).name}")
     check(cfg.kernel_type == KernelType.MERGE_PATH, "selector")
+    t0 = time.perf_counter()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "spmvbench", "configs", "mesh1m.json")
+    with open(path) as f:
+        m = delaunay.generate(json.load(f))
+    mesh = CSRMatrix(m.num_rows, m.num_cols, m.values, m.col_indices,
+                     m.row_ptrs)
+    log(f"mesh1m's mesh: {mesh.num_rows} vertices, {mesh.nnz} nnz "
+        f"(generated in {time.perf_counter() - t0:.1f} s)")
+    for what, M, xm in (
+            ("the headline, main path", A, x),
+            ("mesh1m's mesh, main path", mesh,
+             RandomGenerator(7).vector(mesh.num_cols))):
+        trials, wins = spmv._route_trials, spmv._route_wins
+        res, xd = run_cell(what, M, xm, spmv_auto_config(M), dev, stream,
+                           MergePlan)
+        launches = tk.launch_counts()["merge_csr"]
+        check((spmv._route_trials, spmv._route_wins)
+              == (trials + 1, wins + 1),
+              f"{what}: the card's trial did not run once and serve K4")
+        log(f"{what}: K4 served by the card's trial; {launches} K4 "
+            f"launches counted from 0 over the measured call")
+        repeat_and_yardstick(what, res, xd, M, dev)
+        hold_merge(res.plan, xd, M, xm, what, timed=True, stream=stream)
+        del res, xd
+    return A, x
+
+
+def phase_headline_k1(dev, stream: float, A, x) -> list:
+    """Phase 6b, K1's route on the headline, pinned (the dispatch's
+    window-ELL route, :func:`window_ell_route`).  Returns the K1 and K2
+    records."""
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch import (KernelType, SpMVConfig, spmv_auto_config,
+                                spmv_csr)
+    from tpu_spmv_torch import kernels as tk
+    from tpu_spmv_torch.bandwidth import get_gpu_peak_bandwidth
+    from tpu_spmv_torch.kernels import window_ell as twe
+    from tpu_spmv_torch.spmv import MEASURE_WARMUP
+    from tpu_spmv_torch.timing import time_cuda
+    from tpu_spmv_torch.utils.testing import spmv_matches
+
+    A.free_device()     # phase 6's plan is K4's: resolved again, pinned
+    cfg = spmv_auto_config(A)
     xd = torch.from_numpy(x).to(dev)
 
-    # the main path: counts from 0, one measured spmv_csr call
+    # K1's route: counts from 0, one measured spmv_csr call
     tk.reset_launch_counts()
     res = spmv_csr(A, xd, cfg, measure=True, measure_iters=ITERS,
                    measure_samples=SAMPLES)
@@ -1224,8 +1281,10 @@ def phase_main(dev, stream: float) -> tuple:
     counts = tk.launch_counts()
     check(res.error_code == 0, f"spmv_csr error_code {res.error_code}")
     plan = res.plan
+    check(isinstance(plan, twe.WindowEllPlan),
+          f"K1's route: served by a {type(plan).__name__}")
     calls = 1 + MEASURE_WARMUP + ITERS * SAMPLES
-    log(f"main path launches: {counts} over {calls} calls, "
+    log(f"K1's route launches: {counts} over {calls} calls, "
         f"{len(plan.sections)} sections")
     n_epi, n_k2 = epilogue_launches(plan)
     check(counts["window_ell_fold"] == calls * len(plan.sections),
@@ -1239,7 +1298,7 @@ def phase_main(dev, stream: float) -> tuple:
           "the table's set-up (K3) did not launch once per call")
     check(counts["window_ell_fold"] > 0 and counts["section_epilogue"] > 0
           and counts["unpermute"] > 0 and counts["permute_chunks"] > 0,
-          "a kernel of the main path was not launched")
+          "a kernel of K1's route was not launched")
     log(f"port kernel launches per call: 1 table set-up, "
         f"{len(plan.sections)} folds, {n_epi} section epilogues, {n_k2} K2")
     y = res.y.cpu().numpy()
@@ -1293,8 +1352,7 @@ def phase_main(dev, stream: float) -> tuple:
         f"{vres.plan.n_groups}, extras {vres.plan.n_extra}, build "
         f"{vres.plan_seconds:.2f} s")
     return [kernel_record(k, held, counts[k], stream)
-            for k in ("window_ell_fold", "section_epilogue", "unpermute")
-            ], A, x
+            for k in ("window_ell_fold", "section_epilogue", "unpermute")]
 
 
 def old_composition(rp, xd):
@@ -1626,7 +1684,7 @@ def phase_ell(dev, stream: float, A, x) -> None:
     harness and the demo.  The 5-point stencil (``bench.py:226-245``) at
     the grid sides of :data:`STENCILS` through ``spmv_ell``, one per route
     of the JAX rule (``ell_cell``), and the 1024 stencil column-scaled on
-    the pattern route; the headline's plan (phase 6's, cached on ``A``)
+    the pattern route; the headline's plan (phase 6b's, cached on ``A``)
     saved and loaded back onto the card, bit-identical; autotune on the
     headline at step widths 128 and 384; ``benchmark_csr`` and
     ``compare_gpu_cpu_csr`` on the headline, ``benchmark_ell`` on the
@@ -1815,7 +1873,7 @@ def phase_reorder_ab(dev) -> None:
 
 
 def phase_levers(dev, stream: float, A, x) -> dict:
-    """Phase 6, continued: the headline through the JAX bench's two levers
+    """Phase 6b, continued: the headline through the JAX bench's two levers
     (``bench.py:332-375``), each through ``spmv_csr`` with the headline's
     configuration, measured, counted from 0 and held to the guard, and its
     kernels held to their plain versions.  Returns K1's bf16 record."""
@@ -2510,21 +2568,24 @@ def main() -> int:
     run(phase_build)
     stream = measured_stream_bandwidth(dev)
     log(f"STREAM (256 MB read-reduce): {stream:.1f} GB/s, the bounds' rate")
-    run(phase_kernels, dev)
-    run(phase_k3, dev)
-    probe_records = run(phase_probes, dev, stream)
-    kernels, A, x = run(phase_main, dev, stream)
-    lever_record = run(phase_levers, dev, stream, A, x)
-    k4_records = run(phase_k4, dev, stream)
-    run(phase_floors, dev, stream, A, x)
-    run(phase_ell, dev, stream, A, x)
-    del A, x
-    k3_record, A, x, rp = run(phase_reorder, dev, stream)
-    run(phase_plan_file_mesh, dev, rp, x)
-    kernels.append(k3_record)
-    kernels += probe_records[:-1]
-    kernels.append(lever_record)
     with window_ell_route():
+        run(phase_kernels, dev)
+        run(phase_k3, dev)
+        probe_records = run(phase_probes, dev, stream)
+    A, x = run(phase_main, dev, stream)
+    with window_ell_route():
+        kernels = run(phase_headline_k1, dev, stream, A, x)
+        lever_record = run(phase_levers, dev, stream, A, x)
+    k4_records = run(phase_k4, dev, stream)
+    with window_ell_route():
+        run(phase_floors, dev, stream, A, x)
+        run(phase_ell, dev, stream, A, x)
+        del A, x
+        k3_record, A, x, rp = run(phase_reorder, dev, stream)
+        run(phase_plan_file_mesh, dev, rp, x)
+        kernels.append(k3_record)
+        kernels += probe_records[:-1]
+        kernels.append(lever_record)
         W = run(phase_banded, dev, stream, A, x, rp)
         del A, x, rp
         kernels.append(run(phase_pagerank, dev, stream))

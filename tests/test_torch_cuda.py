@@ -38,7 +38,12 @@ stops on a NaN residual (fault F10), and a second call on one matrix
 takes the dangling mask the first uploaded.  K4 (the merge-path CSR
 kernel) matches its plain version under the row bound and repeats bit for
 bit, its route replays its graph bit for bit, and PageRank over it stops
-with the float64 iteration.  The dispatch's captured call
+with the float64 iteration.  The dispatch's second opinion, timed once in
+a matrix's first resolve, serves K4 on ``powerlaw262k``'s law and the
+scrambled mesh, its own launches kept off the counters, and keeps
+window-ELL on HPCG's operator at a 64^3 grid; the tests that pin
+a window-ELL or reordered route through the entry turn it off
+(``window_ell_route``).  The dispatch's captured call
 (the headline-class matrix, a banded stack, the reordered banded mesh)
 equals the eager call bit for bit over 16 ``x``, returns a tensor of its
 own each call, counts the plan's launches on its first, second and tenth
@@ -49,6 +54,7 @@ measured and its guard held.
 """
 
 import dataclasses
+import functools
 import sys
 
 import numpy as np
@@ -76,6 +82,14 @@ from tpu_spmv_torch.utils.testing import (RandomGenerator,  # noqa: E402
                                           web_graph_csr)
 
 ROW_TOL = 1e-5
+
+
+def window_ell_route(monkeypatch):
+    """The dispatch's second opinion (``spmv._second_opinion``) turned off
+    for the test: the packing model's route serves untimed, a window-ELL
+    or reordered plan where the test pins one, as before the trial."""
+    monkeypatch.setattr(sys.modules["tpu_spmv_torch.spmv"], "_timer",
+                        lambda device: None)
 
 
 @pytest.fixture
@@ -405,7 +419,9 @@ def test_unpermute_kernel_matches_plain(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel_type", [KernelType.MERGE_PATH,
                                          KernelType.VECTOR_CSR])
-def test_spmv_csr_on_card_matches_oracle(matrix, cuda_device, kernel_type):
+def test_spmv_csr_on_card_matches_oracle(matrix, cuda_device, monkeypatch,
+                                        kernel_type):
+    window_ell_route(monkeypatch)
     A, x = matrix
     cfg = spmv_auto_config(A)
     cfg.kernel_type = kernel_type
@@ -459,7 +475,8 @@ def test_permute_kernel_unaligned_pointer_and_round_trip(cuda_device):
 
 
 @pytest.mark.cuda
-def test_reordered_spmv_csr_on_card_matches_oracle(cuda_device):
+def test_reordered_spmv_csr_on_card_matches_oracle(cuda_device, monkeypatch):
+    window_ell_route(monkeypatch)
     A = scrambled_banded_csr(RandomGenerator(42), 16384, 1024, 6.0)
     x = RandomGenerator(7).vector(A.num_cols)
     tk.reset_launch_counts()
@@ -478,7 +495,8 @@ def test_reordered_spmv_csr_on_card_matches_oracle(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cap", [None, 1], ids=["Rmodule", "R1"])
-def test_reordered_spmv_equals_the_old_composition(cuda_device, cap):
+def test_reordered_spmv_equals_the_old_composition(cuda_device, monkeypatch,
+                                                  cap):
     """The reordered SpMV through the composed maps (K3 setting up the
     table from x's chunks in ``col_src`` order, K2 writing output tile
     ``b`` from the inner tile ``row_src[b]``) equals, bit for bit, the old
@@ -486,6 +504,7 @@ def test_reordered_spmv_equals_the_old_composition(cuda_device, cap):
     of x, the inner SpMV, ``permute_chunks`` of its rows (three kernels);
     at the module's R and at R = 1, where K2 sums the last section's split
     tiles through the tile map."""
+    window_ell_route(monkeypatch)
     A = scrambled_banded_csr(RandomGenerator(42), 16384, 1024, 6.0)
     xd = torch.from_numpy(RandomGenerator(7).vector(A.num_cols)).to(
         cuda_device)
@@ -889,6 +908,7 @@ def test_launch_span_counts_the_plans_launches(cuda_device, matrix,
     from tpu_spmv_torch.spmv import _execute, launches_per_call
 
     profiling.clear()
+    window_ell_route(monkeypatch)
     if name == "single":
         A, x = matrix
         xd = torch.from_numpy(x).to(cuda_device)
@@ -923,6 +943,7 @@ def graph_case(name: str, monkeypatch, dev):
     from tpu_spmv_torch.spmv import _execute, resolve_csr
 
     if name == "headline":
+        window_ell_route(monkeypatch)
         A = RandomGenerator(42).power_law_csr(8192, 2048, 12.0, 1.6)
         cfg = spmv_auto_config(A)
         # the plan the calls will serve, resolved (and cached) without a
@@ -1409,6 +1430,7 @@ def test_oom_on_card_ends_the_call_with_execution(cuda_device, monkeypatch,
     A = RandomGenerator(42).power_law_csr(8192, 2048, 12.0, 1.6)
     x = RandomGenerator(7).vector(A.num_cols)
     cfg = SpMVConfig(kernel_type=KernelType.MERGE_PATH)
+    window_ell_route(monkeypatch)
     spmv_csr(A, x, cfg)                       # plan and kernels built
 
     def oom(*args, **kw):
@@ -1458,7 +1480,7 @@ def test_device_buffer_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_trace_names_the_fold(cuda_device, tmp_path):
+def test_trace_names_the_fold(cuda_device, monkeypatch, tmp_path):
     """``profiling.trace`` around an SpMV on the card writes a Chrome trace
     in which K1's kernel (``fold_chunk``) appears."""
     import json
@@ -1466,6 +1488,7 @@ def test_trace_names_the_fold(cuda_device, tmp_path):
 
     from tpu_spmv_torch import profiling
 
+    window_ell_route(monkeypatch)
     A = RandomGenerator(42).power_law_csr(8192, 2048, 12.0, 1.6)
     x = RandomGenerator(7).vector(A.num_cols)
     cfg = SpMVConfig(kernel_type=KernelType.MERGE_PATH)
@@ -1758,3 +1781,148 @@ def test_pagerank_over_k4_on_card_matches_float64(cuda_device):
     r /= r.sum()
     assert res.iterations == it
     assert np.max(np.abs(res.ranks_host() - r) / r) < 2e-6
+
+
+# ---- the second opinion: K4's call timed against window-ELL's ----
+
+@functools.lru_cache(maxsize=None)
+def trial_arrays(name: str) -> tuple:
+    if name == "powerlaw262k":
+        A = RandomGenerator(42).power_law_csr(262144, 4096, 40.0, 1.6)
+    else:
+        from spmvbench.generators import delaunay
+
+        A = delaunay.generate({"scale": 20, "patch": 128,
+                               "structure_seed": 42})
+    return A.num_rows, A.num_cols, A.values, A.col_indices, A.row_ptrs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["powerlaw262k", "mesh1m"])
+def test_second_opinion_serves_k4_on_the_card(cuda_device, monkeypatch,
+                                              name):
+    """The benchmark's two matrices that the dispatch keeps on window-ELL
+    untimed: ``powerlaw262k``, whose single plan the packing model prefers,
+    and the ``mesh1m`` law's scrambled 2^20-point Delaunay mesh, whose
+    reorder probe's plan comes before the model is asked; at their own
+    sizes, where the trial reads K4 at 0.3-0.6 of the model's route on an
+    H100, far from the margin.  The trial's timer
+    reads K4's call under ``ROUTE_MARGIN`` of the model's route, counts
+    no launch, records no span and caches nothing.  Then, the device plan
+    dropped and the host plan kept, the first call's resolve runs the
+    trial once and K4 serves: ``spmv.route`` counts 1, the module's
+    counters move by one trial and one win, the trial's launches stay off
+    the kernels' counters (the first call counts K4's two), the device
+    cache holds K4's plan alone, from the third call on the captured graph
+    replays, and each call equals K4's eager run bit for bit and the
+    float64 product within ``ROW_TOL``."""
+    from tpu_spmv_torch import profiling
+    from tpu_spmv_torch.kernels import merge_csr as km
+    from tpu_spmv_torch.spmv import (ROUTE_MARGIN, merge_route, resolve_csr,
+                                     run_plan)
+
+    tspmv = sys.modules["tpu_spmv_torch.spmv"]
+    A = CSRMatrix(*trial_arrays(name))
+    cfg = spmv_auto_config(A)
+    kt = KernelType(cfg.kernel_type)
+    if name == "powerlaw262k":
+        split = 128 if kt == KernelType.MERGE_PATH else None
+        assert not merge_route(A, split, pattern=False)
+    dev = str(cuda_device)
+    with monkeypatch.context() as mp:
+        window_ell_route(mp)
+        ell = resolve_csr(A, kt, cfg, cuda_device)
+    assert isinstance(ell, twe.WindowEllPlan if name == "powerlaw262k"
+                      else tr.ReorderedPlan)
+    k4 = km.merge_from_host(km.host_merge(A, False), cuda_device)
+    before = tk.launch_counts()
+    profiling.clear()
+    with profiling.recording():
+        ell_s, k4_s = tspmv._replay_seconds(
+            (ell, k4), torch.ones(A.num_cols, device=cuda_device))
+    spans = profiling.spans()
+    profiling.clear()
+    assert tk.launch_counts() == before and spans == []
+    assert 0 < k4_s < ROUTE_MARGIN * ell_s, (ell_s, k4_s)
+    assert not any(isinstance(k, tuple) and k[0] == "_graph"
+                   for k in A._plan_cache)
+    for key in [k for k in A._plan_cache
+                if isinstance(k, tuple) and k[-1] == dev]:
+        del A._plan_cache[key]
+    del ell, k4
+
+    xs = [torch.from_numpy(RandomGenerator(100 + k).vector(A.num_cols)).to(
+        cuda_device) for k in range(6)]
+    trials, wins = tspmv._route_trials, tspmv._route_wins
+    tk.reset_launch_counts()
+    profiling.clear()
+    try:
+        with profiling.recording():
+            first = spmv_csr(A, xs[0], cfg)
+            torch.cuda.synchronize()
+            counts = tk.launch_counts()
+            ys = [first] + [spmv_csr(A, x, cfg) for x in xs[1:]]
+        spans = profiling.spans()
+    finally:
+        profiling.clear()
+    torch.cuda.synchronize()
+    plan = first.plan
+    assert isinstance(plan, km.MergePlan) and not plan.pat
+    assert (tspmv._route_trials, tspmv._route_wins) == (trials + 1, wins + 1)
+    assert [s.count for s in spans if s.name == "spmv.route"] == [1]
+    assert [s.count for s in spans if s.name == "spmv.plan"] \
+        == [0] * len(xs)
+    assert counts["merge_csr"] == 1 + (plan.n_ctas > 1)
+    assert sum(counts.values()) == counts["merge_csr"]
+    assert [v for k, v in A._plan_cache.items()
+            if isinstance(k, tuple) and k[-1] == dev] == [plan]
+    assert [s.count for s in spans if s.name == "spmv.graph"] \
+        == [0, 0] + [1] * (len(xs) - 2)
+    for res, x in zip(ys, xs):
+        assert res.error_code == 0 and res.plan is plan
+        assert torch.equal(res.y, run_plan(plan, x))
+        assert spmv_matches(res.y.cpu().numpy(), A, x.cpu().numpy(),
+                            rel_tol=ROW_TOL)
+
+
+@pytest.mark.cuda
+def test_second_opinion_keeps_window_ell_on_the_card(cuda_device):
+    """HPCG's 27-point operator on a 64^3 local grid, natural order, which
+    the packing model keeps on one window-ELL plan: there the card times
+    window-ELL's replayed call under K4's (about 39 against 46 us on an
+    H100), so the trial keeps the model's plan.  ``spmv.route`` counts 0,
+    the module's counters move by one trial and no win, and each call
+    equals the plan's eager run bit for bit and the float64 product
+    within ``ROW_TOL``."""
+    from spmvbench.generators import hpcg
+    from tpu_spmv_torch import profiling
+    from tpu_spmv_torch.spmv import merge_route, run_plan
+
+    tspmv = sys.modules["tpu_spmv_torch.spmv"]
+    m = hpcg.operator(64, 64, 64)
+    A = CSRMatrix(m.num_rows, m.num_cols, m.values, m.col_indices,
+                  m.row_ptrs)
+    cfg = spmv_auto_config(A)
+    kt = KernelType(cfg.kernel_type)
+    split = 128 if kt == KernelType.MERGE_PATH else None
+    assert not merge_route(A, split, pattern=False)
+    xs = [torch.from_numpy(RandomGenerator(200 + k).vector(A.num_cols)).to(
+        cuda_device) for k in range(4)]
+    trials, wins = tspmv._route_trials, tspmv._route_wins
+    profiling.clear()
+    try:
+        with profiling.recording():
+            ys = [spmv_csr(A, x, cfg) for x in xs]
+        spans = profiling.spans()
+    finally:
+        profiling.clear()
+    torch.cuda.synchronize()
+    plan = ys[0].plan
+    assert isinstance(plan, twe.WindowEllPlan)
+    assert (tspmv._route_trials, tspmv._route_wins) == (trials + 1, wins)
+    assert [s.count for s in spans if s.name == "spmv.route"] == [0]
+    for res, x in zip(ys, xs):
+        assert res.error_code == 0 and res.plan is plan
+        assert torch.equal(res.y, run_plan(plan, x))
+        assert spmv_matches(res.y.cpu().numpy(), A, x.cpu().numpy(),
+                            rel_tol=ROW_TOL)

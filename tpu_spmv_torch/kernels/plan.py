@@ -88,16 +88,20 @@ _STREAM_PS = 8.3
 _SCATTER_PS = {1024: 2.3, 4096: 14.8, 16384: 69.0}   # per sup level
 # K1 against K4 (the merge-path CSR kernel, csrc/merge_csr.cu), by value
 # stream, in ps of device time: K1 a slot of _choose_sup's estimate, K4 a
-# nonzero and a row.  The dispatch (spmv.merge_route) prices K1 at the
-# estimated groups x 1,024 slots and K4 at the matrix's nonzeros and rows,
-# and serves the cheaper.  Measured on an H100 80GB HBM3 at 700 W, each
-# route's whole call replayed from a CUDA graph: graph500s20's K1 route
-# 985.8 us f32 and 635.9 us pattern over 371,139 estimated groups (3.05
-# and 1.97 ps a slot of the 315,392 built), K4 300.7 and 267.6 us over
-# 31,402,094 nonzeros and 1,048,576 rows.  Elsewhere they lean to K1: K4's
-# gathers of x are dearest on Graph500 (powerlaw262k: K4 44.9 us against
-# K1's 85.1; mesh1m unreordered: 42.5 against 695.2), and the model's
-# estimate runs low on that mesh (K1 6.89 ps an estimated slot there).
+# nonzero and a row.  They are the first opinion: the dispatch
+# (spmv.merge_route) prices K1 at the estimated groups x 1,024 slots and K4
+# at the matrix's nonzeros and rows, and serves K4 untimed where it is the
+# cheaper.  Measured on an H100 80GB HBM3 at 700 W, each route's whole call
+# replayed from a CUDA graph: graph500s20's K1 route 985.8 us f32 and 635.9
+# us pattern over 371,139 estimated groups (3.05 and 1.97 ps a slot of the
+# 315,392 built), K4 300.7 and 267.6 us over 31,402,094 nonzeros and
+# 1,048,576 rows.  These are Graph500's rates, where every gather of x
+# misses L1; on matrices whose x stays in L1 K4 runs 3.4-3.9 ps a nonzero
+# and K1 5.4-6.9 ps a slot (powerlaw262k: K4 44.9 us against K1's 85.1;
+# mesh1m unreordered: K4 42.5 against the reordered plan's 177.5), so the
+# model keeps window-ELL there.  Where it keeps an f32 window-ELL plan,
+# the card's timing of both calls is the second opinion
+# (spmv._second_opinion), once per matrix and device.
 K1_SLOT_PS = {"float32": 2.59, "pattern": 1.67}
 K4_NNZ_PS = {"float32": 9.0, "pattern": 8.0}
 K4_ROW_PS = {"float32": 17.0, "pattern": 15.0}

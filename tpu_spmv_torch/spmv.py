@@ -15,9 +15,12 @@ no-throw contract). The routes, in the JAX order:
   block-reordered plan where the reorder probe applies, else K4's plan
   (the merge-path CSR kernel, an f32 value stream) where
   :func:`merge_route` says so, else ``build_auto``'s single plan or
-  row-banded stack (with an f32 or bf16 value stream); past that width, or
-  where ``build_auto`` overflows, the composite plan (f32 levels and a flat
-  tail); past ``PACKED_MAX_COLS``, column strips;
+  row-banded stack (with an f32 or bf16 value stream); on the card, a
+  window-ELL plan of an f32 stream (reordered or not) gives way to K4's
+  where two trials on the card both time K4's call under ``ROUTE_MARGIN``
+  of its own (:func:`_second_opinion`, once per matrix and device); past
+  that width, or where ``build_auto`` overflows, the composite plan (f32
+  levels and a flat tail); past ``PACKED_MAX_COLS``, column strips;
 * SCALAR_CSR: the naive plan (no row splits, no spill), where it fits;
 * the flat path (:mod:`.kernels.scalar`) for ELL_KERNEL on a CSR, for
   ``use_vmem_x=False``, and for a structure every packed layout rejects.
@@ -84,11 +87,11 @@ from .bandwidth import (BandwidthMetrics, compute_bandwidth_csr,
 from .csr import CSRMatrix, DeviceCSR, column_scale_factor
 from .ell import DeviceELL, ELLMatrix
 from . import profiling
-from .errors import (DeviceException, SpMVError, SpMVException,
-                     guarded_upload)
+from .errors import (DeviceAllocError, DeviceException, SpMVError,
+                     SpMVException, guarded_upload)
 from .kernels import add_launch_counts, launch_counts, launch_total, upload
 from .kernels.merge_csr import (GROUP_SLOTS, MergePlan, host_merge,
-                                spmv_merge)
+                                merge_from_host, spmv_merge)
 from .kernels.plan import (K1_SLOT_PS, K4_NNZ_PS, K4_ROW_PS,
                            WindowEllOverflow, _choose_sup, build, build_auto,
                            build_composite)
@@ -116,10 +119,25 @@ MERGE_SPLIT_ROWS = 128
 # measure=True: warm-up calls before the timed samples
 MEASURE_WARMUP = 10
 
+# the second opinion (_second_opinion): K4 takes a matrix the model kept on
+# window-ELL only where its replayed call takes under this share of
+# window-ELL's in each of two trials in turn, so that a near-tie keeps the
+# JAX planner's plan and one noisy reading cannot take the route; a matrix
+# whose two calls sit within the trials' noise of the margin can still get
+# either route from one process to the next (and the two round
+# differently); each call timed as the median of ROUTE_SAMPLES batches of
+# ROUTE_ITERS back-to-back calls
+ROUTE_MARGIN = 0.9
+ROUTE_ITERS = 20
+ROUTE_SAMPLES = 5
+
 log = logging.getLogger("tpu_spmv_torch")
 
 # host artefacts made by cached(), a count for the spmv.plan span
 _host_builds = 0
+# second opinions taken (_second_opinion), and those K4 won
+_route_trials = 0
+_route_wins = 0
 
 
 class KernelType(enum.IntEnum):
@@ -235,15 +253,18 @@ def _sup_choice(A: CSRMatrix, split: int | None) -> tuple:
 
 
 def merge_route(A: CSRMatrix, split: int | None, pattern: bool) -> bool:
-    """Whether K4 (the merge-path CSR kernel) serves ``A`` in place of a
-    window-ELL plan: where its predicted device time, ``nnz`` and ``rows``
-    at ``K4_NNZ_PS`` and ``K4_ROW_PS``, is below K1's, the superblock
-    choice's estimated groups (a sampled O(nnz) model, once per ``split``,
-    memoized for the build) × 1,024 slots at ``K1_SLOT_PS``, of the f32
-    or the pattern value stream (``kernels/plan.py``).  An estimate of 0
-    groups (unknown: the dense-narrow class) or one below the nonzeros
-    prices K1 at one slot a nonzero, its least.  It reads the matrix
-    alone."""
+    """The first opinion on whether K4 (the merge-path CSR kernel) serves
+    ``A`` in place of a window-ELL plan: where its predicted device time,
+    ``nnz`` and ``rows`` at ``K4_NNZ_PS`` and ``K4_ROW_PS``, is below K1's,
+    the superblock choice's estimated groups (a sampled O(nnz) model, once
+    per ``split``, memoized for the build) × 1,024 slots at
+    ``K1_SLOT_PS``, of the f32 or the pattern value stream
+    (``kernels/plan.py``).  An estimate of 0 groups (unknown: the
+    dense-narrow class) or one below the nonzeros prices K1 at one slot a
+    nonzero, its least.  It reads the matrix alone.  Where it says K4, K4
+    serves untimed; where it keeps an f32 window-ELL plan of the CSR entry,
+    the card's timing of both calls is the second opinion
+    (:func:`_second_opinion`)."""
     _, groups = _sup_choice(A, split)
     slots = max(groups, -(-A.nnz // GROUP_SLOTS)) * GROUP_SLOTS
     v = "pattern" if pattern else "float32"
@@ -590,6 +611,80 @@ def _execute(plan: Plan, x: torch.Tensor,
     return y
 
 
+def _replay_seconds(plans: tuple, x: torch.Tensor) -> list:
+    """Seconds a call of each of ``plans`` on ``x``'s card, each served as
+    the dispatch serves a warm call: run once eagerly, then captured
+    (:class:`CallGraph`) and replayed, ``x`` copied in and ``y`` copied
+    out; timed in turns with CUDA events, the median of ``ROUTE_SAMPLES``
+    batches of ``ROUTE_ITERS`` calls after a warm one
+    (:func:`~.timing.time_turns`).  It records no span, takes its launches
+    back off the kernels' counters and drops its graphs: the dispatch
+    captures its own."""
+    from .timing import time_turns
+
+    before = launch_counts()
+    recording, profiling.on = profiling.on, False
+    try:
+        graphs = []
+        for plan in plans:
+            run_plan(plan, x)
+            graphs.append(CallGraph(plan, x))
+        return time_turns([lambda g=g: g(x) for g in graphs],
+                          iters=ROUTE_ITERS, samples=ROUTE_SAMPLES,
+                          warmup=1, device=x.device)
+    finally:
+        profiling.on = recording
+        after = launch_counts()
+        add_launch_counts({k: before[k] - after[k] for k in after})
+
+
+def _timer(device: torch.device):
+    """The second opinion's timer on ``device``: :func:`_replay_seconds`
+    on a card; ``None`` elsewhere, where the model's route stands."""
+    return _replay_seconds if device.type == "cuda" else None
+
+
+def _second_opinion(A: CSRMatrix, plan: Plan, config: SpMVConfig,
+                    device: torch.device) -> Plan:
+    """The device plan that serves ``A`` once the card has had its say.
+    Where the model (:func:`merge_route`) kept a window-ELL plan of an f32
+    value stream (a single plan, a banded stack, or a reordered plan over
+    either), K4's plan of ``A`` is made too, both calls are timed on the
+    card (:func:`_timer`) in two trials in turn, and K4 serves only where
+    its call takes under ``ROUTE_MARGIN`` of window-ELL's in both (the
+    second is skipped where the first keeps window-ELL); the loser and its
+    graph are dropped.  ``plan`` serves untimed off a card, for a bf16
+    value stream, where the caller forced the reordered plan
+    (``reorder=True``), for K4's own plan and for a plan that is not
+    :func:`graphable`; and, logged as a warning, where K4's plan or the
+    trial finds no room on the card.  Any other failure of the trial (a
+    build, launch or capture of K4 or of ``plan``) raises.  Recorded as
+    the span ``spmv.route``, its count 1 where K4 won and 0 where
+    window-ELL kept the matrix; counted in ``_route_trials`` and
+    ``_route_wins``."""
+    global _route_trials, _route_wins
+    timer = _timer(device)
+    if timer is None or config.bf16_values or config.reorder is True \
+            or isinstance(plan, MergePlan) or not graphable(plan):
+        return plan
+    if profiling.on:
+        span = profiling.begin("spmv.route")
+    try:
+        k4 = merge_from_host(host_merge(A, pattern=False), device)
+        x = torch.ones(A.num_cols, device=device)
+        won = all(k4_s < ROUTE_MARGIN * ell_s
+                  for ell_s, k4_s in (timer((plan, k4), x) for _ in range(2)))
+    except (torch.OutOfMemoryError, DeviceAllocError) as e:
+        log.warning("spmv: no room on the card for the route trial (%s); "
+                    "%s serves", e, type(plan).__name__)
+        won = False
+    _route_trials += 1
+    _route_wins += won
+    if profiling.on:
+        profiling.end(span, int(won))
+    return k4 if won else plan
+
+
 def resolve_csr(A: CSRMatrix, kernel_type: KernelType, config: SpMVConfig,
                 device: torch.device) -> Plan:
     """The plan that serves ``A`` on ``device`` (``tpu_spmv/spmv.py:137-206``,
@@ -602,7 +697,9 @@ def resolve_csr(A: CSRMatrix, kernel_type: KernelType, config: SpMVConfig,
     the composite is tried once a matrix, not once a call.  That plan
     reads only ``use_vmem_x`` and the step width of ``config``, so
     PageRank's ``SpMVConfig(pattern=True)`` gets the plan that the JAX
-    PageRank's retry under ``SpMVConfig()`` gets."""
+    PageRank's retry under ``SpMVConfig()`` gets.  On a card the packed
+    plan is the one :func:`_second_opinion` keeps, cached under the device
+    key, so its trial runs once per matrix and device."""
     if kernel_type in (KernelType.VECTOR_CSR, KernelType.MERGE_PATH) \
             and config.use_vmem_x:
         if A.num_cols <= PACKED_MAX_COLS:
@@ -614,7 +711,9 @@ def resolve_csr(A: CSRMatrix, kernel_type: KernelType, config: SpMVConfig,
                                   config.step_groups,
                                   bool(config.bf16_values), config.reorder),
                               device, lambda: _host_plan(
-                                  A, _split(kernel_type), config), upload)
+                                  A, _split(kernel_type), config),
+                              lambda host, dev: _second_opinion(
+                                  A, upload(host, dev), config, dev))
             if resolved is not None:
                 return resolved
             # too adversarial for the packed layout: SCALAR_CSR

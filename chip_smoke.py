@@ -200,13 +200,20 @@ Phases (each raises on failure; nothing is caught and passed over):
     the physics guard, bit-identical across two calls and timed in turns
     with cuSPARSE; K4 held to its plain version under the row bound and
     timed beside it, its bound and cuSPARSE.
+20. K5, the merge-path CSR SpMM, on the ``gcn256s21`` cell's matrix (the
+    GCN renormalised adjacency of a 2^21-vertex Graph500 graph,
+    ``spmvbench/generators/gcn.py``) at k = 256: ``spmv_csr`` of a 2-D
+    operand must be served by K5's plan, two launches a call; bit-identical
+    across two calls, held to its plain version and to the float64
+    product, and timed in turns with cuSPARSE's SpMM, beside its plain
+    version, its bound and 256 single-column K4 calls.
 
 Phases 2-5, 6b-11 and 13-14 hold K1's routes (K1's route on the
 headline, the reordered mesh, bands, pattern plans at sup 4096, the
 natural arm of the A/B): they run with the dispatch's K4 rule
 (``spmv.merge_route``) declining every matrix and its timed second opinion
-off, as before either.  Phases 6 and 19 run the dispatch's own route.  The
-phases run in the order 1-6, 6b, 19, 13, 14, 7, 14's mesh plan file, 10, 9,
+off, as before either.  Phases 6, 19 and 20 run the dispatch's own route.
+The phases run in the order 1-6, 6b, 19, 20, 13, 14, 7, 14's mesh plan file, 10, 9,
 11, 12, 8, 15, 16, 17, 18, each new matrix made once and dropped when its
 phases end; each phase's seconds are printed after it.
 
@@ -230,7 +237,7 @@ Everything before the last line is diagnostics.  The line before the
 ``nvidia-smi`` line is one JSON object with a record per kernel (K1's f32
 variant, K1's section epilogue, K2, K3 as the mesh's table set-up, the
 probes P4, P2, P3, P5, K1's
-bf16 and pattern variants, P1, K4 f32 and pattern); the last line is
+bf16 and pattern variants, P1, K4 f32 and pattern, K5); the last line is
 ``{"ok": true, "device":
 {...}}``.  Exits non-zero, and prints no result, where no CUDA device is
 available.  Imports nothing of JAX.
@@ -683,6 +690,7 @@ KERNEL_SOURCES = {
     "permute_chunks": ("permute.cu", "tpu_spmv/kernels/reorder.py:225"),
     "merge_csr": ("merge_csr.cu", "none (the merge-path CSR SpMV)"),
     "merge_csr_pattern": ("merge_csr.cu", "none (the merge-path CSR SpMV)"),
+    "merge_spmm": ("merge_csr.cu", "none (the merge-path CSR SpMM)"),
 }
 
 
@@ -827,7 +835,8 @@ def check_launches(counts: dict, plan, calls: int, what: str) -> None:
     want = launches_per_call(plan)
     folds = sum(counts[k] for k in FOLD_VARIANTS.values())
     got = {"fold": folds, **{k: counts[k] for k in (
-        "section_epilogue", "unpermute", "permute_chunks", "merge_csr")}}
+        "section_epilogue", "unpermute", "permute_chunks", "merge_csr",
+        "merge_spmm")}}
     check(got == {k: calls * v for k, v in want.items()},
           f"{what}: launches {got} over {calls} calls, the plan's "
           f"{want} a call")
@@ -1996,6 +2005,99 @@ def phase_k4(dev, stream: float) -> list:
     return records
 
 
+def phase_k5(dev, stream: float) -> list:
+    """Phase 20: K5, the merge-path CSR SpMM, on the ``gcn256s21`` cell's
+    matrix (the renormalised adjacency of a 2^21-vertex Graph500 graph) at
+    k = 256, through ``spmv_csr``: K5 and its fix-up launched twice a
+    call's worth from 0, bit-identical across two calls, held to its plain
+    version (column by column on the card) and to the float64 product, and
+    timed in turns with cuSPARSE's SpMM on the same matrix and operand,
+    beside 256 single-column K4 calls.  Returns its record."""
+    import torch
+
+    from spmvbench import run as harness
+    from spmvbench.reference import plain as plain_op
+    from spmvbench.reference import spmm as reference
+    from tpu_spmv_torch import CSRMatrix, spmv_auto_config, spmv_csr
+    from tpu_spmv_torch import kernels as tk
+    from tpu_spmv_torch.kernels import merge_csr as km
+    from tpu_spmv_torch.timing import time_cuda, time_turns
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "spmvbench", "configs",
+                           "gcn256s21.json")) as f:
+        config = json.load(f)
+    law = harness.load_module(os.path.join(root, "spmvbench", "generators",
+                                           "gcn.py"), "generator_gcn")
+    m = law.generate(config, 0, dev)
+    torch.cuda.synchronize()
+    log(f"gcn256s21: {m.num_rows} vertices, {m.nnz} nnz with the loops "
+        f"(generated on the card in {time.perf_counter() - t0:.1f} s)")
+    A = CSRMatrix(m.num_rows, m.num_cols, m.values, m.col_indices,
+                  m.row_ptrs)
+    k = int(config["width"])
+    g = torch.Generator(device=dev).manual_seed(7)
+    H = torch.rand(m.num_cols, k, generator=g, device=dev).mul_(2).sub_(1)
+    tk.reset_launch_counts()
+    res = spmv_csr(A, H, spmv_auto_config(A))
+    again = spmv_csr(A, H, spmv_auto_config(A))
+    torch.cuda.synchronize()
+    check(res.error_code == 0 and isinstance(res.plan, km.SpmmPlan),
+          f"gcn256s21: error {res.error_code}, plan "
+          f"{type(res.plan).__name__}")
+    plan = res.plan
+    launches = tk.launch_counts()["merge_spmm"]
+    check(launches == 4 and sum(tk.launch_counts().values()) == 4,
+          f"gcn256s21: {tk.launch_counts()} over two calls")
+    check(torch.equal(res.y, again.y),
+          "K5 is not bit-identical across two calls (gcn256s21)")
+    del again
+    plain = km.spmm_merge_plain(plan, H)
+    err = float((res.y - plain).abs().max())
+    # each entry against |A| @ |H| of its entry: K5 to float64 and to its
+    # plain version (which rounds in another order)
+    op, gap, apart = plain_op.Operator(m, dev), 0.0, 0.0
+    for c0 in range(0, k, reference.BLOCK_COLS):
+        cols = slice(c0, c0 + reference.BLOCK_COLS)
+        want, scale = reference.products(op, H[:, cols])
+        gap = max(gap, plain_op.output_gap(res.y[:, cols], want, scale))
+        apart = max(apart, plain_op.output_gap(res.y[:, cols],
+                                               plain[:, cols].double(),
+                                               scale))
+    del plain, op, want, scale
+    check(gap <= 1e-5, f"K5 vs float64 (gcn256s21): gap {gap:.3g}")
+    check(apart <= 2e-5, f"K5 vs its plain version (gcn256s21): gap "
+          f"{apart:.3g}, max|d| {err:.3g}")
+    del res
+    M = cusparse(A, dev)
+    times = time_turns([lambda: km.spmm_merge(plan, H), lambda: M @ H],
+                       iters=10, samples=SAMPLES)
+    plain_ms = time_cuda(lambda: km.spmm_merge_plain(plan, H), iters=1,
+                         samples=3, warmup=1) * 1e3
+    k4 = km.merge_from_host(km.host_merge(A, False), dev)
+    cols = list(H.t().contiguous().unbind(0))
+
+    def columns():
+        for x in cols:
+            km.spmv_merge(k4, x)
+
+    k4_ms = time_cuda(columns, iters=2, samples=3, warmup=1) * 1e3
+    nbytes = reference.spmm_bytes(m.num_rows, m.num_cols, m.nnz, k)
+    ops = reference.spmm_ops(m.nnz, k)
+    least = bound(nbytes, ops, stream)[0]
+    log(f"kernels vs plain, gcn256s21 (k = {k}): K5 max|d| {err:.3g} "
+        f"(gap {apart:.3g}), float64 gap {gap:.3g}, bit-identical across two "
+        f"calls, 2 launches "
+        f"a call; {times[0] * 1e3:.3f} ms (plain {plain_ms:.1f} ms, library "
+        f"(cuSPARSE SpMM) {times[1] * 1e3:.3f} ms, {times[0] / times[1]:.3f}"
+        f" of it; {k} single-column K4 calls {k4_ms:.2f} ms, "
+        f"{k4_ms / (times[0] * 1e3):.1f}x K5; bound {least:.3f} ms)")
+    return [record("merge_spmm", *KERNEL_SOURCES["merge_spmm"], launches,
+                   err, times[0] * 1e3, plain_ms, nbytes, ops, times[1] * 1e3,
+                   stream)]
+
+
 def power_iteration(A, iters: int, damping: float = 0.85):
     """PageRank's update in float64 on the host, ``iters`` times from the
     uniform vector, renormalised: the reference of phase 9."""
@@ -2181,7 +2283,8 @@ def sharded_launches(sh) -> dict:
     from tpu_spmv_torch.spmv import launches_per_call
 
     want = dict.fromkeys(("section_epilogue", "unpermute", "permute_chunks",
-                          "merge_csr", *FOLD_VARIANTS.values()), 0)
+                          "merge_csr", "merge_spmm",
+                          *FOLD_VARIANTS.values()), 0)
     for p in shard_plans(sh):
         per = launches_per_call(p)
         want[FOLD_VARIANTS[p.values]] += per.pop("fold")
@@ -2577,6 +2680,7 @@ def main() -> int:
         kernels = run(phase_headline_k1, dev, stream, A, x)
         lever_record = run(phase_levers, dev, stream, A, x)
     k4_records = run(phase_k4, dev, stream)
+    k4_records += run(phase_k5, dev, stream)
     with window_ell_route():
         run(phase_floors, dev, stream, A, x)
         run(phase_ell, dev, stream, A, x)

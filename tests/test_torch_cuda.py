@@ -320,7 +320,7 @@ def test_spmv_launches_and_is_bit_identical(matrix, cuda_device, cap,
         "window_ell_fold": n, "window_ell_fold_bf16": 0,
         "window_ell_fold_pattern": 0, "section_epilogue": n - 1,
         "unpermute": int(leveled or cap == 1), "permute_chunks": 1,
-        "merge_csr": 0}
+        "merge_csr": 0, "merge_spmm": 0}
     again = twe.spmv_window_ell(plan, xd)
     torch.cuda.synchronize()
     assert torch.equal(y, again)
@@ -489,7 +489,8 @@ def test_reordered_spmv_csr_on_card_matches_oracle(cuda_device, monkeypatch):
         "window_ell_fold": len(res.plan.inner.sections),
         "window_ell_fold_bf16": 0, "window_ell_fold_pattern": 0,
         "section_epilogue": len(res.plan.inner.sections) - 1,
-        "unpermute": 1, "permute_chunks": 1, "merge_csr": 0}
+        "unpermute": 1, "permute_chunks": 1, "merge_csr": 0,
+        "merge_spmm": 0}
     assert spmv_matches(res.y.cpu().numpy(), A, x, rel_tol=ROW_TOL)
 
 
@@ -1003,7 +1004,8 @@ def test_graph_calls_count_the_plans_launches(cuda_device, monkeypatch,
     expect = {"window_ell_fold": want["fold"], "window_ell_fold_bf16": 0,
               "window_ell_fold_pattern": 0,
               **{k: want[k] for k in ("section_epilogue", "unpermute",
-                                      "permute_chunks", "merge_csr")}}
+                                      "permute_chunks", "merge_csr",
+                                      "merge_spmm")}}
     assert expect["window_ell_fold"] > 0
     for k in range(1, 11):
         before = tk.launch_counts()

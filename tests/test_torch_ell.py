@@ -365,7 +365,7 @@ def test_flat_ell_path_is_deterministic_and_masks_padding():
         spmv_ell_device(d, torch.from_numpy(x[:-1]))
     assert launches_per_call(d) == dict.fromkeys(
         ("fold", "section_epilogue", "unpermute", "permute_chunks",
-         "merge_csr"), 0)
+         "merge_csr", "merge_spmm"), 0)
 
 
 def test_measure_refuses_the_cpu():

@@ -254,7 +254,7 @@ def test_dispatch_handles_the_plan(graph500):
     assert graphable(PatternPlan(plan, torch.ones(A.num_cols)))
     want = launches_per_call(plan)
     assert want == {"fold": 0, "section_epilogue": 0, "unpermute": 0,
-                    "permute_chunks": 0, "merge_csr": 2}
+                    "permute_chunks": 0, "merge_csr": 2, "merge_spmm": 0}
     assert launches_per_call(km.merge_from_host(
         km.host_merge(A, False), CPU, n_ctas=1))["merge_csr"] == 1
     assert tspmv._packed_groups(plan) == -(-A.nnz // 1024)

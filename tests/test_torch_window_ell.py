@@ -172,5 +172,5 @@ def test_launch_counts_do_not_move_on_cpu(matrix):
     assert tk.launch_counts() == {
         "window_ell_fold": 0, "window_ell_fold_bf16": 0,
         "window_ell_fold_pattern": 0, "section_epilogue": 0, "unpermute": 0,
-        "permute_chunks": 0, "merge_csr": 0}
+        "permute_chunks": 0, "merge_csr": 0, "merge_spmm": 0}
     assert sum(twe.window_ell_fold.launches.values()) == 0

@@ -3,7 +3,9 @@
 * The CSR byte model is the reference's (``bandwidth.cpp:34-42``): read
   ``nnz*(4+4) + (rows+1)*4 + cols*4``, write ``rows*4``; the ELL one
   (``bandwidth.cpp:66-75``) reads ``rows*max_nnz*(4+4) + cols*4`` and
-  writes ``rows*4``.
+  writes ``rows*4``.  For a 2-D operand of k columns, which the reference
+  has no call for, the CSR model reads ``cols*k*4`` of it and writes
+  ``rows*k*4``.
 * The peak comes from the device's own attributes, memory clock × bus width
   × 2, as the CUDA reference's ``get_gpu_peak_bandwidth`` computes it
   (``bandwidth.cpp:7-20``), read with ``cudaDeviceGetAttribute`` through
@@ -85,21 +87,24 @@ def measured_stream_bandwidth(device=None) -> float:
     return n * 4 / secs / 1e9
 
 
-def _csr_bytes(num_rows: int, num_cols: int, nnz: int) -> int:
-    """CSR byte model (``bandwidth.cpp:34-42``)."""
-    read = nnz * (4 + 4) + (num_rows + 1) * 4 + num_cols * 4
-    write = num_rows * 4
+def _csr_bytes(num_rows: int, num_cols: int, nnz: int, k: int = 1) -> int:
+    """CSR byte model (``bandwidth.cpp:34-42``), the operand and the
+    output ``k`` columns wide."""
+    read = nnz * (4 + 4) + (num_rows + 1) * 4 + num_cols * k * 4
+    write = num_rows * k * 4
     return read + write
 
 
 def compute_bandwidth_csr(num_rows: int, num_cols: int, nnz: int,
-                          elapsed_ms: float,
-                          peak_gb_s: float) -> BandwidthMetrics:
+                          elapsed_ms: float, peak_gb_s: float,
+                          k: int = 1) -> BandwidthMetrics:
     """Reference ``compute_bandwidth_csr`` (``bandwidth.cpp:22-56``), with
-    the peak passed in (see :func:`get_gpu_peak_bandwidth`)."""
+    the peak passed in (see :func:`get_gpu_peak_bandwidth`) and the
+    operand ``k`` columns wide."""
     if elapsed_ms <= 0.0:
         return BandwidthMetrics(peak_gb_s, 0.0, 0.0)
-    achieved = _csr_bytes(num_rows, num_cols, nnz) / (elapsed_ms * 1e-3) / 1e9
+    achieved = _csr_bytes(num_rows, num_cols, nnz, k) \
+        / (elapsed_ms * 1e-3) / 1e9
     eff = min(achieved / peak_gb_s, 1.0) if peak_gb_s > 0 else 0.0
     return BandwidthMetrics(peak_gb_s, achieved, eff)
 

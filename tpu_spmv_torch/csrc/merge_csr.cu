@@ -340,6 +340,207 @@ cudaError_t launch(const int32_t* row_end, const int32_t* cols,
                       n_ctas, y);
 }
 
+
+// K5: the merge-path CSR SpMM, Y = A·H for a dense row-major H of
+// num_cols x k (a graph network's node features, several right-hand
+// sides): the same split of the merge path as K4, each item now k wide.
+//
+// Bound.  H (2 GiB at 2^21 rows x 256 f32) is far past the 50 MB L2, and a
+// graph's permuted labels give its rows no locality, so each nonzero's
+// gather of the k-wide row H[col, :] (1 KB at k = 256) is a trip to HBM
+// unless the row is a hub's, which the L2 keeps: hub rows are the only
+// reuse.  The index and value streams (8 B a nonzero) and the row ends are
+// under 1% of the bytes; Y (rows x k) is written once, with streaming
+// stores so that it does not push H's hub rows out of the L2.  The least
+// time is the byte model (nnz·8 + (rows+1)·4 + cols·k·4 + rows·k·4) at the
+// card's bandwidth; what paces the kernel is the gathers of H that miss
+// the L2, and how many of them are in flight.
+//
+// Split.  The host (kernels/merge_csr.py, spmm_from_host) cuts the merge
+// path of rows + nnz items into n_shares equal shares (merge_starts, as
+// for K4), one a warp: a share's items each cost k multiply-adds (a
+// nonzero) or one k-wide store (a row end), so a share is sized in warps,
+// a few shares for each warp the card holds at once, not in CTAs.
+//
+// A share.  The warp's lanes span the k columns (blockIdx.y picks a block
+// of 32 * V of them): lane l takes columns l, l + 32, ... in units T of
+// 16 bytes (float4) where k is a multiple of 4 and H is 16-byte aligned,
+// else of one float.  The lanes hold the next 32 row ends and the next 32
+// (column, value) pairs of the share, read straight from the CSR arrays
+// (coalesced; no staging), and hand each out by a shuffle.  A row's
+// nonzeros are taken kSpmmUnroll at a time, their rows of H loaded
+// together before the multiply-adds, so each lane keeps kSpmmUnroll * V
+// 16-byte loads in flight.  The running sum of the row stays in registers;
+// a row the share closes is written once, whole, to Y.  The row open at
+// the share's end leaves its part, k wide, in the share's carry
+// (carry_row, carry_val); spmm_fixup, launched after with programmatic
+// dependent launch, adds each run of carries of one row, in share order,
+// to the row.  Each row's sum is taken in the order of its nonzeros and
+// no atomics are used, so two calls on one H give the same bits.
+
+constexpr int kSpmmThreads = 256;
+constexpr int kSpmmWarps = kSpmmThreads / 32;
+constexpr int kSpmmUnroll = 4;     // nonzeros whose rows of H are in flight
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ void madd(float& acc, float w, float g) {
+  acc = fmaf(w, g, acc);
+}
+__device__ __forceinline__ void madd(float4& acc, float w, float4 g) {
+  acc.x = fmaf(w, g.x, acc.x);
+  acc.y = fmaf(w, g.y, acc.y);
+  acc.z = fmaf(w, g.z, acc.z);
+  acc.w = fmaf(w, g.w, acc.w);
+}
+__device__ __forceinline__ void add_to(float& acc, float v) { acc += v; }
+__device__ __forceinline__ void add_to(float4& acc, float4 v) {
+  acc.x += v.x;
+  acc.y += v.y;
+  acc.z += v.z;
+  acc.w += v.w;
+}
+template <typename T>
+__device__ __forceinline__ T zero() {
+  return T{};
+}
+
+// V units T of a row a lane; width: k in units T (the row stride of H and
+// Y).  tile_row/tile_nz as K4's plan gives them: share s starts at tile
+// s * tiles and ends where share s + 1 starts.
+template <typename T, int V>
+__global__ void __launch_bounds__(kSpmmThreads)
+merge_spmm(const int32_t* __restrict__ row_end,
+           const int32_t* __restrict__ cols, const float* __restrict__ vals,
+           const T* __restrict__ h, const int32_t* __restrict__ tile_row,
+           const int32_t* __restrict__ tile_nz, int tiles, int n_shares,
+           int num_rows, int width, T* __restrict__ y,
+           int32_t* __restrict__ carry_row, T* __restrict__ carry_val) {
+  const int lane = threadIdx.x & 31;
+  const int share = blockIdx.x * kSpmmWarps + (threadIdx.x >> 5);
+  if (share >= n_shares) return;
+  int r = tile_row[share * tiles], j = tile_nz[share * tiles];
+  const int r1 = tile_row[(share + 1) * tiles];
+  const int j1 = tile_nz[(share + 1) * tiles];
+  int col[V];
+  bool live[V];
+  T acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    col[v] = blockIdx.y * 32 * V + v * 32 + lane;
+    live[v] = col[v] < width;
+    acc[v] = zero<T>();
+  }
+  // the held batches: row ends rb .. rb + 31, nonzeros jb .. jb + 31
+  int rb = r, jb = j;
+  int ev = rb + lane < r1 ? row_end[rb + lane] : 0;
+  int cv = jb + lane < j1 ? cols[jb + lane] : 0;
+  float fv = jb + lane < j1 ? vals[jb + lane] : 0.f;
+  for (;;) {
+    const int e = r < r1 ? __shfl_sync(kFull, ev, r - rb) : j1;
+    while (j < e) {
+      const int n = min(e, jb + 32) - j;   // of this row, in the batch
+      for (int u0 = 0; u0 < n; u0 += kSpmmUnroll) {
+        T g[kSpmmUnroll][V];
+        float w[kSpmmUnroll];
+#pragma unroll
+        for (int u = 0; u < kSpmmUnroll; ++u) {
+          const int s = (j - jb + u0 + u) & 31;
+          const int c = __shfl_sync(kFull, cv, s);
+          w[u] = __shfl_sync(kFull, fv, s);
+          const T* hr = h + size_t(c) * size_t(width);
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            g[u][v] = u0 + u < n && live[v] ? __ldg(hr + col[v]) : zero<T>();
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kSpmmUnroll; ++u) {
+          if (u0 + u < n) {
+#pragma unroll
+            for (int v = 0; v < V; ++v) madd(acc[v], w[u], g[u][v]);
+          }
+        }
+      }
+      j += n;
+      if (j == jb + 32) {
+        jb = j;
+        cv = jb + lane < j1 ? cols[jb + lane] : 0;
+        fv = jb + lane < j1 ? vals[jb + lane] : 0.f;
+      }
+    }
+    if (r == r1) break;
+    T* yr = y + size_t(r) * size_t(width);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (live[v]) __stcs(yr + col[v], acc[v]);
+      acc[v] = zero<T>();
+    }
+    if (++r - rb == 32) {
+      rb = r;
+      ev = rb + lane < r1 ? row_end[rb + lane] : 0;
+    }
+  }
+  if (blockIdx.y == 0 && lane == 0) {
+    carry_row[share] = r1 < num_rows ? r1 : -1;
+  }
+  T* cr = carry_val + size_t(share) * size_t(width);
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    if (live[v]) cr[col[v]] = acc[v];
+  }
+}
+
+// K5's fix-up: a warp a share; the head of each run of carries of one row
+// (share order) sums the run in order, column by column, and adds it to
+// the row the last share of the run closed.
+template <typename T>
+__global__ void __launch_bounds__(kSpmmThreads)
+spmm_fixup(const int32_t* __restrict__ carry_row,
+           const T* __restrict__ carry_val, int n, int width,
+           T* __restrict__ y) {
+  grid_dependency_wait();
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x * kSpmmWarps + (threadIdx.x >> 5);
+  if (c >= n) return;
+  const int r = carry_row[c];
+  if (r < 0 || (c > 0 && carry_row[c - 1] == r)) return;
+  int last = c + 1;
+  while (last < n && carry_row[last] == r) ++last;
+  T* yr = y + size_t(r) * size_t(width);
+  for (int t = lane; t < width; t += 32) {
+    T v = carry_val[size_t(c) * size_t(width) + t];
+    for (int e = c + 1; e < last; ++e) {
+      add_to(v, carry_val[size_t(e) * size_t(width) + t]);
+    }
+    T out = yr[t];
+    add_to(out, v);
+    yr[t] = out;
+  }
+}
+
+template <typename T, int V>
+cudaError_t launch_spmm(const int32_t* row_end, const int32_t* cols,
+                        const float* vals, const float* h,
+                        const int32_t* tile_row, const int32_t* tile_nz,
+                        int n_shares, int tiles, int num_rows, int width,
+                        float* y, int32_t* carry_row, float* carry_val,
+                        cudaStream_t stream) {
+  const dim3 grid((n_shares + kSpmmWarps - 1) / kSpmmWarps,
+                  (width + 32 * V - 1) / (32 * V));
+  auto* ht = reinterpret_cast<const T*>(h);
+  auto* yt = reinterpret_cast<T*>(y);
+  auto* ct = reinterpret_cast<T*>(carry_val);
+  merge_spmm<T, V><<<grid, kSpmmThreads, 0, stream>>>(
+      row_end, cols, vals, ht, tile_row, tile_nz, tiles, n_shares, num_rows,
+      width, yt, carry_row, ct);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_shares == 1) return err;
+  return launch_after(spmm_fixup<T>,
+                      dim3((n_shares + kSpmmWarps - 1) / kSpmmWarps),
+                      dim3(kSpmmThreads), stream, carry_row,
+                      static_cast<const T*>(ct), n_shares, width, yt);
+}
+
 }  // namespace
 
 // One SpMV: n_ctas CTAs of `tiles` tiles each (tile_row/tile_nz: the
@@ -390,4 +591,69 @@ extern "C" int tsp_merge_csr_ctas(int pattern) {
               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                     &per_sm, merge_csr<float>, kThreads, Stage<float>::kSmem);
   return err == cudaSuccess ? sms * per_sm : 0;
+}
+
+
+// One SpMM, Y = A·H (K5): n_shares warps' shares of the merge path
+// (tile_row/tile_nz: K4's plan of the matrix cut into n_shares CTAs of
+// `tiles` tiles, share s starting at tile s * tiles), then, where n_shares
+// > 1, the fix-up.  h is num_cols x k and y num_rows x k, f32, row-major;
+// `vec` 1: k a multiple of 4 and h, y and carry 16-byte aligned (the
+// float4 path), else 0.  `carry` is n_shares 4-byte words of rows, then
+// n_shares * k floats (16-byte aligned where vec), of scratch.  Launches
+// on `stream`; does not synchronize.  Returns the CUDA error of the
+// launches (0 = launched).
+extern "C" int tsp_merge_spmm(const void* row_end, const void* cols,
+                              const void* vals, const void* h,
+                              const void* tile_row, const void* tile_nz,
+                              int n_shares, int tiles, int num_rows, int k,
+                              int vec, void* y, void* carry_row,
+                              void* carry_val, void* stream) {
+  if (n_shares <= 0 || tiles <= 0 || num_rows < 0 || k <= 0
+      || (vec && k % 4)) {
+    return int(cudaErrorInvalidValue);
+  }
+  const auto* re = static_cast<const int32_t*>(row_end);
+  const auto* ci = static_cast<const int32_t*>(cols);
+  const auto* va = static_cast<const float*>(vals);
+  const auto* hf = static_cast<const float*>(h);
+  const auto* tr = static_cast<const int32_t*>(tile_row);
+  const auto* tn = static_cast<const int32_t*>(tile_nz);
+  auto* out = static_cast<float*>(y);
+  auto* crow = static_cast<int32_t*>(carry_row);
+  auto* cval = static_cast<float*>(carry_val);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int width = vec ? k / 4 : k;
+  cudaError_t err;
+  if (vec) {
+    err = width <= 32
+              ? launch_spmm<float4, 1>(re, ci, va, hf, tr, tn, n_shares,
+                                       tiles, num_rows, width, out, crow,
+                                       cval, st)
+              : launch_spmm<float4, 2>(re, ci, va, hf, tr, tn, n_shares,
+                                       tiles, num_rows, width, out, crow,
+                                       cval, st);
+  } else {
+    err = width <= 32
+              ? launch_spmm<float, 1>(re, ci, va, hf, tr, tn, n_shares, tiles,
+                                      num_rows, width, out, crow, cval, st)
+              : launch_spmm<float, 2>(re, ci, va, hf, tr, tn, n_shares, tiles,
+                                      num_rows, width, out, crow, cval, st);
+  }
+  return int(err);
+}
+
+// The warps of K5 the current device holds at once (its SMs times the
+// blocks of the k = 256 instance a SM holds, times the warps of a block);
+// 0 where the query fails.
+extern "C" int tsp_merge_spmm_warps() {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+             != cudaSuccess) {
+    return 0;
+  }
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, merge_spmm<float4, 2>, kSpmmThreads, 0);
+  return err == cudaSuccess ? sms * per_sm * kSpmmWarps : 0;
 }

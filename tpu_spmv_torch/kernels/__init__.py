@@ -3,17 +3,20 @@
 set-up, which is the chunk permute, the fold and the epilogues) and the
 banded and composite stacks of plans, column strips (:mod:`.strips`), block
 reordering (:mod:`.reorder`: the probe in NumPy, the reordered plan), the
-merge-path CSR kernel K4 (:mod:`.merge_csr`), and the flat path
+merge-path CSR kernels K4 and K5, the SpMV and the SpMM
+(:mod:`.merge_csr`), and the flat path
 (:mod:`.scalar`, plain PyTorch ops).  :func:`upload` makes the device plan
 of a host plan of any kind.
 
 Each kernel counts its launches in an attribute of a wrapper, ``launches``
-(for K1's fold a dict per value stream; K4's counts its fix-up too);
+(for K1's fold a dict per value stream; K4's and K5's count their
+fix-ups too);
 :func:`launch_counts` reads them all, :func:`launch_total` sums them,
 :func:`add_launch_counts` adds the launches a replayed CUDA graph made, and
 :func:`reset_launch_counts` sets them to 0."""
 
-from .merge_csr import HostMerge, MergePlan, merge_from_host, spmv_merge
+from .merge_csr import (HostMerge, MergePlan, SpmmPlan, merge_from_host,
+                        spmm_merge, spmv_merge)
 from .plan import HostBanded, HostComposite
 from .reorder import (HostReordered, ReorderedPlan, build_reordered,
                       reordered_from_host, spmv_reordered)
@@ -33,7 +36,7 @@ __all__ = [
     "spmv_reordered", "spmv_csr_scalar", "FOLD_VARIANTS", "permute_chunks",
     "section_epilogue", "unpermute", "window_ell_fold", "launch_counts",
     "launch_total", "add_launch_counts", "reset_launch_counts", "upload",
-    "MergePlan", "spmv_merge",
+    "MergePlan", "spmv_merge", "SpmmPlan", "spmm_merge",
 ]
 
 
@@ -57,7 +60,8 @@ def upload(host, device="cuda"):
 
 
 def reset_launch_counts() -> None:
-    for fn in (section_epilogue, unpermute, permute_chunks, spmv_merge):
+    for fn in (section_epilogue, unpermute, permute_chunks, spmv_merge,
+               spmm_merge):
         fn.launches = 0
     window_ell_fold.launches = dict.fromkeys(FOLD_VARIANTS, 0)
 
@@ -67,14 +71,16 @@ def launch_counts() -> dict:
     and pattern value streams) and its section epilogue (one launch after
     each section but the last of an SpMV), then K2 (the SpMV's final
     epilogue), K3 (the gather table's set-up, once a call, and the public
-    ``permute_chunks``) and K4 (``merge_csr``: the kernel and its fix-up,
-    counted on ``spmv_merge``)."""
+    ``permute_chunks``), K4 (``merge_csr``: the kernel and its fix-up,
+    counted on ``spmv_merge``) and K5 (``merge_spmm``: the kernel and its
+    fix-up, counted on ``spmm_merge``)."""
     counts = {name: window_ell_fold.launches[v]
               for v, name in FOLD_VARIANTS.items()}
     counts.update(section_epilogue=section_epilogue.launches,
                   unpermute=unpermute.launches,
                   permute_chunks=permute_chunks.launches,
-                  merge_csr=spmv_merge.launches)
+                  merge_csr=spmv_merge.launches,
+                  merge_spmm=spmm_merge.launches)
     return counts
 
 
@@ -83,7 +89,8 @@ def launch_total() -> int:
     dict (the dispatch reads it on each side of a recorded launch)."""
     return (sum(window_ell_fold.launches.values())
             + section_epilogue.launches + unpermute.launches
-            + permute_chunks.launches + spmv_merge.launches)
+            + permute_chunks.launches + spmv_merge.launches
+            + spmm_merge.launches)
 
 
 def add_launch_counts(counts: dict) -> None:
@@ -96,3 +103,4 @@ def add_launch_counts(counts: dict) -> None:
     unpermute.launches += counts["unpermute"]
     permute_chunks.launches += counts["permute_chunks"]
     spmv_merge.launches += counts["merge_csr"]
+    spmm_merge.launches += counts["merge_spmm"]

@@ -157,6 +157,12 @@ def kernels() -> ctypes.CDLL:
     lib.tsp_merge_csr.restype = _I
     lib.tsp_merge_csr_ctas.argtypes = [_I]
     lib.tsp_merge_csr_ctas.restype = _I
+    # K5 (csrc/merge_csr.cu)
+    lib.tsp_merge_spmm.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _P, _P, _P, _P]
+    lib.tsp_merge_spmm.restype = _I
+    lib.tsp_merge_spmm_warps.argtypes = []
+    lib.tsp_merge_spmm_warps.restype = _I
     # the benchmark probes (tpu_spmv_torch/probes)
     lib.tsp_probe_proto_v2.argtypes = [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]

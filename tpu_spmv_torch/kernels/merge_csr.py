@@ -26,6 +26,16 @@ it.
   written by the CTA that closes it, the parts of the CTAs before it (their
   carries) added in CTA order.  ``spmv_merge.launches`` counts the kernel
   launches.
+
+K5, the merge-path CSR SpMM (``Y = A @ H`` for a dense ``(num_cols, k)``
+``H``, a graph network's features or several right-hand sides), runs on
+the same split with shares for warps: :func:`spmm_from_host` cuts K4's
+plan arrays into :func:`spmm_shares` shares (a few for each warp the card
+holds at once, :data:`SPMM_WAVES`; :data:`CPU_CTAS` off the card), and
+:func:`spmm_merge` launches K5 and its k-wide fix-up on a CUDA tensor, or
+runs :func:`spmm_merge_plain` (:func:`merge_parts` over blocks of columns,
+then the fix-up) on a CPU tensor.  ``spmm_merge.launches`` counts its
+launches.
 """
 
 from __future__ import annotations
@@ -47,6 +57,12 @@ CPU_CTAS = 8
 # slots of a window-ELL group, the unit of ``spmv.resolve``'s count
 GROUP_SLOTS = 1024
 _ALIGN = 4     # the bulk copies move whole 16-byte words of 4-byte entries
+# K5's shares a warp slot: the card's warps at once times this many, so a
+# share that gathers more of its rows of H from HBM than its neighbours do
+# holds up less of the call
+SPMM_WAVES = 4
+# elements of the products a block of the plain SpMM's columns holds
+_PLAIN_ELEMS = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,12 +177,20 @@ def merge_from_host(hm: HostMerge, device="cuda",
     once (:data:`CPU_CTAS` off the card), and is never more than the
     path's tiles of :data:`TILE` items."""
     device = torch.device(device)
-    ptr = np.asarray(hm.row_ptrs, dtype=np.int64)
-    rows, nnz = hm.num_rows, int(ptr[-1])
     if n_ctas is None:
         n_ctas = card_ctas(device, hm.values is None) \
             if device.type == "cuda" else CPU_CTAS
-    n_ctas = max(1, min(int(n_ctas), -(-(rows + nnz) // TILE)))
+    items = hm.num_rows + int(hm.row_ptrs[-1])
+    return _merge_plan(hm, device, min(int(n_ctas), -(-items // TILE)))
+
+
+def _merge_plan(hm: HostMerge, device: torch.device,
+                n_ctas: int) -> MergePlan:
+    """The device plan of ``hm`` split into ``n_ctas`` shares (at least
+    one)."""
+    ptr = np.asarray(hm.row_ptrs, dtype=np.int64)
+    rows, nnz = hm.num_rows, int(ptr[-1])
+    n_ctas = max(1, int(n_ctas))
     tiles, tile_row, tile_nz = merge_starts(ptr, n_ctas)
 
     def padded(a, n: int, fill, dtype) -> np.ndarray:
@@ -192,14 +216,22 @@ def merge_parts(plan: MergePlan, x: torch.Tensor) -> tuple:
     rows, carry parts)``.  ``y[r]`` is row ``r``'s part in the CTA that
     closes it (0 for an empty row); CTA ``c``'s carry is the row open at
     its last item and that row's part in it (row -1 where it is the path's
-    end).  Each part is an ``index_add_`` of its products; on any
-    device."""
-    dev = x.device
+    end).  Each part is an ``index_add_`` of its products; on any device.
+    ``x`` may be ``(num_cols, k)``: each part is then k wide (K5's, whose
+    shares are the plan's CTAs)."""
+    return _parts(plan, _segments(plan, x.device), x)
+
+
+def _segments(plan: MergePlan, dev) -> tuple:
+    """The plan's split as :func:`_parts` reads it, on ``dev``: ``(cols,
+    vals, seg, seg_row, seg_cta, final, carry_row)``: each nonzero's
+    segment (its row's part in one CTA), each segment's row and CTA,
+    whether that CTA closes the row, and each CTA's carry row."""
     k, rows, n = plan.nnz, plan.num_rows, plan.n_ctas
     cta_row = plan.tile_row[::plan.tiles].to(dev, torch.int64)
     cta_nz = plan.tile_nz[::plan.tiles].to(dev, torch.int64)
     cols = plan.cols[:k].to(dev, torch.int64)
-    prod = x[cols] if plan.pat else plan.vals[:k].to(dev) * x[cols]
+    vals = None if plan.pat else plan.vals[:k].to(dev)
     ends = plan.row_end[:rows].to(dev, torch.int64)
     counts = torch.diff(ends, prepend=ends.new_zeros(1))
     row_of = torch.repeat_interleave(
@@ -208,15 +240,27 @@ def merge_parts(plan: MergePlan, x: torch.Tensor) -> tuple:
                                 torch.arange(k, device=dev), right=True)
     key, seg = torch.unique_consecutive(row_of * n + cta_of,
                                         return_inverse=True)
-    part = torch.zeros(len(key), dtype=torch.float32, device=dev)
-    part.index_add_(0, seg, prod)
     seg_row, seg_cta = key // n, key % n
     closer = torch.searchsorted(cta_row[1:-1], seg_row, right=True)
-    final = seg_cta == closer
-    y = torch.zeros(rows, dtype=torch.float32, device=dev)
-    y[seg_row[final]] = part[final]
     carry_row = torch.where(cta_row[1:] < rows, cta_row[1:], -1)
-    carry_val = torch.zeros(n, dtype=torch.float32, device=dev)
+    return cols, vals, seg, seg_row, seg_cta, seg_cta == closer, carry_row
+
+
+def _parts(plan: MergePlan, segs: tuple, x: torch.Tensor) -> tuple:
+    """:func:`merge_parts` of ``x`` over the split ``segs``."""
+    cols, vals, seg, seg_row, seg_cta, final, carry_row = segs
+    dev, wide = x.device, x.shape[1:]
+    prod = x[cols]
+    if vals is not None:
+        prod = (vals.view(-1, *(1,) * len(wide)) * prod)
+    part = torch.zeros((len(seg_row),) + wide, dtype=torch.float32,
+                       device=dev)
+    part.index_add_(0, seg, prod)
+    y = torch.zeros((plan.num_rows,) + wide, dtype=torch.float32,
+                    device=dev)
+    y[seg_row[final]] = part[final]
+    carry_val = torch.zeros((plan.n_ctas,) + wide, dtype=torch.float32,
+                            device=dev)
     carry_val[seg_cta[~final]] = part[~final]
     return y, carry_row, carry_val
 
@@ -269,3 +313,113 @@ def spmv_merge(plan: MergePlan, x: torch.Tensor) -> torch.Tensor:
 
 
 spmv_merge.launches = 0
+
+
+# ---- K5: the merge-path CSR SpMM ----
+
+@dataclasses.dataclass(frozen=True)
+class SpmmPlan:
+    """K5's plan on one device: K4's arrays of the matrix (``merge``, an
+    f32 value stream), its merge path cut into ``merge.n_ctas`` shares, one
+    a warp."""
+
+    merge: MergePlan
+
+    @property
+    def n_shares(self) -> int:
+        return self.merge.n_ctas
+
+    @property
+    def n_groups(self) -> int:
+        """As :attr:`MergePlan.n_groups`: the plan pads nothing."""
+        return self.merge.n_groups
+
+
+def spmm_shares(device: torch.device) -> int:
+    """K5's shares on ``device``: :data:`SPMM_WAVES` for each warp the card
+    holds at once, :data:`CPU_CTAS` off the card.  The split does not
+    depend on k, so one plan serves every width."""
+    if device.type != "cuda":
+        return CPU_CTAS
+    with on_device(device.index if device.index is not None
+                   else torch.cuda.current_device()):
+        n = kernels().tsp_merge_spmm_warps()
+    if n <= 0:
+        raise DeviceException("K5: the occupancy query failed")
+    return n * SPMM_WAVES
+
+
+def spmm_from_host(hm: HostMerge, device="cuda",
+                   n_shares: int | None = None) -> SpmmPlan:
+    """K5's device plan of ``hm`` (an f32 value stream), on the card unless
+    the caller names another device: ``n_shares`` (default
+    :func:`spmm_shares`) shares of the merge path, never more than its
+    items."""
+    if hm.values is None:
+        raise ValueError("K5 takes an f32 value stream")
+    device = torch.device(device)
+    if n_shares is None:
+        n_shares = spmm_shares(device)
+    items = hm.num_rows + int(hm.row_ptrs[-1])
+    return SpmmPlan(_merge_plan(hm, device, min(int(n_shares), items)))
+
+
+def spmm_merge_plain(plan: SpmmPlan, x: torch.Tensor) -> torch.Tensor:
+    """K5's plain version on any device: :func:`merge_parts` of blocks of
+    ``x``'s columns (their products at most ``_PLAIN_ELEMS`` elements),
+    then the fix-up, each carry added to its row."""
+    m = plan.merge
+    k = x.shape[1]
+    y = torch.empty((m.num_rows, k), dtype=torch.float32, device=x.device)
+    segs = _segments(m, x.device)
+    live = segs[-1] >= 0
+    step = max(1, _PLAIN_ELEMS // max(m.nnz, 1))
+    for c0 in range(0, k, step):
+        part, carry_row, carry_val = _parts(m, segs, x[:, c0:c0 + step])
+        y[:, c0:c0 + step] = part.index_add_(0, carry_row[live],
+                                             carry_val[live])
+    return y
+
+
+def spmm_merge(plan: SpmmPlan, x: torch.Tensor) -> torch.Tensor:
+    """``Y = A @ x`` for a contiguous f32 ``x`` of ``(num_cols, k)``
+    through K5.  On a CUDA tensor launches ``csrc/merge_csr.cu`` on the
+    current stream (K5, then its fix-up where the plan has more than one
+    share; the 16-byte path where k is a multiple of 4 and ``x`` is
+    16-byte aligned) or raises; on a CPU tensor runs
+    :func:`spmm_merge_plain`.  Returns ``(num_rows, k)`` f32."""
+    m = plan.merge
+    if x.dtype != torch.float32 or x.ndim != 2 \
+            or x.shape[0] != m.num_cols or x.shape[1] < 1 \
+            or not x.is_contiguous():
+        raise ValueError(f"K5 takes contiguous float32 x of shape "
+                         f"({m.num_cols}, k); got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if x.device != m.device:
+        raise ValueError(f"x on {x.device}, plan on {m.device}")
+    if not x.is_cuda:
+        if x.is_cpu:
+            return spmm_merge_plain(plan, x)
+        raise ValueError(f"no K5 kernel for {x.device}")
+    k = x.shape[1]
+    y = torch.empty((m.num_rows, k), dtype=torch.float32, device=x.device)
+    if m.num_rows == 0:
+        return y
+    vec = int(k % 4 == 0 and x.data_ptr() % 16 == 0)
+    carry_row = torch.empty(m.n_ctas, dtype=torch.int32, device=x.device)
+    carry_val = torch.empty((m.n_ctas, k), dtype=torch.float32,
+                            device=x.device)
+    dev = x.get_device()
+    with on_device(dev):
+        err = kernels().tsp_merge_spmm(
+            m.row_end.data_ptr(), m.cols.data_ptr(), m.vals.data_ptr(),
+            x.data_ptr(), m.tile_row.data_ptr(), m.tile_nz.data_ptr(),
+            m.n_ctas, m.tiles, m.num_rows, k, vec, y.data_ptr(),
+            carry_row.data_ptr(), carry_val.data_ptr(), _current_stream(dev))
+    if err:
+        raise DeviceException(f"merge_spmm launch: cudaError {err}")
+    spmm_merge.launches += 1 + (m.n_ctas > 1)
+    return y
+
+
+spmm_merge.launches = 0

@@ -59,6 +59,13 @@ graph's buffers, runs eagerly; a plan whose capture fails runs eagerly
 from then on, logged once.  ``measure=True``'s timed calls and PageRank's
 SpMVs run the plan eagerly.
 
+``spmv_csr`` also takes a 2-D operand ``X`` of ``(num_cols, k)`` (a graph
+network's node features, several right-hand sides), which no JAX route
+takes: K5, the merge-path CSR SpMM (:mod:`.kernels.merge_csr`), serves it
+under every kernel type, from one plan a matrix and device
+(:func:`resolve_spmm`), eagerly (a captured graph would copy the whole
+operand in and the output out on every call), its f32 value stream only.
+
 ``spmv_ell`` routes an :class:`~tpu_spmv_torch.ell.ELLMatrix` as the JAX
 ``_resolve_ell_kernel`` does (``tpu_spmv/spmv.py:557-591``): up to
 ``VMEM_X_MAX_COLS`` columns the pattern route of its CSR form where
@@ -90,8 +97,9 @@ from . import profiling
 from .errors import (DeviceAllocError, DeviceException, SpMVError,
                      SpMVException, guarded_upload)
 from .kernels import add_launch_counts, launch_counts, launch_total, upload
-from .kernels.merge_csr import (GROUP_SLOTS, MergePlan, host_merge,
-                                merge_from_host, spmv_merge)
+from .kernels.merge_csr import (GROUP_SLOTS, MergePlan, SpmmPlan,
+                                host_merge, merge_from_host, spmm_from_host,
+                                spmm_merge, spmv_merge)
 from .kernels.plan import (K1_SLOT_PS, K4_NNZ_PS, K4_ROW_PS,
                            WindowEllOverflow, _choose_sup, build, build_auto,
                            build_composite)
@@ -188,9 +196,9 @@ class PatternPlan:
 
 
 # what serves an SpMV: a packed plan or stack of them, or the matrix itself
-# on a flat path
+# on a flat path; K5's plan serves the SpMM of a 2-D operand
 Plan = (WindowEllPlan | BandedPlan | CompositePlan | StripPlan | ReorderedPlan
-        | MergePlan | PatternPlan | DeviceCSR | DeviceELL)
+        | MergePlan | PatternPlan | DeviceCSR | DeviceELL | SpmmPlan)
 
 
 @dataclasses.dataclass
@@ -386,8 +394,31 @@ def _resolve_naive(A: CSRMatrix, config: SpMVConfig,
     return cached(A, ("naive", config.step_groups), device, make, upload)
 
 
+def resolve_spmm(A: CSRMatrix, config: SpMVConfig,
+                 device: torch.device) -> SpmmPlan:
+    """K5's plan of ``A`` on ``device``, which serves the SpMM of every
+    2-D operand whatever its width or the kernel type: cached on the
+    matrix under ``"spmm"`` (the host arrays, not copies) and the device.
+    K5 streams f32 values alone, so ``bf16_values`` or ``pattern`` raise
+    ``INVALID_ARGUMENT``."""
+    if config.bf16_values or config.pattern:
+        raise SpMVException("a 2-D operand takes the f32 value stream "
+                            "alone (no bf16_values, no pattern)")
+    return cached(A, "spmm", device, lambda: host_merge(A, pattern=False),
+                  spmm_from_host)
+
+
 def run_plan(plan: Plan, x: torch.Tensor) -> torch.Tensor:
-    """``y = A @ x`` through the resolved plan, by its type."""
+    """``y = A @ x`` through the resolved plan, by its type (``Y = A @ X``
+    through K5's plan, recorded as the span ``spmv.spmm``, whose count is
+    the operand's width)."""
+    if isinstance(plan, SpmmPlan):
+        if not profiling.on:
+            return spmm_merge(plan, x)
+        span = profiling.begin("spmv.spmm")
+        y = spmm_merge(plan, x)
+        profiling.end(span, x.shape[1])
+        return y
     if isinstance(plan, ReorderedPlan):
         return spmv_reordered(plan, x)
     if isinstance(plan, PatternPlan):
@@ -414,16 +445,21 @@ def run_plan(plan: Plan, x: torch.Tensor) -> torch.Tensor:
 def launches_per_call(plan: Plan) -> dict:
     """The port's kernel launches one :func:`run_plan` of ``plan`` makes, as
     ``{"fold", "section_epilogue", "unpermute", "permute_chunks",
-    "merge_csr"}`` (K1's fold in whichever value stream the plan has): per
+    "merge_csr", "merge_spmm"}`` (K1's fold in whichever value stream the
+    plan has): per
     window-ELL plan one table set-up (K3), one fold per section, a section
     epilogue after each but the last, and K2 where the plan is leveled, its
     last section split a superblock, or a reordered plan maps its tiles;
     summed over the bands, levels or strips of a stack, with two public
     chunk permutes around a reordered banded stack; K4 and its fix-up (none
-    where the plan has one CTA) for K4's plan; none on a flat path (CSR or
+    where the plan has one CTA) for K4's plan, K5 and its fix-up (none
+    where it has one share) for K5's; none on a flat path (CSR or
     ELL)."""
     counts = dict.fromkeys(("fold", "section_epilogue", "unpermute",
-                            "permute_chunks", "merge_csr"), 0)
+                            "permute_chunks", "merge_csr", "merge_spmm"), 0)
+    if isinstance(plan, SpmmPlan):
+        counts["merge_spmm"] = 1 + (plan.n_shares > 1)
+        return counts
 
     def add(p, mapped=False):
         if isinstance(p, MergePlan):
@@ -739,7 +775,14 @@ def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
              device=None) -> SpMVResult:
     """``y = A @ x`` (reference ``spmv_csr``, ``spmv_kernels.cu:215-326``).
 
-    ``x`` is a tensor or array of ``num_cols`` values.  ``device`` is where
+    ``x`` is a tensor or array of ``num_cols`` values, or of ``(num_cols,
+    k)`` (``k`` ≥ 1 operands side by side, row-major): then ``y`` is
+    ``(num_rows, k)``, the product of each column, served by K5, the
+    merge-path CSR SpMM (:func:`resolve_spmm`), under whatever kernel type
+    ``config`` names; its value stream is f32 alone, so ``bf16_values`` or
+    ``pattern`` with a 2-D operand returns ``INVALID_ARGUMENT``.
+    ``vec_size``, where given, is checked against ``x``'s first dimension;
+    any other shape returns ``INVALID_DIMENSION``.  ``device`` is where
     the plan lives and the kernels run: the card (``"cuda"``) unless the
     caller names another, whatever device ``x`` is on.  With no CUDA device
     and none named, the call returns ``DEVICE_ALLOC`` (the code the
@@ -750,23 +793,28 @@ def spmv_csr(A: CSRMatrix | None, x, config: SpMVConfig | None = None,
     (:func:`~tpu_spmv_torch.timing.time_cuda`, which raises for any
     other device: ``MEASURE_WARMUP`` warm-up calls, then the median of
     ``measure_samples`` runs of ``measure_iters`` calls of the plan that
-    served the call) and fills the time, GFLOP/s and byte-model GB/s."""
+    served the call) and fills the time, GFLOP/s (2·nnz·k) and byte-model
+    GB/s (for a 2-D operand the SpMM model, which reads the operand and
+    writes ``y`` once, k wide)."""
     config = config or SpMVConfig()
     return _call(A, x, vec_size, device,
                  lambda dev: resolve_csr(A, KernelType(config.kernel_type),
                                          config, dev),
-                 lambda ms, peak: compute_bandwidth_csr(
-                     A.num_rows, A.num_cols, A.nnz, ms, peak),
-                 measure, measure_iters, measure_samples)
+                 lambda ms, peak, k: compute_bandwidth_csr(
+                     A.num_rows, A.num_cols, A.nnz, ms, peak, k),
+                 measure, measure_iters, measure_samples,
+                 lambda dev: resolve_spmm(A, config, dev))
 
 
-def _begin(A, x, vec_size: int | None, device) -> tuple:
+def _begin(A, x, vec_size: int | None, device,
+           two_d: bool = False) -> tuple:
     """The checks both entry points make before any device work
-    (``spmv_kernels.cu:219-232``): ``(result, x as a 1-D tensor, device)``,
+    (``spmv_kernels.cu:219-232``): ``(result, x as a tensor, device)``,
     the result carrying an error code, or the empty output of a matrix
-    with no rows, where the call ends there.  ``device`` is the card
-    unless the caller names another; with no CUDA device and none named
-    the code is ``DEVICE_ALLOC``."""
+    with no rows, where the call ends there.  ``x`` is 1-D, or 2-D of at
+    least one column where the entry takes a 2-D operand (``two_d``).
+    ``device`` is the card unless the caller names another; with no CUDA
+    device and none named the code is ``DEVICE_ALLOC``."""
     result = SpMVResult()
     if A is None or x is None:
         result.error_code = int(SpMVError.INVALID_ARGUMENT)
@@ -774,34 +822,42 @@ def _begin(A, x, vec_size: int | None, device) -> tuple:
     device = torch.device("cuda" if device is None else device)
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-    n = int(x.shape[0]) if x.ndim == 1 else -1
+    shaped = x.ndim == 1 or (x.ndim == 2 and two_d and x.shape[1] >= 1)
+    n = int(x.shape[0]) if shaped else -1
     if vec_size is None or vec_size < 0:
         vec_size = n
-    if x.ndim != 1 or not spmv_validate_dimensions(A.num_cols, vec_size) \
+    if not shaped or not spmv_validate_dimensions(A.num_cols, vec_size) \
             or vec_size != n:
         result.error_code = int(SpMVError.INVALID_DIMENSION)
     elif device.type == "cuda" and not torch.cuda.is_available():
         result.error_code = int(SpMVError.DEVICE_ALLOC)
     elif A.num_rows == 0:
-        result.y = torch.zeros(0, dtype=torch.float32, device=device)
+        result.y = torch.zeros((0,) + tuple(x.shape[1:]),
+                               dtype=torch.float32, device=device)
     return result, x, device
 
 
 def _call(A, x, vec_size: int | None, device, resolve, model, measure: bool,
-          iters: int, samples: int) -> SpMVResult:
+          iters: int, samples: int, wide=None) -> SpMVResult:
     """The body of both entry points: :func:`_begin`'s checks; ``x`` on the
-    device; the plan ``resolve(device)`` gives, recorded as the span
+    device (a 2-D operand made contiguous); the plan ``resolve(device)``
+    gives (``wide(device)`` for a 2-D operand; ``wide`` ``None`` where the
+    entry takes none), recorded as the span
     ``spmv.resolve`` (its count :func:`_packed_groups`), and inside it the
     span ``spmv.plan`` (its count the host plans the call built or
     rejected, ``cached``'s misses: 1 on a miss, 0 on a hit), and timed into
     ``plan_seconds``; :func:`_execute` through the matrix's cache; an
     :class:`SpMVException`'s code into ``error_code``; and with
     ``measure``, :func:`_measure` under the byte model ``model``."""
-    result, x, device = _begin(A, x, vec_size, device)
+    result, x, device = _begin(A, x, vec_size, device, wide is not None)
     if result.error_code or result.y is not None:
         return result
+    if x.ndim == 2:
+        resolve = wide
     try:
         x = guarded_upload(x, device).float()
+        if x.ndim == 2:
+            x = x.contiguous()
         if profiling.on:
             span = profiling.begin("spmv.resolve")
             plan_span = profiling.begin("spmv.plan")
@@ -824,23 +880,25 @@ def _call(A, x, vec_size: int | None, device, resolve, model, measure: bool,
 
 def _measure(result: SpMVResult, x: torch.Tensor, device: torch.device,
              iters: int, samples: int, nnz: int, model) -> None:
-    """Fill ``result``'s time, GFLOP/s (2·``nnz`` a call) and byte-model
-    GB/s (``model(ms, peak)``) from CUDA-event timing of the plan that
-    served it (:func:`~tpu_spmv_torch.timing.time_cuda`, which raises for
-    any other device: ``MEASURE_WARMUP`` warm-up calls, then the median of
-    ``samples`` runs of ``iters`` calls)."""
+    """Fill ``result``'s time, GFLOP/s (2·``nnz`` a call, times k for a
+    2-D operand of k columns) and byte-model GB/s (``model(ms, peak,
+    k)``, k 1 for a 1-D operand) from CUDA-event timing of the plan
+    that served it (:func:`~tpu_spmv_torch.timing.time_cuda`, which raises
+    for any other device: ``MEASURE_WARMUP`` warm-up calls, then the median
+    of ``samples`` runs of ``iters`` calls)."""
     from .bandwidth import get_gpu_peak_bandwidth
     from .timing import time_cuda
 
     plan = result.plan
+    k = x.shape[1] if x.ndim == 2 else 1
     secs = time_cuda(lambda: run_plan(plan, x), iters=iters, samples=samples,
                      warmup=MEASURE_WARMUP, device=device)
     result.elapsed_ms = secs * 1e3
-    result.gflops = 2.0 * nnz / secs / 1e9 if secs > 0 else 0.0
+    result.gflops = 2.0 * nnz * k / secs / 1e9 if secs > 0 else 0.0
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     result.bandwidth = model(result.elapsed_ms,
-                             get_gpu_peak_bandwidth(index))
+                             get_gpu_peak_bandwidth(index), k)
     result.bandwidth_gb_s = result.bandwidth.achieved_gb_s
 
 
@@ -903,9 +961,10 @@ def spmv_ell(A: ELLMatrix | None, x, config: SpMVConfig | None = None,
     named.  ``measure=True`` fills the time, the GFLOP/s of the stored
     nonzeros (the reference's host recount, ``spmv_kernels.cu:399-405``)
     and the ELL byte model's GB/s.  A route that runs out of device memory
-    ends the call with ``EXECUTION``, as in :func:`spmv_csr`."""
+    ends the call with ``EXECUTION``, as in :func:`spmv_csr`.  ``x`` is
+    1-D: a 2-D operand returns ``INVALID_DIMENSION``."""
     return _call(A, x, vec_size, device,
                  lambda dev: resolve_ell(A, config, dev),
-                 lambda ms, peak: compute_bandwidth_ell(
+                 lambda ms, peak, k: compute_bandwidth_ell(
                      A.num_rows, A.num_cols, A.max_nnz_per_row, ms, peak),
                  measure, measure_iters, measure_samples)
